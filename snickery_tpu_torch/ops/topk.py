@@ -1,0 +1,135 @@
+"""Top-k preselect helpers in PyTorch (counterpart of ``snickery_tpu.ops.topk``).
+
+- :func:`preselect_margin`: the rank-margin policy, unchanged.
+- :func:`order_topk_positions`: canonical (value, id) candidate order, an
+  exact port of the JAX function.
+- :func:`smallest_k`: exact k smallest (value, column) pairs per row, the
+  selection (and cross-chunk merge) primitive of the plain preselects.
+- :func:`topk_preselect`: plain chunked-matmul preselect over a normalised
+  (or raw + affine) DB, the non-zero-transient form.  The kernel form is in
+  :mod:`snickery_tpu_torch.ops.cuda_topk`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from snickery_tpu.const import PRESELECT_MARGIN, PRESELECT_MARGIN_SPLIT3CAT
+from snickery_tpu_torch.voicedb.device_layout import affine_rows
+
+
+def preselect_margin(use_kernel: bool, mm_precision: str,
+                     halfphone: bool = False, zero_transient: bool = False,
+                     override: int = -1) -> int:
+    """Extra preselect rank slots (same policy as the JAX package).
+
+    The zero-transient kernel ranks with the DB affine folded into the
+    targets, a differently rounded f32 expression than the exact rescore, so
+    it selects k + margin and the caller keeps the exact top k.
+    ``override`` >= 0 forces the margin (config key ``preselect_margin``).
+    """
+    if override >= 0:
+        return override
+    if use_kernel and (mm_precision != "highest" or zero_transient):
+        if mm_precision == "split3cat":
+            return PRESELECT_MARGIN_SPLIT3CAT
+        return PRESELECT_MARGIN
+    return 0
+
+
+def _sortable_key(vals: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """int64 keys whose order is the (value, column) lexicographic order.
+
+    The f32 bits map to an int32 that sorts like the float (negative values
+    get their magnitude bits flipped; -0.0 is folded onto +0.0 first), and
+    the column fills the low 32 bits.  Keys are unique per row, so a top-k
+    over them is exact and deterministic, and :func:`_from_key` recovers
+    both parts bit for bit."""
+    bits = (vals + 0.0).view(torch.int32)
+    key32 = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    return (key32.to(torch.int64) << 32) | cols.to(torch.int64)
+
+
+def _from_key(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    key32 = (keys >> 32).to(torch.int32)
+    bits = key32 ^ ((key32 >> 31) & 0x7FFFFFFF)
+    return bits.view(torch.float32), keys & 0xFFFFFFFF
+
+
+def smallest_k(scores: torch.Tensor, k: int, cols: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest (value, column) pairs of each row of ``scores`` (T, C),
+    ascending, lowest column first on equal values.  ``cols`` gives the
+    column ids, (C,) or (T, C), distinct within a row (default 0..C-1).
+    Returns (values (T, k) f32, columns (T, k) int64)."""
+    if cols is None:
+        cols = torch.arange(scores.shape[1], device=scores.device)
+    keys = torch.topk(_sortable_key(scores, cols), k, dim=1, largest=False,
+                      sorted=True).values
+    return _from_key(keys)
+
+
+def topk_preselect(targets: torch.Tensor, db: torch.Tensor, k: int,
+                   chunk: int = 8192,
+                   db_affine: tuple | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k nearest DB rows per target row (exact), plain PyTorch.
+
+    ``targets`` (T, d) and ``db`` (M, d) are normalised and weighted, or,
+    with ``db_affine = (mean, std, sqrt_w, n_real)``, ``db`` holds RAW rows
+    that are normalised chunk by chunk here, rows >= n_real pinned to the
+    1e6 never-wins sentinel.  Scores are squared distances minus ||t||^2.
+    Returns (indices (T, k) int32, scores (T, k) f32) ascending by
+    (score, index).
+    """
+    M = db.shape[0]
+    if M % chunk:
+        raise ValueError(f"db rows {M} must be a multiple of chunk {chunk}")
+    if not 1 <= k <= M:
+        raise ValueError(f"k={k} must lie in [1, {M}]")
+    vals, cols = [], []
+    for lo in range(0, M, chunk):
+        db_c = db[lo:lo + chunk]
+        if db_affine is not None:
+            mean, std, w, n_real = db_affine
+            valid = torch.arange(lo, lo + chunk, device=db.device) < n_real
+            db_c = affine_rows(db_c, mean, std, w, valid, 1e6)
+        sq_c = torch.sum(db_c * db_c, dim=-1)
+        scores = sq_c[None, :] - 2.0 * (targets @ db_c.T)
+        v, c = smallest_k(scores, min(k, chunk),
+                          torch.arange(lo, lo + chunk, device=db.device))
+        vals.append(v)
+        cols.append(c)
+    v, c = smallest_k(torch.cat(vals, 1), k, torch.cat(cols, 1))
+    return c.to(torch.int32), v
+
+
+def order_topk_positions(vals: torch.Tensor, ids: torch.Tensor,
+                         k: int) -> torch.Tensor:
+    """Positions of the k smallest (value, id) pairs per row of (T, n),
+    ascending: k argmin sweeps, ties in value broken by the lowest id, the
+    float64 oracle's (value, index) convention.  An exact port of
+    ``snickery_tpu.ops.topk.order_topk_positions``, including its behaviour
+    on exhausted rows (all +inf and already extracted) and for k > n
+    (zero-filled)."""
+    T, n = vals.shape
+    iota = torch.arange(n, dtype=torch.int32, device=vals.device).expand(T, n)
+    big = torch.tensor(2 ** 30, dtype=torch.int32, device=vals.device)
+    inf = torch.tensor(float("inf"), dtype=vals.dtype, device=vals.device)
+    nn = torch.tensor(n, dtype=torch.int32, device=vals.device)
+    v, idd = vals, ids.to(torch.int32)
+    outs = []
+    for _ in range(min(k, n)):
+        m = v.min(dim=1).values
+        tied = v == m[:, None]
+        sel_id = torch.where(tied, idd, big).min(dim=1).values
+        hit = tied & (idd == sel_id[:, None])
+        pos = torch.where(hit, iota, nn).min(dim=1).values
+        outs.append(torch.clamp(pos, max=n - 1))
+        # retire the extracted entry: value -> +inf AND id -> big
+        v = torch.where(hit, inf, v)
+        idd = torch.where(hit, big, idd)
+    outp = torch.stack(outs, dim=1)
+    if outp.shape[1] < k:
+        outp = torch.nn.functional.pad(outp, (0, k - outp.shape[1]))
+    return outp.to(torch.int64)

@@ -1,0 +1,191 @@
+"""The ported slice end to end: ``snickery_tpu_torch.Synthesiser`` on the CPU
+(the preselect kernel's plain twin) vs the JAX ``Synthesiser`` and the
+float64 oracle, on the tests/toyvoice.py epoch voice.
+
+Costs: the JAX Viterbi sums join distances through the
+``|r|^2 + |l|^2 - 2 r.l`` identity, whose f32 cancellation leaves up to a few
+1e-3 on every join, natural joins included (a zero-cost natural path comes
+out at ~0.2); the port sums the differences.  So the port's total cost is
+held to the float64 path cost of its own ids (rtol 1e-5), and the JAX cost to
+the port's within that cancellation bound.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from snickery_tpu import oracle
+from snickery_tpu.synth import Synthesiser as JaxSynthesiser
+from snickery_tpu_torch.synth import (DeviceDB, Synthesiser,
+                                      device_db_from_numpy)
+from tests.toyvoice import build_toy_voice, prepare_toy_utts, toy_config
+
+F32_EPS = float(np.finfo(np.float32).eps)
+
+
+@pytest.fixture(scope="module")
+def voices():
+    cfg, db, utts = build_toy_voice(halfphone=False, multiepoch=1)
+    held = prepare_toy_utts(1, seed0=900)[0]
+    return cfg, db, utts, held, JaxSynthesiser(cfg, db=db), Synthesiser(cfg, db, device="cpu")
+
+
+def _weighted(synth, db, ids):
+    fw = ((db.unit_features[ids] - db.mean_target) / db.std_target) * synth._sqrt_wt
+    jl = ((db.join_left[ids] - db.mean_join) / db.std_join) * synth._sqrt_wj
+    jr = ((db.join_right[ids] - db.mean_join) / db.std_join) * synth._sqrt_wj
+    return fw, jl, jr
+
+
+def _check_costs(cfg, db, synth, feats, ids, c_port, c_jax):
+    tgt, _ = synth.targets_from_features(feats)
+    tw = ((tgt - db.mean_target) / db.std_target) * synth._sqrt_wt
+    fw, jl, jr = (a.astype(np.float64) for a in _weighted(synth, db, ids))
+    jcw = cfg.join_cost_weight
+    c64 = (np.sqrt(((fw - tw) ** 2).sum(-1)).sum()
+           + jcw * np.sqrt(((jl[1:] - jr[:-1]) ** 2).sum(-1)).sum())
+    np.testing.assert_allclose(c_port, c64, rtol=1e-5, atol=1e-4)
+    # per join: sqrt of a few ulp of |r|^2 + |l|^2 (the identity's cancellation)
+    noise = jcw * np.sqrt(16 * F32_EPS * ((jl[1:] ** 2).sum(-1)
+                                          + (jr[:-1] ** 2).sum(-1))).sum()
+    assert abs(c_jax - c_port) <= 1e-5 * abs(c_port) + noise, (c_jax, c_port, noise)
+
+
+def _assert_same(cfg, db, ts, a, b, feats):
+    np.testing.assert_array_equal(b["unit_ids"], a["unit_ids"])
+    assert b["n_units"] == a["n_units"]
+    assert len(b["wave"]) == len(a["wave"])
+    np.testing.assert_allclose(b["wave"], a["wave"], atol=1e-5)
+    _check_costs(cfg, db, ts, feats, b["unit_ids"], b["total_cost"], a["total_cost"])
+
+
+def test_device_db_from_jax_matches_prepare(voices):
+    """The JAX DeviceDB's fields, fetched to numpy, make a port DeviceDB
+    equal bit for bit to the port's own _prepare_device_db."""
+    cfg, db, utts, held, js, ts = voices
+    assert ts.n_units_padded == js.n_units_padded
+    arrays = {f: np.asarray(getattr(js.device_db, f)) for f in DeviceDB.__dataclass_fields__}
+    got = device_db_from_numpy(arrays, "cpu")
+    for f in DeviceDB.__dataclass_fields__:
+        a, b = getattr(got, f), getattr(ts.device_db, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        bits = (lambda t: t.reshape(-1).view(torch.int32)
+                if t.dtype == torch.float32 else t)
+        assert torch.equal(bits(a), bits(b)), f
+
+
+@pytest.mark.parametrize("which", ["natural", "held_out"])
+def test_synth_from_features_matches_jax(voices, which):
+    cfg, db, utts, held, js, ts = voices
+    feats = utts[0].features if which == "natural" else held.features
+    a, b = js.synth_from_features(feats), ts.synth_from_features(feats)
+    _assert_same(cfg, db, ts, a, b, feats)
+    if which == "natural":
+        assert b["total_cost"] == 0.0, "the natural path must cost exactly 0"
+
+
+def test_synth_batch_matches_jax_and_single(voices):
+    cfg, db, utts, held, js, ts = voices
+    feats = [utts[0].features, utts[1].features, held.features]
+    for a, b, f in zip(js.synth_batch(feats), ts.synth_batch(feats), feats):
+        _assert_same(cfg, db, ts, a, b, f)
+        single = ts.synth_from_features(f)
+        np.testing.assert_array_equal(b["unit_ids"], single["unit_ids"])
+        np.testing.assert_allclose(b["wave"], single["wave"], atol=1e-6)
+
+
+def test_greedy_matches_jax(voices):
+    cfg, db, utts, held, js, ts = voices
+    a = js.synth_from_features(held.features, greedy=True)
+    b = ts.synth_from_features(held.features, greedy=True)
+    np.testing.assert_array_equal(b["unit_ids"], a["unit_ids"])
+    np.testing.assert_allclose(b["wave"], a["wave"], atol=1e-5)
+    np.testing.assert_allclose(b["total_cost"], a["total_cost"], rtol=1e-5)
+
+
+def test_matches_jax_pallas_interpret(voices):
+    """Against the JAX pipeline through the real Pallas kernel (interpret
+    mode): the same zero-transient preselect with the same rank margin."""
+    cfg, db, utts, held, _, ts = voices
+    js = JaxSynthesiser(toy_config(use_pallas="interpret"), db=db)
+    for feats in (utts[0].features, held.features):
+        _assert_same(cfg, db, ts, js.synth_from_features(feats),
+                     ts.synth_from_features(feats), feats)
+
+
+def test_int16_waves_match_jax(voices):
+    cfg16 = toy_config(waves_dtype="int16")
+    cfg, db, utts, held, _, _ = voices
+    a = JaxSynthesiser(cfg16, db=db).synth_from_features(held.features)
+    b = Synthesiser(cfg16, db, device="cpu").synth_from_features(held.features)
+    np.testing.assert_array_equal(b["unit_ids"], a["unit_ids"])
+    np.testing.assert_allclose(b["wave"], a["wave"], atol=1e-5)
+
+
+def test_agreement_vs_oracle(voices):
+    """Held-out target (seed 900, not in the DB) vs the float64 oracle."""
+    cfg, db, utts, held, js, ts = voices
+    ids = ts.synth_from_features(held.features)["unit_ids"]
+    tgt, _ = ts.targets_from_features(held.features)
+    tw = (((tgt - db.mean_target) / db.std_target) * ts._sqrt_wt).astype(np.float32)
+    feats = db.normalised_features().astype(np.float32) * ts._sqrt_wt[None, :]
+    jl, jr = db.normalised_joins()
+    ids_ref, _ = oracle.synth_pipeline(
+        tw, feats, (jl * ts._sqrt_wj).astype(np.float32),
+        (jr * ts._sqrt_wj).astype(np.float32),
+        n_candidates=min(cfg.n_candidates, ts.n_units_padded),
+        join_cost_weight=cfg.join_cost_weight)
+    assert (ids == ids_ref).mean() >= 0.99
+
+
+def test_cuda_device_raises_without_cuda(voices, monkeypatch):
+    cfg, db, *_ = voices
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Synthesiser(cfg, db)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Synthesiser(cfg, db, device="cuda")
+
+
+@pytest.mark.parametrize("override", [
+    {"preselect_precision": "split3cat"}, {"preload_all_waves": False},
+    {"mesh_db": 2}, {"preselection_method": "quinphone"}])
+def test_unported_modes_raise(voices, override):
+    _, db, *_ = voices
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Synthesiser(toy_config(**override), db, device="cpu")
+
+
+def test_unported_entry_points_raise(voices):
+    ts = voices[-1]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ts.synth_streaming(iter([]))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ts.resynth_magphase(np.zeros(3, np.int32))
+
+
+def test_port_imports_without_jax():
+    """Every module of the port imports with jax blocked, and none names it."""
+    pkg = Path(__file__).resolve().parents[1] / "snickery_tpu_torch"
+    modules = sorted("snickery_tpu_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
+                     for p in pkg.rglob("*.py") if p.name != "__init__.py")
+    for p in pkg.rglob("*.py"):
+        assert "import jax" not in p.read_text(), p
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name == 'jax' or name.startswith(('jax.', 'jaxlib')):\n"
+        "            raise ImportError('jax is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import importlib, snickery_tpu_torch\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "snickery_tpu_torch.Synthesiser\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=pkg.parent)
+    assert res.returncode == 0, res.stderr
