@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (snickery_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # about 75 s of command time on an H100
+    python3 chip_smoke.py            # a few minutes of command time on an H100
 
 Phases, each timed, any failure ending the run with a non-zero exit:
 
@@ -10,20 +10,36 @@ Phases, each timed, any failure ending the run with a non-zero exit:
 3. the preselect kernel against its plain PyTorch twin on the card, at
    T in {128, 2048} x M in {8192, 65536}, with duplicated DB rows (ties), and
    with T and M that are not multiples of the kernel tiles;
-4. a config-3 voice built with numpy alone: about 3,000 synthetic
-   utterances, 1,048,500 epoch units, d = 151 (mag 60, real 45, imag 45,
+4. the kernel's masked variants (voice partition, quinphone penalties, both)
+   against their twins at kd 151 and 453, T in {128, 2048, 300}, on labels
+   drawn from an 80-halfphone / 40-phone inventory and 8 voices, with a
+   voice of fewer than k rows (starved slots must read (+inf, 0)) and
+   target codes that no DB row carries (the fallback pool);
+5. config 3 (epoch units): a voice built with numpy alone, about 3,000
+   synthetic utterances, 1,048,500 units, d = 151 (mag 60, real 45, imag 45,
    lf0 1), 16 kHz, smooth AR(1) feature walks and 80-160-sample periods;
-5. the main path through the public API, ``Synthesiser(cfg, db,
-   device="cuda")``: ``synth_from_features`` on 3 utterances (one a corpus
-   utterance, which must come back as its own units) and ``synth_batch`` at
-   B = 8 and B = 32 x T = 2048, with the kernel's launch count read before
-   and after, and a per-stage split of one B = 32 step;
-6. the kernel against its twin on the voice at the main path's shapes, with
-   times;
-7. one held-out utterance against the float64 numpy oracle over the full DB.
+   the main path through ``Synthesiser(cfg, db, device="cuda")``:
+   ``synth_from_features`` on 3 utterances (a corpus utterance must come back
+   as its own units) and ``synth_batch`` at B = 8 and B = 32 x T = 2048, a
+   per-stage split of one B = 32 step, the kernel against its twin at those
+   shapes, and a held-out utterance against the float64 oracle;
+6. config 2 (halfphone units): 625 numpy-made utterances of 40 phones with
+   HalfphoneSegment labels and quinphone contexts, about 50,000 units,
+   kd = 3 x 151 = 453, n_candidates 20, length bucket 128;
+   ``synth_from_features`` and ``synth_batch`` at B = 4 with the halfphone
+   identity gate, and a held-out utterance against the float64 oracle with
+   the same penalties (path-cost gap gate);
+7. config 5 (multi-voice): 8 numpy-made voices merged into 262,144 epoch
+   units, ``synth_batch`` at B = 64 x T = 256 with mixed voices (no unit may
+   leak across voices) and a corpus utterance sent to its own voice;
+8. composition: two merged halfphone voices, a mixed-voice ``synth_batch``
+   at B = 4 (no leaks, identity match >= 0.9), once on two small voices
+   (4,800 units each) and once at config-2 scale (50,000 units each).
 
-Standard output ends with a JSON line of the kernels, the card's name and
-power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
+Each main path runs with the launch counts set to 0 just before it and read
+just after; the kernel it needs must have launched.  Standard output ends
+with a JSON line of the kernels, the card's name and power limit from
+nvidia-smi, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -37,18 +53,28 @@ import time
 
 import numpy as np
 
-SR = 16000
+from snickery_tpu_torch.synthetic_voices import (DATADIMS, KD, SR, make_halfphone_utterances,
+                                               make_utterances, phone_means)
+
 STREAMS = ["mag", "real", "imag", "lf0"]
-DATADIMS = {"mag": 60, "real": 45, "imag": 45, "lf0": 1}
-KD = sum(DATADIMS.values())
 JCW = 0.7
-N_UTTS = 3000
+N_UTTS = 3000            # config 3: 1,048,500 epoch units
 T_BUCKET = 2048
+HP_UTTS = 625            # config 2: 625 x 80 = 50,000 halfphone units
+MV_EPOCHS = [351] * 93 + [313]   # config 5: 32,768 units a voice, 8 voices
+COMP_UTTS = 60           # composition: 4,800 halfphone units a voice
 SCORE_ATOL = 1e-3        # |kernel - plain| on scores of ~1e2: f32 sums of
-                         # 151 products taken in another order
+                         # kd products taken in another order
 TIE_RTOL = 1e-5          # a differing id must be an f32 near-tie of the k-th
+F32_EPS = float(np.finfo(np.float32).eps)
 KERNEL_SOURCE = "snickery_tpu_torch/csrc/topk_preselect.cu"
-KERNEL_REPLACES = "snickery_tpu/ops/pallas_topk.py:904"
+REPLACES = {
+    "topk_preselect_zt": "snickery_tpu/ops/pallas_topk.py:904",
+    "topk_preselect_zt_part": "snickery_tpu/ops/pallas_topk.py:904 (+:187-191)",
+    "topk_preselect_zt_ling": "snickery_tpu/ops/pallas_topk.py:904 (+:192-208)",
+    "topk_preselect_zt_ling_part": "snickery_tpu/ops/pallas_topk.py:904 (+:187-208)",
+}
+JAX_TPU_CONFIG2_AGREEMENT = 0.9875   # BENCH_full.json config2, a TPU v5e run
 
 
 def log(msg: str) -> None:
@@ -97,39 +123,69 @@ def synthetic_block(rng, m: int, kd: int, dup: bool):
     return raw, (mean, std, w)
 
 
-def compare(torch, targets, raw, aff, m_rows, k):
-    """Kernel vs plain twin on the same card tensors.  Id sets must be equal
-    per row, except where the differing ids are f32 near-ties of the k-th
-    score (checked in float64); scores of shared ids within SCORE_ATOL.
-    Returns (max_abs_err, rows_with_differing_ids)."""
+def _scores64(torch, raw, aff, targets, ids, masks):
+    """Float64 ranking scores of the rows ``ids`` (n, k) for the targets
+    (n, kd), penalties and partition included."""
+    from snickery_tpu.const import ID_RANK_PENALTY
+    from snickery_tpu_torch.ops.cuda_topk import penalty_constants
+    kd = targets.shape[1]
+    mean, std, w = (a.double() for a in aff)
+    rows = raw[ids].double()
+    s = rows[..., kd] - 2.0 * torch.einsum("bkc,bc->bk", rows[..., :kd],
+                                           targets.double() * (w / std))
+    if masks:
+        tm, dm = masks["tgt_meta"][:, None, :], masks["db_meta"][ids]
+        if masks["partition"]:
+            s = torch.where(tm[..., 6] != dm[..., 6], float("inf"), s)
+        if masks["ling_weights"] is not None:
+            s = s + (tm[..., 0] != dm[..., 0]) * ID_RANK_PENALTY
+            for c, p in enumerate(penalty_constants(masks["ling_weights"])):
+                s = s + (tm[..., c + 1] != dm[..., c + 1]) * p
+    return s
+
+
+def compare(torch, targets, raw, aff, m_rows, k, **masks):
+    """Kernel vs plain twin on the same card tensors.  Per row: the same
+    number of dead slots, each (+inf, 0); id sets equal, except where the
+    differing ids are f32 near-ties of the k-th score (checked in float64,
+    penalties included); scores of shared ids within SCORE_ATOL plus one
+    f32 ulp of the score (penalised scores sit near 2^24, ulp 2).
+    Returns (max_abs_err, rows_with_differing_ids, dead slots)."""
     from snickery_tpu_torch.ops.cuda_topk import (cuda_topk_preselect,
                                                   topk_preselect_zt_plain)
-    ik, vk = cuda_topk_preselect(targets, raw, k, aff, m_rows)
-    ip, vp = topk_preselect_zt_plain(targets, raw, k, aff, m_rows)
+    ik, vk = cuda_topk_preselect(targets, raw, k, aff, m_rows, **masks)
+    ip, vp = topk_preselect_zt_plain(targets, raw, k, aff, m_rows, **masks)
     torch.cuda.synchronize()
     check(bool((ik >= 0).all() and (ik < m_rows).all()), "kernel ids in range")
-    check(bool(torch.isfinite(vk).all()), "kernel scores finite")
+    check(not bool(torch.isnan(vk).any() or (vk == -float("inf")).any()),
+          "kernel scores are finite or +inf")
+    dead_k, dead_p = torch.isinf(vk), torch.isinf(vp)
+    check(torch.equal(dead_k, dead_p), "dead (+inf) slots differ")
+    check(bool((ik[dead_k] == 0).all()), "a dead slot must read index 0")
     ik_s, ok = torch.sort(ik.long(), dim=1)
     ip_s, op = torch.sort(ip.long(), dim=1)
     vk_s, vp_s = torch.gather(vk, 1, ok), torch.gather(vp, 1, op)
     same = (ik_s == ip_s).all(dim=1)
-    err = float((vk_s[same] - vp_s[same]).abs().max()) if bool(same.any()) else 0.0
-    check(err <= SCORE_ATOL, f"score error {err} > {SCORE_ATOL}")
+    live = same[:, None] & torch.isfinite(vp_s)
+    diff = (vk_s - vp_s).abs()[live]
+    err = float(diff.max()) if diff.numel() else 0.0
+    allowed = SCORE_ATOL + F32_EPS * vp_s.abs()[live]
+    check(bool((diff <= allowed).all()), f"score error {err} beyond {SCORE_ATOL} + 1 ulp")
     bad = torch.nonzero(~same).flatten()
     if len(bad):
-        kd = targets.shape[1]
-        mean, std, w = (a.double() for a in aff)
-        t2 = targets[bad].double() * (w / std)
+        sub = {}
+        if masks:
+            sub = dict(masks, tgt_meta=masks["tgt_meta"][bad])
 
-        def f64(ids):
-            rows = raw[ids].double()                       # (nb, k, W)
-            return rows[..., kd] - 2.0 * torch.einsum("bkc,bc->bk", rows[..., :kd], t2)
+        def worst(ids):
+            s = _scores64(torch, raw, aff, targets[bad], ids[bad], sub)
+            return torch.where(torch.isinf(s), -float("inf"), s).max(1).values
 
-        worst_k, worst_p = f64(ik_s[bad]).max(1).values, f64(ip_s[bad]).max(1).values
+        worst_k, worst_p = worst(ik_s), worst(ip_s)
         gap = float(((worst_k - worst_p) / worst_p.abs().clamp(min=1.0)).max())
         check(gap <= TIE_RTOL, f"differing ids are not near-ties (gap {gap})")
         check(len(bad) <= 0.01 * targets.shape[0], f"{len(bad)} rows differ")
-    return err, int(len(bad))
+    return err, int(len(bad)), int(dead_k.sum())
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -155,97 +211,190 @@ def kernel_vs_plain_synthetic(torch) -> float:
         raw = torch.from_numpy(raw_np).to(dev)
         aff = tuple(torch.from_numpy(a).to(dev) for a in aff_np)
         tg = torch.from_numpy(rng.standard_normal((T, KD), dtype=np.float32)).to(dev)
-        err, nbad = compare(torch, tg, raw, aff, M, 40)
+        err, nbad, _ = compare(torch, tg, raw, aff, M, 40)
         worst = max(worst, err)
         log(f"kernel vs plain T={T} M={M} kd={KD} k=40 dup={dup}: "
             f"max_abs_err {err:.3e}, rows with near-tie id swaps {nbad}")
     return worst
 
 
-# ------------------------------------------------------------- config-3 voice
-def make_utterances(rng, n_utts: int, n_epochs, prefix: str):
-    """Synthetic epoch-rate utterances (numpy only): a smooth f0 contour gives
-    80-160-sample periods; features are an AR(1) walk per utterance (so
-    natural joins matter); waves are low-amplitude noise of matching length."""
-    from snickery_tpu.voicedb.build import UtteranceData
-    n_epochs = np.broadcast_to(np.asarray(n_epochs), (n_utts,))
-    E = int(n_epochs.max())
-    a = np.float32(0.95)
-    x = rng.standard_normal((n_utts, KD), dtype=np.float32)
-    feats = np.empty((n_utts, E, KD), np.float32)
-    for e in range(E):
-        feats[:, e] = x
-        x = a * x + np.float32(np.sqrt(1 - a * a)) * rng.standard_normal(
-            (n_utts, KD), dtype=np.float32)
-    phase = rng.uniform(0, 2 * np.pi, (n_utts, 1))
-    rate = rng.uniform(0.005, 0.02, (n_utts, 1))
-    periods = np.rint(120 + 40 * np.sin(rate * np.arange(E)[None, :] + phase)).astype(np.int64)
-    feats[:, :, -1] = np.log(SR / periods).astype(np.float32)        # lf0
-    utts = []
-    for u in range(n_utts):
-        n = int(n_epochs[u])
-        epochs = 160 + np.cumsum(periods[u, :n]) - periods[u, 0]
-        wave = 0.05 * rng.standard_normal(int(epochs[-1]) + 200, dtype=np.float32)
-        utts.append(UtteranceData(
-            basename=f"{prefix}{u:05d}", wave=wave, epochs=epochs.astype(np.int32),
-            features=np.ascontiguousarray(feats[u, :n]),
-            lf0=feats[u, :n, -1].copy()))
-    return utts
+def synthetic_labels(rng, T: int, M: int, k: int):
+    """Target and DB labels from an 80-halfphone / 40-phone inventory and 8
+    voices: 16 targets ask for a code no DB row carries, 32 for voice 7,
+    which has k // 2 rows, and 8 for voice 9, which has none."""
+    tc = rng.integers(0, 80, T).astype(np.int32)
+    tc[:16] = 80
+    tx = rng.integers(0, 40, (T, 5)).astype(np.int32)
+    tv = rng.integers(0, 7, T).astype(np.int32)
+    tv[16:48] = 7
+    tv[48:56] = 9
+    dc = rng.integers(0, 80, M).astype(np.int32)
+    dx = rng.integers(0, 40, (M, 5)).astype(np.int32)
+    dv = rng.integers(0, 7, M).astype(np.int32)
+    dv[rng.choice(M, k // 2, replace=False)] = 7
+    return tc, tx, tv, dc, dx, dv
 
 
+def kernel_variants_synthetic(torch) -> dict:
+    """Every masked variant against its twin at kd 151 and 453; returns
+    {kernel name: max_abs_err}."""
+    from snickery_tpu.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
+    from snickery_tpu_torch.ops.cuda_topk import kernel_name, pack_meta
+    from snickery_tpu_torch.synth import BACKOFF_LING_WEIGHTS
+    dev = torch.device("cuda")
+    errs = {}
+    variants = [(True, None), (False, (*QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE)),
+                (True, BACKOFF_LING_WEIGHTS)]
+    for kd in (KD, 3 * KD):
+        for T, M in ((128, 65536), (2048, 65536), (300, 8192 + 37)):
+            rng = np.random.default_rng(kd + T)
+            raw_np, aff_np = synthetic_block(rng, M, kd, False)
+            raw = torch.from_numpy(raw_np).to(dev)
+            aff = tuple(torch.from_numpy(a).to(dev) for a in aff_np)
+            tg = torch.from_numpy(rng.standard_normal((T, kd), dtype=np.float32)).to(dev)
+            tc, tx, tv, dc, dx, dv = (torch.from_numpy(a).to(dev)
+                                      for a in synthetic_labels(rng, T, M, 30))
+            meta = dict(tgt_meta=pack_meta(tc, tx, tv), db_meta=pack_meta(dc, dx, dv))
+            for partition, weights in variants:
+                name = kernel_name(partition, weights is not None)
+                err, nbad, dead = compare(torch, tg, raw, aff, M, 30, partition=partition,
+                                          ling_weights=weights, **meta)
+                errs[name] = max(errs.get(name, 0.0), err)
+                if partition:
+                    check(dead >= 32 * 15 + 8 * 30, f"starved slots missing ({dead})")
+                log(f"{name} vs plain T={T} M={M} kd={kd} k=30: max_abs_err {err:.3e}, "
+                    f"near-tie id swaps {nbad}, dead slots {dead}")
+    return errs
+
+
+# -------------------------------------------------------------- voice checks
 def natural_rate(db, ids) -> float:
     return float((np.diff(db.unit_pos[ids]) == 1).mean())
 
 
-def path_cost(db, synth, tw, ids) -> float:
-    f64 = np.float64
+def weighted(db, synth, ids):
     fw = ((db.unit_features[ids] - db.mean_target) / db.std_target) * synth._sqrt_wt
     jl = ((db.join_left[ids] - db.mean_join) / db.std_join) * synth._sqrt_wj
     jr = ((db.join_right[ids] - db.mean_join) / db.std_join) * synth._sqrt_wj
+    return fw, jl, jr
+
+
+def path_cost(db, synth, tw, ids, masked=None) -> float:
+    """Float64 cost of a unit path in the oracle's terms; ``masked`` (T,)
+    bool marks steps whose cost the identity rule raises to BIG_PENALTY."""
+    from snickery_tpu.const import BIG_PENALTY
+    f64 = np.float64
+    fw, jl, jr = weighted(db, synth, ids)
     tc = np.sqrt(((fw.astype(f64) - tw.astype(f64)) ** 2).sum(-1))
+    if masked is not None:
+        tc = np.where(masked, np.maximum(tc, BIG_PENALTY), tc)
     jc = np.sqrt(((jl[1:].astype(f64) - jr[:-1].astype(f64)) ** 2).sum(-1))
     return float(tc.sum() + JCW * jc.sum())
 
 
-def main() -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke.py: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import snickery_tpu_torch  # noqa: F401  (fails where the port is absent)
-    from snickery_tpu_torch.ops import _build, cuda_topk
-
-    smi = nvidia_smi_line()
-    with Phase("card"):
-        log(f"nvidia-smi: {smi}")
-        nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
-                              text=True, check=True).stdout.strip().splitlines()[-1]
-        log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc: {nvcc}, "
-            f"device 0: {torch.cuda.get_device_name(0)}, "
-            f"count {torch.cuda.device_count()}")
-    with Phase("kernel build"):
-        lib = _build.kernel_library()
-        log(f"built {lib.path.name} in {lib.build_seconds:.1f} s")
-        for line in lib.compiler_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas: {line.strip()}")
-    with Phase("kernel vs plain, synthetic"):
-        max_err = kernel_vs_plain_synthetic(torch)
-
-    from snickery_tpu import oracle
+def smoke_config(**over):
     from snickery_tpu.config import SnickeryConfig
+    base = dict(workdir=os.path.join("build", "chip_smoke"), stream_list=list(STREAMS),
+                datadims=dict(DATADIMS), sample_rate=SR, n_candidates=30,
+                taper_length=50, join_cost_weight=JCW, voice_name="smoke")
+    base.update(over)
+    return SnickeryConfig(**base)
+
+
+# --------------------------------------------------------------- main paths
+class Run:
+    """Shared state of one smoke run: counts, errors and times per kernel."""
+
+    def __init__(self, torch):
+        from snickery_tpu_torch.ops import cuda_topk
+        self.torch, self.cuda_topk = torch, cuda_topk
+        self.launches: dict[str, int] = {}
+        self.errs: dict[str, float] = {}
+        self.times: dict[str, tuple[float, float]] = {}
+
+    def main_path(self, label: str, kernel: str, fn):
+        """Drive one main path with every count set to 0 just before and
+        read just after; its kernel must have launched."""
+        counts = self.cuda_topk.LAUNCH_COUNTS
+        counts.clear()
+        out = fn()
+        got = dict(counts)
+        log(f"{label}: kernel launches {got}")
+        check(got.get(kernel, 0) > 0, f"{label} never launched {kernel}")
+        self.launches[kernel] = self.launches.get(kernel, 0) + got[kernel]
+        return out
+
+    def kernel_at(self, kernel, synth, tgts, kwargs, T_list):
+        """The kernel against its twin, and both timed, at the main path's
+        shapes (the last of ``T_list`` is the one reported)."""
+        from snickery_tpu_torch.ops.cuda_topk import topk_preselect_zt_plain
+        from snickery_tpu_torch.ops.topk import preselect_margin
+        from snickery_tpu_torch.synth import fused_masks
+        torch, d = self.torch, synth.device_db
+        aff = (d.mean_t, d.std_t, d.sqrt_wt)
+        kd = tgts.shape[-1]
+        tw = ((tgts - d.mean_t) / d.std_t * d.sqrt_wt).reshape(-1, kd).contiguous()
+        m_rows = d.cut1.shape[0]
+        k = min(kwargs["n_cand"] + preselect_margin(True, "highest", zero_transient=True,
+                                                    override=kwargs["margin"]), m_rows)
+        masks = fused_masks(d, kwargs["tgt_codes"], kwargs["tgt_ctx"], kwargs["tgt_vids"],
+                            halfphone=kwargs["halfphone"], multivoice=kwargs["multivoice"],
+                            ling_weights=kwargs["ling_weights"])
+        for T in T_list:
+            x = tw[:T].contiguous()
+            m = dict(masks, tgt_meta=masks["tgt_meta"][:T].contiguous()) if masks else {}
+            err, nbad, dead = compare(torch, x, d.raw, aff, m_rows, k, **m)
+            self.errs[kernel] = max(self.errs.get(kernel, 0.0), err)
+            ms = time_ms(torch, lambda: self.cuda_topk.cuda_topk_preselect(
+                x, d.raw, k, aff, m_rows, **m), 3)
+            plain_ms = time_ms(torch, lambda: topk_preselect_zt_plain(
+                x, d.raw, k, aff, m_rows, **m), 1)
+            self.times[kernel] = (ms, plain_ms)
+            log(f"{kernel} T={T} M={m_rows} kd={kd} k={k}: kernel {ms:.2f} ms, plain "
+                f"{plain_ms:.2f} ms, max_abs_err {err:.3e}, near-tie id swaps {nbad}, "
+                f"dead slots {dead}")
+
+
+def timed_batch(torch, synth, reps: int, *args, **kw):
+    synth.synth_batch(*args, **kw)                              # warm-up
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = synth.synth_batch(*args, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    audio_s = sum(len(r["wave"]) for r in out) / SR
+    log(f"{1e3 * float(np.mean(walls)):.1f} ms/step (steps "
+        f"{[round(1e3 * w, 1) for w in walls]}), {audio_s:.1f} s audio/step, "
+        f"RTF {np.mean(walls) / audio_s:.6f}")
+    return out
+
+
+def stage_split(label, synth, tgts, lengths, kwargs):
+    from snickery_tpu import utils
+    from snickery_tpu_torch.synth import synth_pipeline_step
+    with Phase(f"{label} per-stage split (synchronised stage edges)"):
+        timer = utils.StageTimer()
+        synth_pipeline_step(synth.device_db, tgts, lengths, stage_timer=timer, **kwargs)
+        log("stages ms: " + json.dumps({k: round(1e3 * v, 1) for k, v in timer.report().items()}))
+
+
+def check_result(db, res):
+    ids = res["unit_ids"]
+    check(len(ids) == res["n_units"], "one id per unit")
+    check(bool(((ids >= 0) & (ids < db.n_units)).all()), "ids in range")
+    check(np.isfinite(res["total_cost"]), "finite cost")
+    check(len(res["wave"]) > 0 and bool(np.isfinite(res["wave"]).all()), "finite audio")
+
+
+def config3(run: Run):
+    torch = run.torch
+    from snickery_tpu import oracle
     from snickery_tpu.voicedb.build import build_voicedb
     from snickery_tpu_torch import Synthesiser
-    from snickery_tpu_torch.synth import synth_pipeline_step
-    from snickery_tpu import utils
 
-    cfg = SnickeryConfig(
-        workdir=os.path.join("build", "chip_smoke"), stream_list=list(STREAMS),
-        datadims=dict(DATADIMS), sample_rate=SR, n_candidates=30,
-        taper_length=50, join_cost_weight=JCW, length_buckets=[T_BUCKET],
-        voice_name="smoke")
+    cfg = smoke_config(length_buckets=[T_BUCKET])
     with Phase("config-3 voice (numpy)"):
         utts = make_utterances(np.random.default_rng(2026), N_UTTS,
                                351 + np.arange(N_UTTS) % 2, "utt")
@@ -256,90 +405,40 @@ def main() -> int:
         short = make_utterances(np.random.default_rng(8), 1, 258, "short")[0]
         log(f"{db.n_units} units, d={db.target_dim}, {len(db.filenames)} utts, "
             f"{len(db.waves) / SR:.0f} s of audio")
-
-    with Phase("Synthesiser(device='cuda')"):
+    with Phase("config-3 Synthesiser(device='cuda')"):
         synth = Synthesiser(cfg, db=db, device="cuda")
         torch.cuda.synchronize()
         log(f"{synth.n_units_padded} padded units, resident DB "
             f"{synth.device_db.nbytes / 2**20:.1f} MiB "
             f"(raw block {synth.device_db.raw.nbytes / 2**20:.1f} MiB)")
 
-    def counted(fn, *a):
-        before = cuda_topk.LAUNCH_COUNTS[cuda_topk.KERNEL]
-        out = fn(*a)
-        check(cuda_topk.LAUNCH_COUNTS[cuda_topk.KERNEL] > before,
-              f"{fn.__name__} did not launch the kernel")
-        return out
-
-    def check_result(res):
-        ids = res["unit_ids"]
-        check(len(ids) == res["n_units"], "one id per unit")
-        check(bool(((ids >= 0) & (ids < db.n_units)).all()), "ids in range")
-        check(np.isfinite(res["total_cost"]), "finite cost")
-        check(len(res["wave"]) > 0 and bool(np.isfinite(res["wave"]).all()),
-              "finite audio")
-
-    cuda_topk.LAUNCH_COUNTS.clear()
-    with Phase("main path: synth_from_features x 3"):
-        for name, feats in (("corpus utt 0", natural), ("held-out 2048", held[0].features),
-                            ("held-out 256", short.features)):
-            t0 = time.perf_counter()
-            res = counted(synth.synth_from_features, feats)
-            check_result(res)
-            msg = (f"{name}: {res['n_units']} units, cost {res['total_cost']:.4f}, "
-                   f"{len(res['wave'])} samples, {1e3 * (time.perf_counter() - t0):.1f} ms")
-            if name.startswith("corpus"):
-                rate = natural_rate(db, res["unit_ids"])
-                own = float((db.utt_index[res["unit_ids"]] == 0).mean())
-                msg += f", natural continuation {rate:.4f}, own-utterance {own:.4f}"
-                check(rate >= 0.85, f"natural continuation {rate} < 0.85")
-            log(msg)
-    step_ms = {}
-    for B in (8, 32):
-        with Phase(f"main path: synth_batch B={B} x T={T_BUCKET}"):
-            feats = [u.features for u in held[:B]]
-            counted(synth.synth_batch, feats)                    # warm-up
-            walls = []
-            for _ in range(3):
-                torch.cuda.synchronize()
+    def drive():
+        with Phase("config-3 main path: synth_from_features x 3"):
+            for name, feats in (("corpus utt 0", natural), ("held-out 2048", held[0].features),
+                                ("held-out 256", short.features)):
                 t0 = time.perf_counter()
-                out = counted(synth.synth_batch, feats)
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-            for res in out:
-                check_result(res)
-            audio_s = sum(len(r["wave"]) for r in out) / SR
-            step_ms[B] = 1e3 * float(np.mean(walls))
-            log(f"B={B}: {step_ms[B]:.1f} ms/step (steps {[round(1e3 * w, 1) for w in walls]}), "
-                f"{audio_s:.1f} s audio/step, RTF {np.mean(walls) / audio_s:.6f}")
-    launches = cuda_topk.LAUNCH_COUNTS[cuda_topk.KERNEL]
-    log(f"main-path launches of {cuda_topk.KERNEL}: {launches}")
-    check(launches > 0, "the main path never launched the kernel")
+                res = synth.synth_from_features(feats)
+                check_result(db, res)
+                msg = (f"{name}: {res['n_units']} units, cost {res['total_cost']:.4f}, "
+                       f"{len(res['wave'])} samples, {1e3 * (time.perf_counter() - t0):.1f} ms")
+                if name.startswith("corpus"):
+                    rate = natural_rate(db, res["unit_ids"])
+                    own = float((db.utt_index[res["unit_ids"]] == 0).mean())
+                    msg += f", natural continuation {rate:.4f}, own-utterance {own:.4f}"
+                    check(rate >= 0.85, f"natural continuation {rate} < 0.85")
+                log(msg)
+        for B in (8, 32):
+            with Phase(f"config-3 main path: synth_batch B={B} x T={T_BUCKET}"):
+                for res in timed_batch(torch, synth, 2, [u.features for u in held[:B]]):
+                    check_result(db, res)
 
+    run.main_path("config 3", "topk_preselect_zt", drive)
     prepped = [synth.targets_from_features(u.features) for u in held[:32]]
     tgts, lengths, kwargs = synth.batch_inputs(prepped)
-    with Phase("per-stage split, B=32 (synchronised stage edges)"):
-        timer = utils.StageTimer()
-        synth_pipeline_step(synth.device_db, tgts, lengths, stage_timer=timer, **kwargs)
-        log("stages ms: " + json.dumps({k: round(1e3 * v, 1) for k, v in timer.report().items()}))
-
-    with Phase("kernel vs plain at main-path shapes"):
-        d = synth.device_db
-        aff = (d.mean_t, d.std_t, d.sqrt_wt)
-        tw = ((tgts - d.mean_t) / d.std_t * d.sqrt_wt).reshape(-1, KD).contiguous()
-        m_rows = d.cut1.shape[0]
-        times = {}
-        for T in (T_BUCKET, tw.shape[0]):
-            x = tw[:T].contiguous()
-            err, nbad = compare(torch, x, d.raw, aff, m_rows, 40)
-            max_err = max(max_err, err)
-            ms = time_ms(torch, lambda: cuda_topk.cuda_topk_preselect(x, d.raw, 40, aff, m_rows), 3)
-            plain_ms = time_ms(torch, lambda: cuda_topk.topk_preselect_zt_plain(x, d.raw, 40, aff, m_rows), 1)
-            times[T] = (ms, plain_ms)
-            log(f"T={T} M={m_rows} kd={KD} k=40: kernel {ms:.2f} ms, plain {plain_ms:.2f} ms, "
-                f"max_abs_err {err:.3e}, near-tie id swaps {nbad}")
-
-    with Phase("held-out utterance vs float64 oracle (full DB)"):
+    stage_split("config-3 B=32", synth, tgts, lengths, kwargs)
+    with Phase("config-3 kernel vs plain at main-path shapes"):
+        run.kernel_at("topk_preselect_zt", synth, tgts, kwargs, (T_BUCKET, 32 * T_BUCKET))
+    with Phase("config-3 held-out utterance vs float64 oracle (full DB)"):
         res = synth.synth_from_features(short.features)
         tgt, n = synth.targets_from_features(short.features)
         tw_o = (((tgt - db.mean_target) / db.std_target) * synth._sqrt_wt).astype(np.float32)
@@ -355,11 +454,235 @@ def main() -> int:
             f"{c_dev:.6f} vs oracle {c_ref:.6f} (gap {(c_dev - c_ref) / abs(c_ref):+.3e})")
         check(agree >= 0.99, f"oracle agreement {agree} < 0.99")
 
-    ms, plain_ms = times[tw.shape[0]]
+
+def identity_match(synth, db, results, segs_list) -> float:
+    return float(np.mean([
+        (db.unit_code[r["unit_ids"]] == [synth._unit_vocab.get(s.name, -2) for s in segs]).mean()
+        for r, segs in zip(results, segs_list)]))
+
+
+def config2(run: Run):
+    torch = run.torch
+    from snickery_tpu import oracle
+    from snickery_tpu.const import ID_RANK_PENALTY
+    from snickery_tpu.voicedb.build import build_voicedb
+    from snickery_tpu_torch import Synthesiser
+
+    cfg = smoke_config(target_representation="halfphone", n_candidates=20,
+                       length_buckets=[128], voice_name="smokehp")
+    means = phone_means(31)
+    with Phase("config-2 halfphone voice (numpy)"):
+        utts = make_halfphone_utterances(np.random.default_rng(32), HP_UTTS, 40, "hp", means)
+        corpus = utts[0]
+        db = build_voicedb(cfg, utts)
+        del utts
+        held = make_halfphone_utterances(np.random.default_rng(33), 4, 40, "held", means)
+        log(f"{db.n_units} halfphone units, kd={db.target_dim}, {len(db.unit_names)} "
+            f"halfphone names, {len(db.phone_names)} phones, {len(db.filenames)} utts")
+    with Phase("config-2 Synthesiser(device='cuda')"):
+        synth = Synthesiser(cfg, db=db, device="cuda")
+        torch.cuda.synchronize()
+        log(f"{synth.n_units_padded} padded units, resident DB "
+            f"{synth.device_db.nbytes / 2**20:.1f} MiB, kernel metadata "
+            f"{synth.device_db.meta.nbytes / 2**20:.2f} MiB")
+    targets = [synth.halfphone_targets_from_features(u.features, u.epochs, u.halfphones)
+               for u in (corpus, *held)]
+    feats, segs = [t for t, _ in targets[1:]], [s for _, s in targets[1:]]
+
+    def drive():
+        with Phase("config-2 main path: synth_from_features x 2, synth_batch B=4"):
+            res = synth.synth_from_features(targets[0][0], target_segments=targets[0][1])
+            check_result(db, res)
+            rate = natural_rate(db, res["unit_ids"])
+            match = identity_match(synth, db, [res], [targets[0][1]])
+            log(f"corpus utt: {res['n_units']} units, cost {res['total_cost']:.4f}, "
+                f"identity match {match:.4f}, natural continuation {rate:.4f}")
+            check(match >= 0.95 and rate >= 0.85, "corpus utterance not reproduced")
+            res = synth.synth_from_features(feats[0], target_segments=segs[0])
+            check_result(db, res)
+            out = timed_batch(torch, synth, 3, feats, segments_list=segs)
+            for r in out:
+                check_result(db, r)
+            match = identity_match(synth, db, out, segs)
+            log(f"B=4 halfphone identity match {match:.4f}")
+            check(match >= 0.95, f"halfphone identity match {match} < 0.95")
+            return out
+
+    out = run.main_path("config 2", "topk_preselect_zt_ling", drive)
+    prepped = [(f, len(f)) for f in feats]
+    tgts, lengths, kwargs = synth.batch_inputs(prepped, segs, [0] * len(feats))
+    stage_split("config-2 B=4", synth, tgts, lengths, kwargs)
+    with Phase("config-2 kernel vs plain at main-path shapes"):
+        run.kernel_at("topk_preselect_zt_ling", synth, tgts, kwargs, (128, tgts.shape[0] * 128))
+    with Phase("config-2 held-out utterance vs float64 oracle (full DB)"):
+        tgt, kept = targets[1]
+        codes = np.asarray([synth._unit_vocab.get(s.name, -1) for s in kept])
+        ctx = np.asarray([[synth._phone_vocab.get(p, 0) for p in s.quinphone] for s in kept])
+        *ctx_w, scale = synth._ling_weights()
+        id_pen = (codes[:, None] != db.unit_code[None, :]) * float(ID_RANK_PENALTY)
+        pen = id_pen.copy()
+        for c, w in enumerate(ctx_w):
+            if w:
+                pen = pen + (ctx[:, c:c + 1] != db.context_codes[None, :, c]) * (w * scale)
+        tw_o = (((tgt - db.mean_target) / db.std_target) * synth._sqrt_wt).astype(np.float32)
+        feats_w = db.normalised_features().astype(np.float32) * synth._sqrt_wt[None, :]
+        jl, jr = db.normalised_joins()
+        ids_ref, _ = oracle.synth_pipeline(
+            tw_o, feats_w, (jl * synth._sqrt_wj).astype(np.float32),
+            (jr * synth._sqrt_wj).astype(np.float32), n_candidates=cfg.n_candidates,
+            join_cost_weight=JCW, extra=pen, lattice_penalty=id_pen, fast_preselect=True)
+        ids = out[0]["unit_ids"]
+        has = (codes[:, None] == db.unit_code[None, :]).any(1)
+        agree = float((ids == ids_ref).mean())
+        c_dev = path_cost(db, synth, tw_o, ids, has & (db.unit_code[ids] != codes))
+        c_ref = path_cost(db, synth, tw_o, ids_ref, has & (db.unit_code[ids_ref] != codes))
+        gap = (c_dev - c_ref) / abs(c_ref)
+        log(f"{len(ids)} held-out halfphone units: raw agreement {agree:.5f} (the JAX "
+            f"package's TPU figure: {JAX_TPU_CONFIG2_AGREEMENT}), f64 path cost "
+            f"{c_dev:.6f} vs oracle {c_ref:.6f} (gap {gap:+.3e})")
+        check(gap <= 1e-4, f"config-2 f64 path-cost gap {gap} > 1e-4")
+
+
+def config5(run: Run):
+    torch = run.torch
+    from snickery_tpu.voicedb.build import build_voicedb
+    from snickery_tpu.voicedb.multivoice import merge_voicedbs
+    from snickery_tpu_torch import Synthesiser
+
+    cfg = smoke_config(length_buckets=[256], voice_name="smokemv")
+    n_voices, B = 8, 64
+    with Phase("config-5 eight voices, merged (numpy)"):
+        dbs, natural = [], None
+        for v in range(n_voices):
+            rng = np.random.default_rng(500 + v)
+            utts = make_utterances(rng, len(MV_EPOCHS), MV_EPOCHS, f"v{v}_")
+            shift = rng.standard_normal(KD).astype(np.float32)
+            shift[-1] = 0.0
+            for u in utts:
+                u.features += shift
+            if v == 3:
+                natural = utts[5].features
+            dbs.append(build_voicedb(cfg, utts))
+        db = merge_voicedbs(dbs, names=[f"v{v}" for v in range(n_voices)])
+        del dbs
+        held = make_utterances(np.random.default_rng(77), 16, 258, "held")
+        log(f"{db.n_units} units in {n_voices} voices "
+            f"({np.bincount(db.voice_ids).tolist()}), d={db.target_dim}")
+    with Phase("config-5 Synthesiser(device='cuda')"):
+        synth = Synthesiser(cfg, db=db, device="cuda")
+        torch.cuda.synchronize()
+        log(f"{synth.n_units_padded} padded units, resident DB "
+            f"{synth.device_db.nbytes / 2**20:.1f} MiB, kernel metadata "
+            f"{synth.device_db.meta.nbytes / 2**20:.2f} MiB")
+    feats = [held[i % len(held)].features for i in range(B)]
+    voices = [f"v{i % n_voices}" for i in range(B)]
+
+    def drive():
+        with Phase(f"config-5 main path: synth_batch B={B} x T=256, mixed voices"):
+            out = timed_batch(torch, synth, 3, feats, voices=voices)
+            leaks = sum(int((db.voice_ids[r["unit_ids"]] != i % n_voices).sum())
+                        for i, r in enumerate(out))
+            for r in out:
+                check_result(db, r)
+            res = synth.synth_from_features(natural, voice="v3")
+            rate = natural_rate(db, res["unit_ids"])
+            leaks += int((db.voice_ids[res["unit_ids"]] != 3).sum())
+            log(f"cross-voice leaks {leaks}; corpus utterance of v3 sent to v3: "
+                f"natural continuation {rate:.4f}, cost {res['total_cost']:.4f}")
+            check(leaks == 0, f"{leaks} units leaked across voices")
+            check(rate >= 0.85, f"natural continuation {rate} < 0.85")
+
+    run.main_path("config 5", "topk_preselect_zt_part", drive)
+    prepped = [synth.targets_from_features(f) for f in feats]
+    tgts, lengths, kwargs = synth.batch_inputs(prepped, None,
+                                               [synth._voice_code(v) for v in voices])
+    stage_split(f"config-5 B={B}", synth, tgts, lengths, kwargs)
+    with Phase("config-5 kernel vs plain at main-path shapes"):
+        run.kernel_at("topk_preselect_zt_part", synth, tgts, kwargs, (256, B * 256))
+
+
+def composition(run: Run, n_utts: int):
+    """Two merged halfphone voices of ``n_utts`` utterances each: a small
+    pair for the gates, then a pair at config-2 scale (625 utterances,
+    50,000 units a voice), whose kernel time is the one reported."""
+    torch = run.torch
+    from snickery_tpu.voicedb.build import build_voicedb
+    from snickery_tpu.voicedb.multivoice import merge_voicedbs
+    from snickery_tpu_torch import Synthesiser
+
+    cfg = smoke_config(target_representation="halfphone", n_candidates=20,
+                       length_buckets=[128], voice_name="smokehpmv")
+    label = f"composition {n_utts} utts a voice"
+    with Phase(f"{label}: two halfphone voices, merged (numpy)"):
+        dbs, held = [], []
+        for v in range(2):
+            means = phone_means(40 + v)
+            rng = np.random.default_rng(60 + v)
+            dbs.append(build_voicedb(cfg, make_halfphone_utterances(rng, n_utts, 40, f"c{v}_", means)))
+            held += make_halfphone_utterances(rng, 2, 40, f"ch{v}_", means)
+        db = merge_voicedbs(dbs, names=["alice", "bob"])
+        log(f"{db.n_units} halfphone units in 2 voices ({np.bincount(db.voice_ids).tolist()})")
+    synth = Synthesiser(cfg, db=db, device="cuda")
+    targets = [synth.halfphone_targets_from_features(u.features, u.epochs, u.halfphones)
+               for u in held]
+    feats, segs = [t for t, _ in targets], [s for _, s in targets]
+    voices = ["alice", "alice", "bob", "bob"]
+
+    def drive():
+        with Phase(f"{label} main path: synth_batch B=4, mixed voices"):
+            out = timed_batch(torch, synth, 3, feats, voices=voices, segments_list=segs)
+            leaks = sum(int((db.voice_ids[r["unit_ids"]] != synth._voice_code(v)).sum())
+                        for r, v in zip(out, voices))
+            match = identity_match(synth, db, out, segs)
+            log(f"cross-voice leaks {leaks}, halfphone identity match {match:.4f}")
+            check(leaks == 0, f"{leaks} units leaked across voices")
+            check(match >= 0.9, f"identity match {match} < 0.9")
+
+    run.main_path(label, "topk_preselect_zt_ling_part", drive)
+    tgts, _, kwargs = synth.batch_inputs([(f, len(f)) for f in feats], segs,
+                                         [synth._voice_code(v) for v in voices])
+    with Phase(f"{label} kernel vs plain at main-path shape"):
+        run.kernel_at("topk_preselect_zt_ling_part", synth, tgts, kwargs, (4 * 128,))
+
+
+def main() -> int:
+    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device", file=sys.stderr)
+        return 2
+    from snickery_tpu_torch.ops import _build
+
+    smi = nvidia_smi_line()
+    with Phase("card"):
+        log(f"nvidia-smi: {smi}")
+        nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                              text=True, check=True).stdout.strip().splitlines()[-1]
+        log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc: {nvcc}, "
+            f"device 0: {torch.cuda.get_device_name(0)}, "
+            f"count {torch.cuda.device_count()}")
+    with Phase("kernel build"):
+        lib = _build.kernel_library()
+        log(f"built {lib.path.name} in {lib.build_seconds:.1f} s")
+        for line in lib.compiler_log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"ptxas: {line.strip()}")
+    run = Run(torch)
+    with Phase("kernel vs plain, synthetic"):
+        run.errs["topk_preselect_zt"] = kernel_vs_plain_synthetic(torch)
+    with Phase("kernel variants vs plain, synthetic"):
+        for name, err in kernel_variants_synthetic(torch).items():
+            run.errs[name] = max(run.errs.get(name, 0.0), err)
+    for path in (config3, config2, config5, lambda r: composition(r, COMP_UTTS),
+                 lambda r: composition(r, HP_UTTS)):
+        path(run)
+        torch.cuda.empty_cache()
+
     print(json.dumps({"kernels": [{
-        "name": cuda_topk.KERNEL, "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": REPLACES[name], "launches": run.launches[name],
+        "max_abs_err": run.errs[name], "ms": run.times[name][0],
+        "plain_ms": run.times[name][1]} for name in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

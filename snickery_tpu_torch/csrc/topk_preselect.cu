@@ -2,8 +2,11 @@
 // hand-written CUDA C++ for Hopper (sm_90a).
 //
 // Replaces snickery_tpu/ops/pallas_topk.py::pallas_topk_preselect in the
-// form the synthesis main path runs: precision "highest", zero_transient=True,
-// select="stream" (_topk_kernel + _compute_scores + _stream_select).
+// forms the synthesis paths run: precision "highest", zero_transient=True,
+// select="stream" (_topk_kernel + _compute_scores + _stream_select), with or
+// without the fused partition mask (multi-voice DBs, _compute_scores :187-191)
+// and the fused quinphone penalties (halfphone voices, :192-208).  One
+// exported entry point per variant (topk_partial<PART, LING> below).
 //
 // For every target row t and DB row u in [0, m_rows):
 //
@@ -15,6 +18,18 @@
 // column kd + 1 holds int32 pointer BITS and is never loaded (as f32 it can
 // be NaN or denormal).  Per target the k smallest (score, u) pairs are kept,
 // the lowest u winning ties, and comp[t] is added to the returned scores.
+//
+// Fused masks, in the Pallas order (so the plain twin agrees bit for bit):
+//   PART: score = +inf where vid(t) != vid(u);
+//   LING: score += 2^24 (const.ID_RANK_PENALTY) where code(t) != code(u),
+//         then score += pen[c] where ctx_c(t) != ctx_c(u), c = 0..4 in order,
+//         skipping slots whose constant is 0; pen[c] = float32(w_c * scale)
+//         is rounded on the host.
+// Each side describes a row with 8 int32 [code, ctx0..ctx4, vid, 0] (two
+// int4 loads); target rows of the tile and the DB rows of each tile are
+// staged in shared memory.  A +inf score never enters a list, so a slot that
+// no finite score reaches (a voice with fewer than k rows) is written as
+// (+inf, index 0): the Pallas contract for partition-starved columns.
 //
 // Shape of the work on Hopper.  The TPU kernel walks the DB chunk by chunk
 // in sequence and carries a k-slot state in VMEM.  Here blocks run in
@@ -36,6 +51,11 @@
 // S is chosen by the wrapper so that tiles x S fills the card at small T
 // (one utterance: 2 to 32 target tiles) as well as at large T.
 //
+// Shared memory of pass 1 is 4 * (64 * kd + 8,256 + 128 * k) bytes, plus
+// 4 KB of metadata in the masked variants: at kd = 151 (epoch units) two
+// CTAs fit per SM; at kd = 453 (halfphone units, [first | mid | last]
+// frames) about 150-160 KB, so one CTA per SM.
+//
 // Bound: at the config-3 batch shape (65,536 targets x 1,048,576 units x
 // kd = 151) the work is about 2.1e13 FLOP of FP32 FMA, so the kernel is
 // bound by FP32 FMA throughput and shared-memory operand traffic; the DB
@@ -56,6 +76,12 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int KMAX = 64;                // list slots: two per lane
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int META = 8;                 // [code, ctx0..ctx4, vid, 0]
+constexpr float ID_RANK_PENALTY = 16777216.f;   // 2^24, const.ID_RANK_PENALTY
+
+struct Penalties {
+  float w[5];                             // float32(w_c * scale); 0 = skip
+};
 
 __device__ __forceinline__ float pos_inf() { return __int_as_float(0x7f800000); }
 
@@ -94,11 +120,12 @@ __device__ void warp_insert(float* lv, int* li, int k, float v, int i,
 }
 
 // Offer one candidate per lane (ok = the lane holds one) to the list; the
-// candidates that beat the worst slot are inserted one at a time in lane
-// order, each re-checked against the worst slot as it stands then.
+// finite candidates that beat the worst slot are inserted one at a time in
+// lane order, each re-checked against the worst slot as it stands then.
 __device__ void warp_offer(float* lv, int* li, int k, float v, int i, bool ok,
                            int lane) {
-  unsigned m = __ballot_sync(FULL, ok && lex_less(v, i, lv[k - 1], li[k - 1]));
+  unsigned m = __ballot_sync(
+      FULL, ok && v < pos_inf() && lex_less(v, i, lv[k - 1], li[k - 1]));
   while (m) {
     const int src = __ffs(m) - 1;
     m &= m - 1;
@@ -110,17 +137,49 @@ __device__ void warp_offer(float* lv, int* li, int k, float v, int i, bool ok,
   }
 }
 
+// Score of target row tt against DB row r of the tile (both in shared
+// memory), with the variant's fused masks applied in the Pallas order.
+template <bool PART, bool LING>
+__device__ __forceinline__ float fused_score(float s, const int* tm,
+                                             const int* dm,
+                                             const Penalties& pen) {
+  if constexpr (PART || LING) {
+    const int4 ta = *reinterpret_cast<const int4*>(tm);
+    const int4 tb = *reinterpret_cast<const int4*>(tm + 4);
+    const int4 da = *reinterpret_cast<const int4*>(dm);
+    const int4 db = *reinterpret_cast<const int4*>(dm + 4);
+    if constexpr (PART) {
+      if (tb.z != db.z) s = pos_inf();
+    }
+    if constexpr (LING) {
+      s += ta.x != da.x ? ID_RANK_PENALTY : 0.f;
+      if (pen.w[0] != 0.f) s += ta.y != da.y ? pen.w[0] : 0.f;
+      if (pen.w[1] != 0.f) s += ta.z != da.z ? pen.w[1] : 0.f;
+      if (pen.w[2] != 0.f) s += ta.w != da.w ? pen.w[2] : 0.f;
+      if (pen.w[3] != 0.f) s += tb.x != db.x ? pen.w[3] : 0.f;
+      if (pen.w[4] != 0.f) s += tb.y != db.y ? pen.w[4] : 0.f;
+    }
+  }
+  return s;
+}
+
+template <bool PART, bool LING>
 __global__ void __launch_bounds__(THREADS, 2)
 topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
-             float* __restrict__ part_v, int* __restrict__ part_i, int T,
-             int kd, int width, int m_rows, int rows_per_split, int k,
-             int splits) {
+             const int* __restrict__ tmeta, const int* __restrict__ dmeta,
+             Penalties pen, float* __restrict__ part_v,
+             int* __restrict__ part_i, int T, int kd, int width, int m_rows,
+             int rows_per_split, int k, int splits) {
+  constexpr bool MASKED = PART || LING;
   extern __shared__ __align__(16) float smem[];
   float* sT = smem;                       // [kd][TT]  targets, column-major
   float* sD = sT + kd * TT;               // [KC][R]   DB tile stage
   float* sS = sD + KC * R;                // [TT][R]   scores of the tile
   float* sSqn = sS + TT * R;              // [R]       sqn column of the tile
-  float* lv = sSqn + R;                   // [TT][k]   list values
+  int* sTM = reinterpret_cast<int*>(sSqn + R);     // [TT][META] if MASKED
+  int* sDM = sTM + (MASKED ? TT * META : 0);       // [R][META]  if MASKED
+  float* lv = reinterpret_cast<float*>(sDM + (MASKED ? R * META : 0));
+                                          // [TT][k]   list values
   int* li = reinterpret_cast<int*>(lv + TT * k);   // [TT][k] list indices
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -132,6 +191,12 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
   for (int e = tid; e < kd * TT; e += THREADS) {
     const int t = e % TT, c = e / TT;
     sT[e] = (t0 + t < T) ? t2[static_cast<size_t>(t0 + t) * kd + c] : 0.f;
+  }
+  if constexpr (MASKED) {
+    for (int e = tid; e < TT * META; e += THREADS) {
+      const int t = t0 + e / META;
+      sTM[e] = t < T ? tmeta[static_cast<size_t>(t) * META + e % META] : -1;
+    }
   }
   for (int e = tid; e < TT * k; e += THREADS) {
     lv[e] = pos_inf();
@@ -164,6 +229,16 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
                         ? __ldg(raw + static_cast<size_t>(u) * width + kd)
                         : 0.f;
       }
+      if constexpr (MASKED) {
+        if (c0 == 0) {
+          for (int e = tid; e < R * META; e += THREADS) {
+            const int u = base + e / META;
+            sDM[e] = u < row_hi
+                         ? __ldg(dmeta + static_cast<size_t>(u) * META + e % META)
+                         : -1;
+          }
+        }
+      }
       __syncthreads();
 #pragma unroll 4
       for (int cc = 0; cc < kc; ++cc) {
@@ -180,12 +255,15 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float4 s;
-      s.x = sSqn[tx * 4 + 0] - 2.f * acc[i][0];
-      s.y = sSqn[tx * 4 + 1] - 2.f * acc[i][1];
-      s.z = sSqn[tx * 4 + 2] - 2.f * acc[i][2];
-      s.w = sSqn[tx * 4 + 3] - 2.f * acc[i][3];
-      *reinterpret_cast<float4*>(sS + (ty * 4 + i) * R + tx * 4) = s;
+      const int* tm = sTM + (ty * 4 + i) * META;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = fused_score<PART, LING>(sSqn[tx * 4 + j] - 2.f * acc[i][j], tm,
+                                       sDM + (tx * 4 + j) * META, pen);
+      }
+      *reinterpret_cast<float4*>(sS + (ty * 4 + i) * R + tx * 4) =
+          make_float4(v[0], v[1], v[2], v[3]);
     }
     __syncthreads();
     for (int t = warp; t < TT; t += WARPS) {
@@ -236,45 +314,42 @@ topk_merge(const float* __restrict__ part_v, const int* __restrict__ part_i,
   __syncwarp();
   const float c = comp[t];
   for (int j = lane; j < k; j += 32) {
+    // an unfilled slot is (+inf, INT_MAX) here and leaves as (+inf, 0)
     out_v[static_cast<size_t>(t) * k + j] = lv[j] + c;
-    out_i[static_cast<size_t>(t) * k + j] = li[j];
+    out_i[static_cast<size_t>(t) * k + j] = li[j] == INT_MAX ? 0 : li[j];
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Dynamic shared memory pass 1 needs; 0 if the shape is not supported.
-size_t snk_topk_partial_smem(int kd, int k) {
+size_t partial_smem(int kd, int k, bool masked) {
   if (kd < 1 || k < 1 || k > KMAX) return 0;
   return static_cast<size_t>(kd * TT + KC * R + TT * R + R + TT * k) *
              sizeof(float) +
-         static_cast<size_t>(TT * k) * sizeof(int);
+         static_cast<size_t>(TT * k + (masked ? (TT + R) * META : 0)) *
+             sizeof(int);
 }
 
-int snk_topk_tile_rows() { return TT; }
-
-int snk_topk_db_tile_rows() { return R; }
-
-// Launches both passes on `stream`; returns the cudaError_t of the launches.
-int snk_topk_preselect_zt(const float* t2, const float* raw, const float* comp,
-                          float* part_v, int* part_i, float* out_v, int* out_i,
-                          int T, int kd, int width, int m_rows, int k,
-                          int splits, int rows_per_split, cudaStream_t stream) {
-  const size_t smem1 = snk_topk_partial_smem(kd, k);
+template <bool PART, bool LING>
+int launch(const float* t2, const float* raw, const float* comp,
+           const int* tmeta, const int* dmeta, Penalties pen, float* part_v,
+           int* part_i, float* out_v, int* out_i, int T, int kd, int width,
+           int m_rows, int k, int splits, int rows_per_split,
+           cudaStream_t stream) {
+  constexpr bool MASKED = PART || LING;
+  const size_t smem1 = partial_smem(kd, k, MASKED);
   if (smem1 == 0 || T < 1 || width < kd + 2 || m_rows < k || splits < 1 ||
       rows_per_split < 1 ||
-      static_cast<long long>(splits) * rows_per_split < m_rows) {
+      static_cast<long long>(splits) * rows_per_split < m_rows ||
+      (MASKED && (tmeta == nullptr || dmeta == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaFuncSetAttribute(
-      topk_partial, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      topk_partial<PART, LING>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem1));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid1((T + TT - 1) / TT, splits);
-  topk_partial<<<grid1, THREADS, smem1, stream>>>(
-      t2, raw, part_v, part_i, T, kd, width, m_rows, rows_per_split, k, splits);
+  topk_partial<PART, LING><<<grid1, THREADS, smem1, stream>>>(
+      t2, raw, tmeta, dmeta, pen, part_v, part_i, T, kd, width, m_rows,
+      rows_per_split, k, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem2 = static_cast<size_t>(WARPS * k) * (sizeof(float) + sizeof(int));
@@ -282,5 +357,41 @@ int snk_topk_preselect_zt(const float* t2, const float* raw, const float* comp,
       part_v, part_i, comp, out_v, out_i, T, k, splits);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory pass 1 needs (masked != 0: a variant with fused
+// masks); 0 if the shape is not supported.
+size_t snk_topk_partial_smem(int kd, int k, int masked) {
+  return partial_smem(kd, k, masked != 0);
+}
+
+int snk_topk_tile_rows() { return TT; }
+
+int snk_topk_db_tile_rows() { return R; }
+
+// Each entry point launches both passes on `stream` and returns the
+// cudaError_t of the launches.  tmeta (T, 8) and dmeta (m_rows, 8) are read
+// by the masked variants only; p0..p4 by the linguistic ones only.
+#define SNK_TOPK_ENTRY(NAME, PART, LING)                                      \
+  int NAME(const float* t2, const float* raw, const float* comp,            \
+           const int* tmeta, const int* dmeta, float p0, float p1, float p2, \
+           float p3, float p4, float* part_v, int* part_i, float* out_v,     \
+           int* out_i, int T, int kd, int width, int m_rows, int k,          \
+           int splits, int rows_per_split, cudaStream_t stream) {            \
+    const Penalties pen = {{p0, p1, p2, p3, p4}};                           \
+    return launch<PART, LING>(t2, raw, comp, tmeta, dmeta, pen, part_v,     \
+                              part_i, out_v, out_i, T, kd, width, m_rows, k, \
+                              splits, rows_per_split, stream);              \
+  }
+
+SNK_TOPK_ENTRY(snk_topk_preselect_zt, false, false)
+SNK_TOPK_ENTRY(snk_topk_preselect_zt_part, true, false)
+SNK_TOPK_ENTRY(snk_topk_preselect_zt_ling, false, true)
+SNK_TOPK_ENTRY(snk_topk_preselect_zt_ling_part, true, true)
+
+#undef SNK_TOPK_ENTRY
 
 }  // extern "C"

@@ -6,15 +6,21 @@
 - :func:`smallest_k`: exact k smallest (value, column) pairs per row, the
   selection (and cross-chunk merge) primitive of the plain preselects.
 - :func:`topk_preselect`: plain chunked-matmul preselect over a normalised
-  (or raw + affine) DB, the non-zero-transient form.  The kernel form is in
+  (or raw + affine) DB, the non-zero-transient form, with the fused
+  quinphone penalties and voice partition.  The kernel form is in
   :mod:`snickery_tpu_torch.ops.cuda_topk`.
+- :func:`quinphone_penalties`, :func:`halfphone_exact_rank`,
+  :func:`halfphone_lattice_mask`: the halfphone helpers, exact ports.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from snickery_tpu.const import PRESELECT_MARGIN, PRESELECT_MARGIN_SPLIT3CAT
+from snickery_tpu.const import (BIG_PENALTY, ID_RANK_PENALTY, PRESELECT_MARGIN,
+                                PRESELECT_MARGIN_SPLIT3CAT,
+                                QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE)
 from snickery_tpu_torch.voicedb.device_layout import affine_rows
 
 
@@ -71,7 +77,10 @@ def smallest_k(scores: torch.Tensor, k: int, cols: torch.Tensor | None = None
 
 def topk_preselect(targets: torch.Tensor, db: torch.Tensor, k: int,
                    chunk: int = 8192,
-                   db_affine: tuple | None = None
+                   db_affine: tuple | None = None,
+                   linguistic: tuple | None = None,
+                   partition: tuple | None = None,
+                   ling_weights: tuple | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k nearest DB rows per target row (exact), plain PyTorch.
 
@@ -79,6 +88,11 @@ def topk_preselect(targets: torch.Tensor, db: torch.Tensor, k: int,
     with ``db_affine = (mean, std, sqrt_w, n_real)``, ``db`` holds RAW rows
     that are normalised chunk by chunk here, rows >= n_real pinned to the
     1e6 never-wins sentinel.  Scores are squared distances minus ||t||^2.
+    ``linguistic = (tgt_codes (T,), tgt_ctx (T, 5), db_codes (M,),
+    db_ctx (M, 5))`` adds :func:`quinphone_penalties` (weights
+    ``ling_weights = (w0..w4, scale)``, default the const values) chunk by
+    chunk; ``partition = (tgt_part (T,), db_part (M,))`` sets +inf where
+    the ids differ.
     Returns (indices (T, k) int32, scores (T, k) f32) ascending by
     (score, index).
     """
@@ -87,6 +101,8 @@ def topk_preselect(targets: torch.Tensor, db: torch.Tensor, k: int,
         raise ValueError(f"db rows {M} must be a multiple of chunk {chunk}")
     if not 1 <= k <= M:
         raise ValueError(f"k={k} must lie in [1, {M}]")
+    w_ctx, scale = (None, None) if ling_weights is None else (ling_weights[:5],
+                                                              ling_weights[5])
     vals, cols = [], []
     for lo in range(0, M, chunk):
         db_c = db[lo:lo + chunk]
@@ -96,6 +112,15 @@ def topk_preselect(targets: torch.Tensor, db: torch.Tensor, k: int,
             db_c = affine_rows(db_c, mean, std, w, valid, 1e6)
         sq_c = torch.sum(db_c * db_c, dim=-1)
         scores = sq_c[None, :] - 2.0 * (targets @ db_c.T)
+        if linguistic is not None:
+            tc, tx, dc, dx = linguistic
+            scores = scores + quinphone_penalties(
+                tc, tx, dc[lo:lo + chunk], dx[lo:lo + chunk],
+                context_weights=w_ctx, scale=scale)
+        if partition is not None:
+            tp, dp = partition
+            scores = torch.where(tp[:, None] != dp[None, lo:lo + chunk],
+                                 float("inf"), scores)
         v, c = smallest_k(scores, min(k, chunk),
                           torch.arange(lo, lo + chunk, device=db.device))
         vals.append(v)
@@ -133,3 +158,58 @@ def order_topk_positions(vals: torch.Tensor, ids: torch.Tensor,
     if outp.shape[1] < k:
         outp = torch.nn.functional.pad(outp, (0, k - outp.shape[1]))
     return outp.to(torch.int64)
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(np.float32(x), device=like.device)
+
+
+def quinphone_penalties(target_codes: torch.Tensor, target_contexts: torch.Tensor,
+                        db_codes: torch.Tensor, db_contexts: torch.Tensor,
+                        code_mismatch_penalty: float = ID_RANK_PENALTY,
+                        context_weights: tuple | None = None,
+                        scale: float | None = None) -> torch.Tensor:
+    """(T, M) additive linguistic-preselection penalties, ``hard + soft *
+    scale`` as ``snickery_tpu.ops.topk.quinphone_penalties`` computes them:
+    ``code_mismatch_penalty`` where the halfphone codes differ, plus the
+    weighted count of quinphone context slots that differ."""
+    if context_weights is None:
+        context_weights = QUINPHONE_CONTEXT_WEIGHTS
+    if scale is None:
+        scale = QUINPHONE_SCALE
+    zero = _f32(0.0, target_codes)
+    hard = torch.where(target_codes[:, None] != db_codes[None, :],
+                       _f32(code_mismatch_penalty, target_codes), zero)
+    w = torch.tensor(np.asarray(context_weights, np.float32), device=target_codes.device)
+    mism = (target_contexts[:, None, :] != db_contexts[None, :, :]).to(torch.float32)
+    soft = torch.einsum("tmc,c->tm", mism, w)
+    return hard + soft * _f32(float(scale), soft)
+
+
+def halfphone_exact_rank(sq_exact: torch.Tensor, kernel_scores: torch.Tensor,
+                         mism: torch.Tensor, ctx_cand: torch.Tensor,
+                         tgt_ctx: torch.Tensor, ling_weights: tuple | None
+                         ) -> torch.Tensor:
+    """Exact-f32 ranking key of pooled halfphone candidates: squared
+    distance + ``ID_RANK_PENALTY`` on an identity mismatch + ``w * scale``
+    per differing context slot; +inf where the preselect slot was dead.
+    The same constants and summation order as the JAX function."""
+    if ling_weights is None:
+        ling_weights = (*QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE)
+    *ctx_w, scale = ling_weights
+    pen = _f32(ID_RANK_PENALTY, sq_exact) * mism.to(torch.float32)
+    cmism = ctx_cand != tgt_ctx[..., None, :]
+    for c, w in enumerate(ctx_w):
+        if w:
+            pen = pen + _f32(w * scale, sq_exact) * cmism[..., c].to(torch.float32)
+    return torch.where(torch.isinf(kernel_scores), float("inf"), sq_exact + pen)
+
+
+def halfphone_lattice_mask(ac: torch.Tensor, mism: torch.Tensor) -> torch.Tensor:
+    """Identity fallback rule on lattice target costs, in mask form: a
+    mismatched candidate is raised to at least ``BIG_PENALTY`` only at steps
+    where a live same-name candidate exists; elsewhere the acoustic costs
+    stay as they are (see the JAX function for the f32 rationale)."""
+    has_match = torch.any(~mism & torch.isfinite(ac), dim=-1)
+    return torch.where(mism & has_match[..., None],
+                       torch.maximum(ac, _f32(BIG_PENALTY, ac)), ac)

@@ -1,28 +1,31 @@
-"""Synthesiser in PyTorch: epoch-unit synthesis from a resident unit DB.
+"""Synthesiser in PyTorch: unit-selection synthesis from a resident unit DB.
 
-Counterpart of ``snickery_tpu.synth`` for the main path (BASELINE config
-#3): normalise and weight the targets, preselect the top k + margin over
-the whole DB with the hand-written kernel (zero-transient form), rescore the
-candidates in exact f32 and keep the top k in canonical (score, unit id)
-order, gather join contexts, Viterbi, and crossfade overlap-add.  One
-batched step (:func:`synth_pipeline_step`) serves ``synth_from_features``
-(B = 1) and ``synth_batch``.
+Counterpart of ``snickery_tpu.synth`` for epoch-unit voices (BASELINE
+config #3), halfphone voices (#2), merged multi-voice DBs (#5) and merged
+halfphone voices: normalise and weight the targets, preselect the top
+k + margin over the whole DB with the hand-written kernel (zero-transient
+form; quinphone penalties fused for halfphone voices, the voice partition
+mask for merged DBs), rescore the candidates in exact f32 and keep the top k
+in canonical (score, unit id) order (halfphone voices rank by the exact
+squared distance plus penalties and mask identity fallbacks in the lattice),
+gather join contexts, Viterbi, and crossfade overlap-add.  One batched step
+(:func:`synth_pipeline_step`) serves ``synth_from_features`` (B = 1) and
+``synth_batch``.
 
 The device is an explicit argument.  ``device="cuda"`` runs the CUDA kernel
 and raises where CUDA is absent; ``device="cpu"`` runs the kernel's plain
 PyTorch twin.  Nothing falls back from one to the other.
 
-Not ported yet (each raises NotImplementedError; see ROADMAP.md): halfphone
-and linguistic preselect, multi-voice partitions, preselect precisions other
-than "highest", ``preload_all_waves=False``, multi-device meshes, streaming
-and magphase resynthesis.
+Not ported yet (each raises NotImplementedError; see ROADMAP.md): preselect
+precisions other than "highest", ``preload_all_waves=False``, multi-device
+meshes, streaming and magphase resynthesis.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, field, fields
 
 import numpy as np
 import torch
@@ -30,9 +33,12 @@ import torch
 from snickery_tpu import utils
 from snickery_tpu.config import SnickeryConfig
 from snickery_tpu.voicedb.db import VoiceDB
-from snickery_tpu_torch.ops.cuda_topk import cuda_topk_preselect
+from snickery_tpu.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
+from snickery_tpu_torch.ops.cuda_topk import cuda_topk_preselect, pack_meta
 from snickery_tpu_torch.ops.ola import overlap_add_units
-from snickery_tpu_torch.ops.topk import order_topk_positions, preselect_margin
+from snickery_tpu_torch.ops.topk import (halfphone_exact_rank,
+                                         halfphone_lattice_mask,
+                                         order_topk_positions, preselect_margin)
 from snickery_tpu_torch.ops.viterbi import greedy_decode, viterbi_decode
 from snickery_tpu_torch.voicedb.device_layout import (affine_rows,
                                                       build_raw_blocks,
@@ -42,6 +48,9 @@ from snickery_tpu_torch.voicedb.device_layout import (affine_rows,
 # padded unit count and the raw block are the same on both sides.
 JAX_PALLAS_CHUNK = 4096
 _TODO = "not ported to snickery_tpu_torch yet (see ROADMAP.md)"
+# preselection_method="quinphone_backoff": strict tiers (one outer-context
+# mismatch 2^14, one inner-context mismatch 2^22), as snickery_tpu.synth
+BACKOFF_LING_WEIGHTS = (1.0, 256.0, 0.0, 256.0, 1.0, 16384.0)
 
 
 def _stream_weight_vector(cfg: SnickeryConfig, weights: list[float]) -> np.ndarray:
@@ -54,7 +63,9 @@ def _stream_weight_vector(cfg: SnickeryConfig, weights: list[float]) -> np.ndarr
 @dataclass
 class DeviceDB:
     """The resident voice: tensors on one device, fields as in the JAX
-    ``DeviceDB`` (see ``snickery_tpu.synth.DeviceDB``)."""
+    ``DeviceDB`` (see ``snickery_tpu.synth.DeviceDB``), plus ``meta``, the
+    kernel's per-row ``[code, ctx0..ctx4, voice id, 0]`` block derived from
+    ``codes``, ``ctx`` and ``vids`` (8 int32, 32 bytes a row)."""
     raw: torch.Tensor         # (q, kd + 2) [data | sqn | ptr] raw block
     n_real: torch.Tensor      # () int32: rows >= n_real are padding
     cut1: torch.Tensor        # (Mp,) int32
@@ -70,17 +81,25 @@ class DeviceDB:
     codes: torch.Tensor       # (Mp,) halfphone codes (zeros in epoch mode)
     ctx: torch.Tensor         # (Mp, 5)
     vids: torch.Tensor        # (Mp,) voice ids
+    meta: torch.Tensor = field(init=False)   # (Mp, 8) int32, derived
+
+    def __post_init__(self):
+        self.meta = pack_meta(self.codes, self.ctx, self.vids)
 
     @property
     def nbytes(self) -> int:
         return sum(getattr(self, f.name).nbytes for f in fields(self))
 
 
+# the fields the JAX DeviceDB has (``meta`` is derived from them)
+JAX_FIELDS = tuple(f.name for f in fields(DeviceDB) if f.init)
+
+
 def device_db_from_numpy(arrays: dict[str, np.ndarray], device) -> DeviceDB:
     """Build a :class:`DeviceDB` on ``device`` from numpy arrays keyed by
     field name (for example the JAX ``DeviceDB``'s fields, fetched to the
     host).  Dtypes and values are kept bit for bit."""
-    names = [f.name for f in fields(DeviceDB)]
+    names = JAX_FIELDS
     missing = set(names) - set(arrays)
     if missing:
         raise KeyError(f"missing DeviceDB fields: {sorted(missing)}")
@@ -89,18 +108,29 @@ def device_db_from_numpy(arrays: dict[str, np.ndarray], device) -> DeviceDB:
 
 
 def synth_pipeline_step(db: DeviceDB, targets: torch.Tensor,
-                        lengths: torch.Tensor, *, n_cand: int, jcw: float,
-                        eps: float, max_frag: int, out_len: int, taper: int,
-                        greedy: bool = False, squared_joins: bool = False,
-                        margin: int = -1,
+                        lengths: torch.Tensor, tgt_codes: torch.Tensor | None = None,
+                        tgt_ctx: torch.Tensor | None = None,
+                        tgt_vids: torch.Tensor | None = None, *, n_cand: int,
+                        jcw: float, eps: float, max_frag: int, out_len: int,
+                        taper: int, greedy: bool = False,
+                        squared_joins: bool = False, margin: int = -1,
+                        halfphone: bool = False, multivoice: bool = False,
+                        ling_weights: tuple | None = None,
                         stage_timer: utils.StageTimer | None = None):
     """Select, decode and concatenate B utterances in one step.
 
     ``targets`` (B, T, kd) raw unit-rate target features, ``lengths`` (B,)
     live steps.  The single-device body of the JAX batched step
     (``parallel/sharded.py::_select_decode_batch`` at one DB shard plus its
-    OLA).  Returns (unit_ids (B, T), total costs (B,), audio (B, out_len),
-    total samples (B,)).
+    OLA).  ``halfphone``: fuse the quinphone penalties of ``tgt_codes``
+    (B, T) and ``tgt_ctx`` (B, T, 5) into the preselect (weights
+    ``ling_weights`` = (w0..w4, scale), default the const values), rank the
+    candidates by :func:`halfphone_exact_rank` and apply the identity
+    fallback mask to the lattice costs.  ``multivoice``: restrict each step
+    to the DB rows whose voice id equals ``tgt_vids`` (B, T).  Either mode
+    takes all three target arrays (``Synthesiser.batch_inputs``).  Returns
+    (unit_ids (B, T), total costs (B,), audio (B, out_len), total samples
+    (B,)).
 
     ``stage_timer``: when given, each stage (preselect, rescore, decode,
     ola) is timed into it, the device synchronised at every stage edge; for
@@ -121,14 +151,22 @@ def synth_pipeline_step(db: DeviceDB, targets: torch.Tensor,
     live = torch.arange(T, device=dev)[None, :] < lengths.reshape(B, 1)
     tw = torch.where(live[:, :, None], tw, zero).reshape(B * T, kd)
 
-    k_sel = min(n_cand + preselect_margin(True, "highest", zero_transient=True,
-                                          override=margin), m_pad)
+    if halfphone and ling_weights is None:
+        ling_weights = (*QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE)
+    masks = fused_masks(db, tgt_codes, tgt_ctx, tgt_vids, halfphone=halfphone,
+                        multivoice=multivoice, ling_weights=ling_weights)
+    ling = ((tgt_codes.reshape(B * T), tgt_ctx.reshape(B * T, 5), ling_weights)
+            if halfphone else None)
+    k_sel = min(n_cand + preselect_margin(True, "highest", halfphone,
+                                          zero_transient=True, override=margin),
+                m_pad)
     with stage("preselect"):
         idx, scores = cuda_topk_preselect(tw, db.raw, k_sel,
-                                          (db.mean_t, db.std_t, db.sqrt_wt), m_pad)
+                                          (db.mean_t, db.std_t, db.sqrt_wt), m_pad,
+                                          **masks)
     with stage("rescore"):
         cand_idx, target_costs, jl, jr = _rescore(db, tw, idx.long(), scores,
-                                                  live, n_cand)
+                                                  live, n_cand, ling)
     n = cand_idx.shape[1]
     decode = greedy_decode if greedy else viterbi_decode
     kw = {} if greedy else {"search_epsilon": eps}
@@ -148,6 +186,21 @@ def synth_pipeline_step(db: DeviceDB, targets: torch.Tensor,
     return unit_ids, costs, audio, totals
 
 
+def fused_masks(db: DeviceDB, tgt_codes, tgt_ctx, tgt_vids, *, halfphone: bool,
+                multivoice: bool, ling_weights: tuple | None) -> dict:
+    """The fused-mask keyword arguments of :func:`cuda_topk_preselect` for a
+    step's (B, T) target codes, (B, T, 5) contexts and (B, T) voice ids:
+    the voice partition for a merged DB, the quinphone penalties of
+    ``ling_weights`` in halfphone mode; empty for neither."""
+    if not (halfphone or multivoice):
+        return {}
+    n = tgt_codes.numel()
+    return dict(tgt_meta=pack_meta(tgt_codes.reshape(n), tgt_ctx.reshape(n, 5),
+                                   tgt_vids.reshape(n)),
+                db_meta=db.meta, partition=multivoice,
+                ling_weights=ling_weights if halfphone else None)
+
+
 @contextlib.contextmanager
 def _synced_stage(timer: utils.StageTimer, name: str, device):
     if device.type == "cuda":
@@ -158,9 +211,12 @@ def _synced_stage(timer: utils.StageTimer, name: str, device):
             torch.cuda.synchronize(device)
 
 
-def _rescore(db: DeviceDB, tw, idx, scores, live, n_cand):
+def _rescore(db: DeviceDB, tw, idx, scores, live, n_cand, ling=None):
     """Exact f32 rescoring of the preselected candidates, then the canonical
     (score, unit id) order the float64 oracle uses; keeps ``n_cand``.
+    ``ling`` = (target codes, target contexts, weights) in halfphone mode:
+    the order is by :func:`halfphone_exact_rank` and the kept lattice costs
+    go through :func:`halfphone_lattice_mask` (the JAX batched step's form).
     Returns (candidate ids, target costs, join-left, join-right contexts)."""
     kd = tw.shape[1]
     zero = torch.zeros((), dtype=torch.float32, device=tw.device)
@@ -168,11 +224,20 @@ def _rescore(db: DeviceDB, tw, idx, scores, live, n_cand):
     cand = affine_rows(rows_c[..., :kd], db.mean_t, db.std_t, db.sqrt_wt,
                        idx < db.n_real, 1e6)
     diff = cand - tw[:, None, :]
-    ac = torch.sqrt(torch.clamp(torch.sum(diff * diff, dim=-1), min=0.0))
-    ac = torch.where(torch.isinf(scores), float("inf"), ac)
-    order = order_topk_positions(ac, idx, n_cand)
+    sq = torch.clamp(torch.sum(diff * diff, dim=-1), min=0.0)
+    ac = torch.where(torch.isinf(scores), float("inf"), torch.sqrt(sq))
+    if ling is not None:
+        codes, ctx, weights = ling
+        mism = db.codes[idx] != codes[:, None]
+        rank = halfphone_exact_rank(sq, scores, mism, db.ctx[idx], ctx, weights)
+    else:
+        rank = ac
+    order = order_topk_positions(rank, idx, n_cand)
     cand_idx = torch.gather(idx, 1, order)
-    target_costs = torch.where(live.reshape(-1, 1), torch.gather(ac, 1, order), zero)
+    target_costs = torch.gather(ac, 1, order)
+    if ling is not None:
+        target_costs = halfphone_lattice_mask(target_costs, torch.gather(mism, 1, order))
+    target_costs = torch.where(live.reshape(-1, 1), target_costs, zero)
     rows_sel = torch.gather(rows_c, 1, order[:, :, None].expand(-1, -1, rows_c.shape[2]))
     jl, jr = gather_join_contexts(rows_sel, db.raw, cand_idx, db.sqrt_wj.shape[0],
                                   db.mean_j, db.std_j, db.sqrt_wj,
@@ -181,7 +246,8 @@ def _rescore(db: DeviceDB, tw, idx, scores, live, n_cand):
 
 
 class Synthesiser:
-    """Loads a VoiceDB onto one device and synthesises epoch-unit voices.
+    """Loads a VoiceDB onto one device and synthesises from it: epoch-unit
+    and halfphone voices, and DBs merged from several voices of either kind.
 
     ``device`` is explicit: "cuda" (the default) raises where CUDA is absent;
     "cpu" runs the kernels' plain twins (tests)."""
@@ -205,16 +271,14 @@ class Synthesiser:
         with self.timer.stage("load_db"):
             self.db = db if db is not None else VoiceDB.load(cfg.db_path)
         self._check_supported()
-        self.frames_per_unit = self.db.multiepoch
+        self.halfphone = self.db.target_representation == "halfphone"
+        self.is_multivoice = self.db.is_multivoice
+        self.frames_per_unit = 3 if self.halfphone else self.db.multiepoch
         with self.timer.stage("prepare_db"):
             self._prepare_device_db()
 
     def _check_supported(self) -> None:
-        cfg, db = self.cfg, self.db
-        if db.target_representation == "halfphone" or cfg.preselection_method not in ("", "acoustic"):
-            raise NotImplementedError(f"halfphone / linguistic preselect: {_TODO}")
-        if db.is_multivoice:
-            raise NotImplementedError(f"multi-voice partitions: {_TODO}")
+        cfg = self.cfg
         if cfg.preselect_precision != "highest":
             raise NotImplementedError(
                 f"preselect_precision={cfg.preselect_precision!r}: {_TODO}")
@@ -257,6 +321,24 @@ class Synthesiser:
             db.unit_features, db.join_right, mp, ndb=1,
             affine=(db.mean_target, db.std_target, self._sqrt_wt))
         cuts = np.pad(db.cutpoints.astype(np.int32), ((0, mp - m), (0, 0)))
+        # fail fast on a linguistic method for a voice that has no labels
+        self._preselect_method()
+        if self.is_multivoice:
+            # a voice with fewer live units than n_candidates would leave
+            # (inf, unit 0) slots in the lattice: reject such DBs up front
+            counts = np.bincount(db.voice_ids, minlength=len(db.voice_names))
+            short = [db.voice_names[v] for v in np.nonzero(counts < cfg.n_candidates)[0]]
+            if short:
+                raise ValueError(
+                    f"multi-voice DB: voices {short} have fewer than "
+                    f"n_candidates={cfg.n_candidates} units; selection for "
+                    "them would be degenerate")
+        if self.halfphone:
+            codes = np.pad(db.unit_code.astype(np.int32), (0, mp - m), constant_values=-1)
+            ctx = np.pad(db.context_codes.astype(np.int32), ((0, mp - m), (0, 0)),
+                         constant_values=-1)
+        else:
+            codes, ctx = np.zeros(mp, np.int32), np.zeros((mp, 5), np.int32)
         wave_scale = np.float32(1.0)
         if cfg.waves_dtype == "int16":
             w32 = np.asarray(db.waves, np.float32)
@@ -278,14 +360,47 @@ class Synthesiser:
             mean_j=db.mean_join.astype(np.float32),
             std_j=db.std_join.astype(np.float32),
             sqrt_wj=self._sqrt_wj,
-            codes=np.zeros(mp, np.int32),
-            ctx=np.zeros((mp, 5), np.int32),
+            codes=codes,
+            ctx=ctx,
             vids=np.pad(db.voice_ids.astype(np.int32), (0, mp - m),
                         constant_values=-1),
         ), self.device)
         spans = (db.cutpoints[:, 2] - db.cutpoints[:, 1]).astype(np.int64)
         self.max_span = int(spans.max()) if len(spans) else 1
         self.max_frag = utils.next_multiple(self.max_span + 2 * cfg.taper_length, 128)
+        self._unit_vocab = {n: i for i, n in enumerate(db.unit_names)}
+        self._phone_vocab = {n: i for i, n in enumerate(db.phone_names)}
+        self._voice_vocab = {n: i for i, n in enumerate(db.voice_names)}
+
+    def _preselect_method(self) -> str:
+        """Resolve config preselection_method ("" = auto by voice type)."""
+        m = self.cfg.preselection_method
+        if not m:
+            return "quinphone" if self.halfphone else "acoustic"
+        if m != "acoustic" and not self.halfphone:
+            raise ValueError(
+                f"preselection_method={m!r} needs a halfphone voice "
+                f"(this DB has target_representation="
+                f"{self.db.target_representation!r})")
+        return m
+
+    def _use_ling(self) -> bool:
+        """Whether linguistic (quinphone) penalties enter the preselect."""
+        return self._preselect_method() in ("quinphone", "quinphone_backoff")
+
+    def _ling_weights(self) -> tuple:
+        cfg = self.cfg
+        if self._preselect_method() == "quinphone_backoff":
+            return BACKOFF_LING_WEIGHTS
+        return tuple(float(w) for w in cfg.quinphone_context_weights) + (
+            float(cfg.quinphone_penalty_scale),)
+
+    def _voice_code(self, voice) -> int:
+        if isinstance(voice, str):
+            if voice not in self._voice_vocab:
+                raise KeyError(f"unknown voice {voice!r}; have {self.db.voice_names}")
+            return self._voice_vocab[voice]
+        return int(voice)
 
     # ------------------------------------------------------- target assembly
     def targets_from_features(self, features: np.ndarray) -> tuple[np.ndarray, int]:
@@ -301,20 +416,77 @@ class Synthesiser:
             raise ValueError("utterance shorter than one unit")
         return usable[: t_units * k].reshape(t_units, k * d).astype(np.float32), t_units
 
+    def halfphone_targets_from_features(
+            self, features: np.ndarray, epochs: np.ndarray, segments: list
+    ) -> tuple[np.ndarray, list]:
+        """Unit-rate halfphone targets ([first, mid, last] frames) from an
+        epoch-rate trajectory and the target's halfphone segmentation, with
+        the DB builder's frame-picking rule; returns (targets, kept
+        segments)."""
+        from snickery_tpu.io.labels import segments_to_sample_bounds
+        from snickery_tpu.voicedb.build import halfphone_frame_indices
+
+        bounds = segments_to_sample_bounds(segments, self.cfg.sample_rate)
+        rows, kept = [], []
+        for seg, e0, mid, e1 in halfphone_frame_indices(
+                segments, bounds, epochs, len(features)):
+            rows.append(np.concatenate([features[e0], features[mid], features[e1]]))
+            kept.append(seg)
+        return np.asarray(rows, np.float32), kept
+
+    def _prepare(self, feature_list, segments_list, voices):
+        """Unit-rate targets and per-utterance voice ids, with the JAX
+        package's checks of the halfphone and multi-voice arguments."""
+        if self.is_multivoice and voices is None:
+            raise ValueError(
+                "this is a multi-voice DB: pass a voice name or id per "
+                f"utterance (available: {self.db.voice_names})")
+        if self.halfphone:
+            if segments_list is None:
+                raise ValueError("halfphone mode needs target segments")
+            prepped = [(np.asarray(f, np.float32), len(f)) for f in feature_list]
+        else:
+            prepped = [self.targets_from_features(f) for f in feature_list]
+        vids = ([self._voice_code(v) for v in voices] if self.is_multivoice
+                else [0] * len(prepped))
+        return prepped, vids
+
     # ----------------------------------------------------------------- public
-    def batch_inputs(self, prepped: list[tuple[np.ndarray, int]]):
+    def batch_inputs(self, prepped: list[tuple[np.ndarray, int]],
+                     segments_list: list | None = None,
+                     voice_ids: list[int] | None = None):
         """(targets (B, T, kd), lengths (B,), step keyword arguments) for
         :func:`synth_pipeline_step` from unit-rate targets and their
-        lengths, padded to the shared length bucket."""
+        lengths, padded to the shared length bucket.  ``segments_list``
+        (halfphone voices): one HalfphoneSegment list per utterance;
+        ``voice_ids`` (merged DBs): one voice id per utterance.  Steps past
+        an utterance's length get code, contexts and voice id -1."""
         cfg = self.cfg
+        B = len(prepped)
         t_bucket = utils.bucket_length(max(n for _, n in prepped),
                                        tuple(cfg.length_buckets))
-        tgts = np.zeros((len(prepped), t_bucket, self.db.target_dim), np.float32)
-        lengths = np.zeros(len(prepped), np.int64)
+        tgts = np.zeros((B, t_bucket, self.db.target_dim), np.float32)
+        lengths = np.zeros(B, np.int64)
+        codes = np.full((B, t_bucket), -1, np.int32)
+        ctx = np.full((B, t_bucket, 5), -1, np.int32)
+        vids = np.full((B, t_bucket), -1, np.int32)
         for b, (tu, n) in enumerate(prepped):
             tgts[b, :n] = tu
             lengths[b] = n
+            if self.halfphone:
+                segs = segments_list[b]
+                codes[b, :n] = [self._unit_vocab.get(s.name, -1) for s in segs]
+                ctx[b, :n] = [[self._phone_vocab.get(p, 0) for p in s.quinphone]
+                              for s in segs]
+            else:
+                codes[b, :n] = 0
+                ctx[b, :n] = 0
+            vids[b, :n] = 0 if voice_ids is None else voice_ids[b]
+        dev = self.device
         kwargs = dict(
+            tgt_codes=torch.from_numpy(codes).to(dev),
+            tgt_ctx=torch.from_numpy(ctx).to(dev),
+            tgt_vids=torch.from_numpy(vids).to(dev),
             n_cand=min(cfg.n_candidates, self.n_units_padded),
             jcw=cfg.join_cost_weight, eps=cfg.search_epsilon,
             max_frag=self.max_frag,
@@ -322,12 +494,15 @@ class Synthesiser:
                 t_bucket * self.max_span + 2 * cfg.taper_length, 128),
             taper=cfg.taper_length,
             squared_joins=cfg.join_cost_type == "squared",
-            margin=cfg.preselect_margin)
-        return (torch.from_numpy(tgts).to(self.device),
-                torch.from_numpy(lengths).to(self.device), kwargs)
+            margin=cfg.preselect_margin,
+            halfphone=self._use_ling(), multivoice=self.is_multivoice,
+            ling_weights=self._ling_weights())
+        return (torch.from_numpy(tgts).to(dev), torch.from_numpy(lengths).to(dev),
+                kwargs)
 
-    def _run(self, prepped: list[tuple[np.ndarray, int]], greedy: bool) -> list[dict]:
-        tgts, lengths, kwargs = self.batch_inputs(prepped)
+    def _run(self, prepped: list[tuple[np.ndarray, int]], greedy: bool,
+             segments_list: list | None, voice_ids: list[int]) -> list[dict]:
+        tgts, lengths, kwargs = self.batch_inputs(prepped, segments_list, voice_ids)
         with self.timer.stage("synth_step"):
             unit_ids, costs, audio, totals = synth_pipeline_step(
                 self.device_db, tgts, lengths, greedy=greedy, **kwargs)
@@ -339,19 +514,33 @@ class Synthesiser:
                  "n_units": int(n)} for b, (_, n) in enumerate(prepped)]
 
     def synth_from_features(self, features: np.ndarray,
-                            greedy: bool | None = None) -> dict:
+                            greedy: bool | None = None,
+                            target_segments: list | None = None,
+                            voice=None) -> dict:
         """Synthesise one utterance from an epoch-rate target trajectory.
-        Returns dict(wave, unit_ids, total_cost, n_units)."""
+
+        Halfphone voices: ``features`` are unit-rate already (from
+        :meth:`halfphone_targets_from_features`) and ``target_segments``
+        their HalfphoneSegment list.  Merged DBs: ``voice`` (name or id)
+        selects the voice.  Returns dict(wave, unit_ids, total_cost,
+        n_units)."""
         greedy = self.cfg.greedy_search if greedy is None else greedy
-        return self._run([self.targets_from_features(features)], greedy)[0]
+        prepped, vids = self._prepare(
+            [features], None if target_segments is None else [target_segments],
+            None if voice is None else [voice])
+        return self._run(prepped, greedy, [target_segments], vids)[0]
 
     def synth_batch(self, feature_list: list[np.ndarray],
-                    greedy: bool = False) -> list[dict]:
+                    greedy: bool = False, voices: list | None = None,
+                    segments_list: list | None = None) -> list[dict]:
         """Synthesise several utterances in one step, padded to a shared
         length bucket; one result dict per utterance, as
-        :meth:`synth_from_features` returns."""
-        return self._run([self.targets_from_features(f) for f in feature_list],
-                         greedy)
+        :meth:`synth_from_features` returns.  ``voices``: one voice name or
+        id per utterance (merged DBs); ``segments_list``: one
+        HalfphoneSegment list per utterance (halfphone voices, whose
+        ``feature_list`` entries are unit-rate)."""
+        prepped, vids = self._prepare(feature_list, segments_list, voices)
+        return self._run(prepped, greedy, segments_list, vids)
 
     def synth_streaming(self, *args, **kwargs):
         raise NotImplementedError(f"streaming synthesis: {_TODO}")

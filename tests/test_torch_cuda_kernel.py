@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the preselect kernel against its plain twin, and
-the synthesiser on the card against the same synthesiser on the CPU.
+"""The port on a CUDA card: the preselect kernel (and its masked variants)
+against its plain twin, and the synthesiser on the card against the same
+synthesiser on the CPU, for epoch, halfphone and merged voices.
 
 Marked ``cuda``; each test skips where no card is visible.  This file
 imports no jax, so it also runs on a GPU host without jax, where the
@@ -13,14 +14,19 @@ import pytest
 import torch
 
 from snickery_tpu.config import SnickeryConfig
+from snickery_tpu.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
 from snickery_tpu.voicedb.build import UtteranceData, build_voicedb
 from snickery_tpu.voicedb.device_layout import build_raw_blocks
+from snickery_tpu.voicedb.multivoice import merge_voicedbs
 from snickery_tpu_torch.ops import cuda_topk
-from snickery_tpu_torch.ops.cuda_topk import (cuda_topk_preselect,
+from snickery_tpu_torch.ops.cuda_topk import (cuda_topk_preselect, pack_meta,
                                               topk_preselect_zt_plain)
-from snickery_tpu_torch.synth import Synthesiser
+from snickery_tpu_torch.synth import BACKOFF_LING_WEIGHTS, Synthesiser
+from snickery_tpu_torch.synthetic_voices import make_halfphone_utterances, phone_means
 
 KD = 151
+VARIANTS = {"part": (True, None), "ling": (False, (*QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE)),
+            "ling_part": (True, BACKOFF_LING_WEIGHTS)}
 
 
 @pytest.fixture
@@ -30,16 +36,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _block(seed, M, dup):
+def _block(seed, M, dup, kd=KD):
     rng = np.random.default_rng(seed)
-    feats = rng.standard_normal((M, KD)).astype(np.float32)
+    feats = rng.standard_normal((M, kd)).astype(np.float32)
     if dup:
         feats[100:140] = feats[50]
     jr = np.zeros_like(feats)
     jr[:-1] = feats[1:]
-    aff = ((0.1 * rng.standard_normal(KD)).astype(np.float32),
-           rng.uniform(0.5, 2.0, KD).astype(np.float32),
-           rng.uniform(0.2, 1.0, KD).astype(np.float32))
+    aff = ((0.1 * rng.standard_normal(kd)).astype(np.float32),
+           rng.uniform(0.5, 2.0, kd).astype(np.float32),
+           rng.uniform(0.2, 1.0, kd).astype(np.float32))
     raw, _, _ = build_raw_blocks(feats, jr, M, affine=aff)
     return rng, raw, aff
 
@@ -66,6 +72,43 @@ def test_kernel_matches_plain(cuda_device, T, M, dup):
     torch.testing.assert_close(torch.gather(kv, 1, ko), torch.gather(pv, 1, po),
                                rtol=0, atol=1e-3)
     assert bool((kv[:, 1:] >= kv[:, :-1]).all()), "kernel output ascending"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("T,M,kd", [(128, 65536, KD), (300, 8229, 3 * KD), (2048, 65536, 3 * KD)])
+def test_masked_kernel_matches_plain(cuda_device, variant, T, M, kd):
+    """The partition / quinphone-penalty variants against the twin on the
+    same card tensors, with a voice of 6 rows (starved slots (+inf, 0)), a
+    voice of none and a code no row carries: ids and scores equal (the
+    kernel and the twin sum in the same order on this card, so penalised
+    scores near 2^24 agree too; a swap would need an exact f32 tie)."""
+    partition, weights = VARIANTS[variant]
+    rng, raw, aff = _block(T + M + kd, M, False, kd)
+    tc = rng.integers(0, 80, T).astype(np.int32)
+    tc[:16] = 80
+    tv = rng.integers(0, 7, T).astype(np.int32)
+    tv[16:48], tv[48:56] = 7, 9
+    dv = rng.integers(0, 7, M).astype(np.int32)
+    dv[rng.choice(M, 6, replace=False)] = 7
+    D = lambda a: torch.from_numpy(a).to(cuda_device)
+    tm = pack_meta(D(tc), D(rng.integers(0, 40, (T, 5)).astype(np.int32)), D(tv))
+    dm = pack_meta(D(rng.integers(0, 80, M).astype(np.int32)),
+                   D(rng.integers(0, 40, (M, 5)).astype(np.int32)), D(dv))
+    tg = D(rng.standard_normal((T, kd)).astype(np.float32))
+    kw = dict(tgt_meta=tm, db_meta=dm, partition=partition, ling_weights=weights)
+    name = cuda_topk.kernel_name(partition, weights is not None)
+    before = cuda_topk.LAUNCH_COUNTS[name]
+    ki, kv = cuda_topk_preselect(tg, D(raw), 30, tuple(map(D, aff)), M, **kw)
+    assert cuda_topk.LAUNCH_COUNTS[name] == before + 1
+    pi, pv = topk_preselect_zt_plain(tg, D(raw), 30, tuple(map(D, aff)), M, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    if partition:
+        assert bool(torch.isinf(kv[16:48, 6:]).all()) and not bool(ki[16:56, 6:].any())
+        assert bool(torch.isinf(kv[48:56]).all())
+        live = torch.isfinite(kv)
+        assert torch.equal(dm[ki.long(), 6][live], tm[:, 6, None].expand_as(ki)[live])
 
 
 def _utterances(seed, n_utts, n_epochs):
@@ -107,3 +150,44 @@ def test_synthesiser_on_card_matches_cpu(cuda_device):
         np.testing.assert_array_equal(g["unit_ids"], c["unit_ids"])
         np.testing.assert_allclose(g["total_cost"], c["total_cost"], rtol=1e-5)
         np.testing.assert_allclose(g["wave"], c["wave"], atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["halfphone", "merged_halfphone", "merged_epoch"])
+def test_masked_synthesiser_on_card_matches_cpu(cuda_device, kind):
+    """Halfphone and merged voices: the whole step on the card gives the CPU
+    path's ids, costs (rtol 1e-5) and audio (atol 1e-5), through the
+    variant the voice needs, with no unit from another voice."""
+    cfg = SnickeryConfig(
+        stream_list=["mag", "real", "imag", "lf0"],
+        datadims={"mag": 60, "real": 45, "imag": 45, "lf0": 1},
+        n_candidates=20, taper_length=50, join_cost_weight=0.7,
+        length_buckets=[128, 256],
+        target_representation="epoch" if kind == "merged_epoch" else "halfphone")
+    dbs, held, feats, segs = [], [], [], None
+    for v in range(1 if kind == "halfphone" else 2):
+        if kind == "merged_epoch":
+            dbs.append(build_voicedb(cfg, _utterances(20 + v, 12, 202)))
+            feats += [u.features for u in _utterances(30 + v, 2, 150)]
+        else:
+            rng, means = np.random.default_rng(10 + v), phone_means(50 + v)
+            dbs.append(build_voicedb(cfg, make_halfphone_utterances(rng, 30, 40, f"c{v}", means)))
+            held += make_halfphone_utterances(rng, 2, 40, f"h{v}", means)
+    db = dbs[0] if kind == "halfphone" else merge_voicedbs(dbs, names=["a", "b"])
+    voices = None if kind == "halfphone" else ["a", "a", "b", "b"]
+    gpu, cpu = Synthesiser(cfg, db, device=cuda_device), Synthesiser(cfg, db, device="cpu")
+    if held:
+        tgts = [gpu.halfphone_targets_from_features(u.features, u.epochs, u.halfphones)
+                for u in held]
+        feats, segs = [t for t, _ in tgts], [s for _, s in tgts]
+    name = cuda_topk.kernel_name(kind != "halfphone", kind != "merged_epoch")
+    before = cuda_topk.LAUNCH_COUNTS[name]
+    out_g = gpu.synth_batch(feats, voices=voices, segments_list=segs)
+    assert cuda_topk.LAUNCH_COUNTS[name] == before + 1
+    out_c = cpu.synth_batch(feats, voices=voices, segments_list=segs)
+    for i, (g, c) in enumerate(zip(out_g, out_c)):
+        np.testing.assert_array_equal(g["unit_ids"], c["unit_ids"])
+        np.testing.assert_allclose(g["total_cost"], c["total_cost"], rtol=1e-5)
+        np.testing.assert_allclose(g["wave"], c["wave"], atol=1e-5)
+        if voices:
+            assert (db.voice_ids[g["unit_ids"]] == gpu._voice_code(voices[i])).all()

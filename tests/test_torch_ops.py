@@ -13,6 +13,7 @@ from snickery_tpu import oracle
 from snickery_tpu.ops import ola as jola
 from snickery_tpu.ops import topk as jtopk
 from snickery_tpu.ops import viterbi as jvit
+from snickery_tpu.synth import BACKOFF_LING_WEIGHTS
 from snickery_tpu.voicedb import device_layout as jlayout
 from snickery_tpu_torch.ops import ola as tola
 from snickery_tpu_torch.ops import topk as ttopk
@@ -132,6 +133,67 @@ def test_topk_preselect_matches_jax(with_affine):
     else:
         ref_idx, _ = oracle.preselect(targets, db, k)
         np.testing.assert_array_equal(gi.numpy(), ref_idx)
+
+
+@pytest.mark.parametrize("masks", ["ling", "part", "ling_part"])
+def test_topk_preselect_fused_masks_match_jax(masks):
+    """Plain chunked preselect with the quinphone penalties and/or the voice
+    partition vs the JAX XLA preselect: identical ids, scores rtol 1e-5
+    (penalised scores sit near 2^24); partition ids never leak."""
+    rng = np.random.default_rng(6)
+    Tn, M, d, k, chunk = 37, 2048, 24, 10, 512
+    targets = rng.standard_normal((Tn, d)).astype(np.float32)
+    db = rng.standard_normal((M, d)).astype(np.float32)
+    tc, dc = rng.integers(0, 12, Tn).astype(np.int32), rng.integers(0, 12, M).astype(np.int32)
+    tx, dx = (rng.integers(0, 6, (n, 5)).astype(np.int32) for n in (Tn, M))
+    tp, dp = rng.integers(0, 3, Tn).astype(np.int32), rng.integers(0, 3, M).astype(np.int32)
+    weights = BACKOFF_LING_WEIGHTS if masks == "ling_part" else None
+    jkw, tkw = {}, {}
+    if "ling" in masks:
+        jkw["linguistic"] = tuple(map(jnp.asarray, (tc, tx, dc, dx)))
+        tkw["linguistic"] = tuple(map(T, (tc, tx, dc, dx)))
+        jkw["ling_weights"] = tkw["ling_weights"] = weights
+    if "part" in masks:
+        jkw["partition"] = (jnp.asarray(tp), jnp.asarray(dp))
+        tkw["partition"] = (T(tp), T(dp))
+    ri, rv = jtopk.topk_preselect(jnp.asarray(targets), jnp.asarray(db), k=k,
+                                  chunk=chunk, **jkw)
+    gi, gv = ttopk.topk_preselect(T(targets), T(db), k, chunk=chunk, **tkw)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(ri))
+    np.testing.assert_allclose(gv.numpy(), np.asarray(rv), rtol=1e-5, atol=1e-4)
+    if "part" in masks:
+        assert (dp[gi.numpy()] == tp[:, None]).all()
+
+
+def test_halfphone_helpers_match_jax():
+    """quinphone_penalties, halfphone_exact_rank and halfphone_lattice_mask:
+    bit-equal to the JAX functions, with dead (+inf) slots, rows without a
+    same-name candidate and both weight sets."""
+    rng = np.random.default_rng(8)
+    Tn, M, n = 9, 40, 12
+    tc, dc = rng.integers(0, 4, Tn).astype(np.int32), rng.integers(0, 4, M).astype(np.int32)
+    tx, dx = (rng.integers(0, 3, (r, 5)).astype(np.int32) for r in (Tn, M))
+    for w in (None, BACKOFF_LING_WEIGHTS, (0.3, 10.0, 0.0, 10.0, 1.0, 7.0)):
+        kw = {} if w is None else dict(context_weights=w[:5], scale=w[5])
+        ref = np.asarray(jtopk.quinphone_penalties(*map(jnp.asarray, (tc, tx, dc, dx)), **kw))
+        got = ttopk.quinphone_penalties(*map(T, (tc, tx, dc, dx)), **kw).numpy()
+        np.testing.assert_array_equal(got, ref)
+        sq = (100 * rng.random((Tn, n))).astype(np.float32)
+        scores = rng.standard_normal((Tn, n)).astype(np.float32)
+        scores[2, 5:] = np.inf
+        mism = rng.random((Tn, n)) < 0.4
+        mism[3] = True
+        ctx_c = rng.integers(0, 3, (Tn, n, 5)).astype(np.int32)
+        ref = np.asarray(jtopk.halfphone_exact_rank(
+            jnp.asarray(sq), jnp.asarray(scores), jnp.asarray(mism),
+            jnp.asarray(ctx_c), jnp.asarray(tx), w))
+        got = ttopk.halfphone_exact_rank(T(sq), T(scores), T(mism), T(ctx_c), T(tx), w)
+        np.testing.assert_array_equal(got.numpy(), ref)
+        ac = np.where(np.isinf(scores), np.inf, np.sqrt(sq))
+        ref = np.asarray(jtopk.halfphone_lattice_mask(jnp.asarray(ac), jnp.asarray(mism)))
+        got = ttopk.halfphone_lattice_mask(T(ac), T(mism)).numpy()
+        np.testing.assert_array_equal(got, ref)
+        assert (got[3] == ac[3]).all(), "no same-name candidate: costs stay acoustic"
 
 
 @pytest.mark.parametrize("zero_transient", [False, True])

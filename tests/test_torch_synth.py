@@ -10,6 +10,7 @@ held to the float64 path cost of its own ids (rtol 1e-5), and the JAX cost to
 the port's within that cancellation bound.
 """
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -20,7 +21,8 @@ import torch
 
 from snickery_tpu import oracle
 from snickery_tpu.synth import Synthesiser as JaxSynthesiser
-from snickery_tpu_torch.synth import (DeviceDB, Synthesiser,
+from snickery_tpu.voicedb.multivoice import merge_voicedbs
+from snickery_tpu_torch.synth import (JAX_FIELDS, DeviceDB, Synthesiser,
                                       device_db_from_numpy)
 from tests.toyvoice import build_toy_voice, prepare_toy_utts, toy_config
 
@@ -63,12 +65,28 @@ def _assert_same(cfg, db, ts, a, b, feats):
     _check_costs(cfg, db, ts, feats, b["unit_ids"], b["total_cost"], a["total_cost"])
 
 
-def test_device_db_from_jax_matches_prepare(voices):
+def _voice_db(kind):
+    if kind == "merged":
+        cfg, db_b, _ = build_toy_voice(halfphone=True, n_utts=2)
+        _, db_c, _ = build_toy_voice(halfphone=True, n_utts=3)
+        return (dataclasses.replace(cfg, n_candidates=6),
+                merge_voicedbs([db_b, db_c], names=["b", "c"]))
+    cfg, db, _ = build_toy_voice(halfphone=kind == "halfphone", multiepoch=1)
+    return cfg, db
+
+
+@pytest.mark.parametrize("kind", ["epoch", "halfphone", "merged"])
+def test_device_db_from_jax_matches_prepare(voices, kind):
     """The JAX DeviceDB's fields, fetched to numpy, make a port DeviceDB
-    equal bit for bit to the port's own _prepare_device_db."""
-    cfg, db, utts, held, js, ts = voices
+    equal bit for bit to the port's own _prepare_device_db (the derived
+    kernel metadata included), for epoch, halfphone and merged voices."""
+    if kind == "epoch":
+        js, ts = voices[-2], voices[-1]
+    else:
+        cfg, db = _voice_db(kind)
+        js, ts = JaxSynthesiser(cfg, db=db), Synthesiser(cfg, db, device="cpu")
     assert ts.n_units_padded == js.n_units_padded
-    arrays = {f: np.asarray(getattr(js.device_db, f)) for f in DeviceDB.__dataclass_fields__}
+    arrays = {f: np.asarray(getattr(js.device_db, f)) for f in JAX_FIELDS}
     got = device_db_from_numpy(arrays, "cpu")
     for f in DeviceDB.__dataclass_fields__:
         a, b = getattr(got, f), getattr(ts.device_db, f)
@@ -76,6 +94,9 @@ def test_device_db_from_jax_matches_prepare(voices):
         bits = (lambda t: t.reshape(-1).view(torch.int32)
                 if t.dtype == torch.float32 else t)
         assert torch.equal(bits(a), bits(b)), f
+    meta = ts.device_db.meta
+    assert torch.equal(meta[:, 0], got.codes) and torch.equal(meta[:, 6], got.vids)
+    assert torch.equal(meta[:, 1:6], got.ctx) and not meta[:, 7].any()
 
 
 @pytest.mark.parametrize("which", ["natural", "held_out"])
@@ -153,11 +174,21 @@ def test_cuda_device_raises_without_cuda(voices, monkeypatch):
 
 @pytest.mark.parametrize("override", [
     {"preselect_precision": "split3cat"}, {"preload_all_waves": False},
-    {"mesh_db": 2}, {"preselection_method": "quinphone"}])
+    {"mesh_db": 2}, {"preselect_precision": "split3"}])
 def test_unported_modes_raise(voices, override):
     _, db, *_ = voices
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Synthesiser(toy_config(**override), db, device="cpu")
+
+
+@pytest.mark.parametrize("method", ["quinphone", "quinphone_backoff"])
+def test_linguistic_preselection_needs_halfphone_voice(voices, method):
+    """A linguistic preselection_method on an epoch voice is a ValueError,
+    in the port as in the JAX package."""
+    _, db, *_ = voices
+    for synth in (JaxSynthesiser, lambda c, db: Synthesiser(c, db, device="cpu")):
+        with pytest.raises(ValueError, match="needs a halfphone voice"):
+            synth(toy_config(preselection_method=method), db=db)
 
 
 def test_unported_entry_points_raise(voices):
