@@ -34,7 +34,29 @@ Phases, each timed, any failure ending the run with a non-zero exit:
    leak across voices) and a corpus utterance sent to its own voice;
 8. composition: two merged halfphone voices, a mixed-voice ``synth_batch``
    at B = 4 (no leaks, identity match >= 0.9), once on two small voices
-   (4,800 units each) and once at config-2 scale (50,000 units each).
+   (4,800 units each) and once at config-2 scale (50,000 units each);
+9. the split precisions against their twins (synthetic, kd 151, T in
+   {128, 2048, 300} x M in {8192, 65536, 8229}, duplicated rows; split3cat at
+   k 48, split3 at k 40), near-ties judged in float64 on the three bf16
+   products, and each variant's distance from "highest"; then both split
+   kernels on a probe whose dropped lo * lo products exceed the f32
+   rounding, held to the float64 hh + hl + lh, which "highest" must miss;
+10. config 3 at ``preselect_precision="split3cat"`` (the JAX bench's speed
+    mode): a second Synthesiser on the config-3 voice, ``synth_batch``
+    B = 32 x 2048 with a per-stage split, the kernel against its twin, the
+    held-out utterance against the float64 oracle, and unit agreement with
+    the "highest" batch (raw and tie-adjusted);
+11. config 4, streaming on that voice at split3cat (length bucket 64): one
+    held-out utterance of 2,050 epochs as fixed-rate 5 ms frames in chunks of
+    32 and as epoch-rate features in chunks of 32 units; per-chunk latency
+    p50 / p95, RTF, the host stage lists and one chunk's device stage split;
+    exact sample totals and streamed-vs-greedy unit agreement; the kernel
+    against its twin on a chunk's targets (T = 64);
+12. capacity: the config-3 voice tiled x8 (8,388,000 units, a 5.13 GB raw
+    block) at ``preselect_precision="split3"`` with int16 waves and the audio
+    on the host (``preload_all_waves=False``): ``synth_batch`` B = 8 x 2048,
+    peak device memory, the kernel against its twin, and the same targets at
+    "highest" on the same block (tie-adjusted agreement).
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after; the kernel it needs must have launched.  Standard output ends
@@ -53,6 +75,7 @@ import time
 
 import numpy as np
 
+from snickery_tpu_torch.kernel_check import PROBE_RTOL, check, compare, split_probe_error
 from snickery_tpu_torch.synthetic_voices import (DATADIMS, KD, SR, make_halfphone_utterances,
                                                make_utterances, phone_means)
 
@@ -63,27 +86,22 @@ T_BUCKET = 2048
 HP_UTTS = 625            # config 2: 625 x 80 = 50,000 halfphone units
 MV_EPOCHS = [351] * 93 + [313]   # config 5: 32,768 units a voice, 8 voices
 COMP_UTTS = 60           # composition: 4,800 halfphone units a voice
-SCORE_ATOL = 1e-3        # |kernel - plain| on scores of ~1e2: f32 sums of
-                         # kd products taken in another order
-TIE_RTOL = 1e-5          # a differing id must be an f32 near-tie of the k-th
-F32_EPS = float(np.finfo(np.float32).eps)
 KERNEL_SOURCE = "snickery_tpu_torch/csrc/topk_preselect.cu"
 REPLACES = {
     "topk_preselect_zt": "snickery_tpu/ops/pallas_topk.py:904",
     "topk_preselect_zt_part": "snickery_tpu/ops/pallas_topk.py:904 (+:187-191)",
     "topk_preselect_zt_ling": "snickery_tpu/ops/pallas_topk.py:904 (+:192-208)",
     "topk_preselect_zt_ling_part": "snickery_tpu/ops/pallas_topk.py:904 (+:187-208)",
+    "topk_preselect_zt_split3cat": "snickery_tpu/ops/pallas_topk.py:904 (+:158-178)",
+    "topk_preselect_zt_split3": "snickery_tpu/ops/pallas_topk.py:904 (+:77-93, :156-157)",
 }
+STREAM_CHUNK = 32        # config 4: units (epoch-rate) or 5 ms frames a chunk
+CAP_TILE = 8             # capacity: the config-3 voice x8, 8,388,000 units
 JAX_TPU_CONFIG2_AGREEMENT = 0.9875   # BENCH_full.json config2, a TPU v5e run
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise RuntimeError(f"check failed: {msg}")
 
 
 class Phase:
@@ -123,71 +141,6 @@ def synthetic_block(rng, m: int, kd: int, dup: bool):
     return raw, (mean, std, w)
 
 
-def _scores64(torch, raw, aff, targets, ids, masks):
-    """Float64 ranking scores of the rows ``ids`` (n, k) for the targets
-    (n, kd), penalties and partition included."""
-    from snickery_tpu.const import ID_RANK_PENALTY
-    from snickery_tpu_torch.ops.cuda_topk import penalty_constants
-    kd = targets.shape[1]
-    mean, std, w = (a.double() for a in aff)
-    rows = raw[ids].double()
-    s = rows[..., kd] - 2.0 * torch.einsum("bkc,bc->bk", rows[..., :kd],
-                                           targets.double() * (w / std))
-    if masks:
-        tm, dm = masks["tgt_meta"][:, None, :], masks["db_meta"][ids]
-        if masks["partition"]:
-            s = torch.where(tm[..., 6] != dm[..., 6], float("inf"), s)
-        if masks["ling_weights"] is not None:
-            s = s + (tm[..., 0] != dm[..., 0]) * ID_RANK_PENALTY
-            for c, p in enumerate(penalty_constants(masks["ling_weights"])):
-                s = s + (tm[..., c + 1] != dm[..., c + 1]) * p
-    return s
-
-
-def compare(torch, targets, raw, aff, m_rows, k, **masks):
-    """Kernel vs plain twin on the same card tensors.  Per row: the same
-    number of dead slots, each (+inf, 0); id sets equal, except where the
-    differing ids are f32 near-ties of the k-th score (checked in float64,
-    penalties included); scores of shared ids within SCORE_ATOL plus one
-    f32 ulp of the score (penalised scores sit near 2^24, ulp 2).
-    Returns (max_abs_err, rows_with_differing_ids, dead slots)."""
-    from snickery_tpu_torch.ops.cuda_topk import (cuda_topk_preselect,
-                                                  topk_preselect_zt_plain)
-    ik, vk = cuda_topk_preselect(targets, raw, k, aff, m_rows, **masks)
-    ip, vp = topk_preselect_zt_plain(targets, raw, k, aff, m_rows, **masks)
-    torch.cuda.synchronize()
-    check(bool((ik >= 0).all() and (ik < m_rows).all()), "kernel ids in range")
-    check(not bool(torch.isnan(vk).any() or (vk == -float("inf")).any()),
-          "kernel scores are finite or +inf")
-    dead_k, dead_p = torch.isinf(vk), torch.isinf(vp)
-    check(torch.equal(dead_k, dead_p), "dead (+inf) slots differ")
-    check(bool((ik[dead_k] == 0).all()), "a dead slot must read index 0")
-    ik_s, ok = torch.sort(ik.long(), dim=1)
-    ip_s, op = torch.sort(ip.long(), dim=1)
-    vk_s, vp_s = torch.gather(vk, 1, ok), torch.gather(vp, 1, op)
-    same = (ik_s == ip_s).all(dim=1)
-    live = same[:, None] & torch.isfinite(vp_s)
-    diff = (vk_s - vp_s).abs()[live]
-    err = float(diff.max()) if diff.numel() else 0.0
-    allowed = SCORE_ATOL + F32_EPS * vp_s.abs()[live]
-    check(bool((diff <= allowed).all()), f"score error {err} beyond {SCORE_ATOL} + 1 ulp")
-    bad = torch.nonzero(~same).flatten()
-    if len(bad):
-        sub = {}
-        if masks:
-            sub = dict(masks, tgt_meta=masks["tgt_meta"][bad])
-
-        def worst(ids):
-            s = _scores64(torch, raw, aff, targets[bad], ids[bad], sub)
-            return torch.where(torch.isinf(s), -float("inf"), s).max(1).values
-
-        worst_k, worst_p = worst(ik_s), worst(ip_s)
-        gap = float(((worst_k - worst_p) / worst_p.abs().clamp(min=1.0)).max())
-        check(gap <= TIE_RTOL, f"differing ids are not near-ties (gap {gap})")
-        check(len(bad) <= 0.01 * targets.shape[0], f"{len(bad)} rows differ")
-    return err, int(len(bad)), int(dead_k.sum())
-
-
 def time_ms(torch, fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -211,7 +164,7 @@ def kernel_vs_plain_synthetic(torch) -> float:
         raw = torch.from_numpy(raw_np).to(dev)
         aff = tuple(torch.from_numpy(a).to(dev) for a in aff_np)
         tg = torch.from_numpy(rng.standard_normal((T, KD), dtype=np.float32)).to(dev)
-        err, nbad, _ = compare(torch, tg, raw, aff, M, 40)
+        err, nbad, _ = compare(tg, raw, aff, M, 40)
         worst = max(worst, err)
         log(f"kernel vs plain T={T} M={M} kd={KD} k=40 dup={dup}: "
             f"max_abs_err {err:.3e}, rows with near-tie id swaps {nbad}")
@@ -257,13 +210,50 @@ def kernel_variants_synthetic(torch) -> dict:
             meta = dict(tgt_meta=pack_meta(tc, tx, tv), db_meta=pack_meta(dc, dx, dv))
             for partition, weights in variants:
                 name = kernel_name(partition, weights is not None)
-                err, nbad, dead = compare(torch, tg, raw, aff, M, 30, partition=partition,
+                err, nbad, dead = compare(tg, raw, aff, M, 30, partition=partition,
                                           ling_weights=weights, **meta)
                 errs[name] = max(errs.get(name, 0.0), err)
                 if partition:
                     check(dead >= 32 * 15 + 8 * 30, f"starved slots missing ({dead})")
                 log(f"{name} vs plain T={T} M={M} kd={kd} k=30: max_abs_err {err:.3e}, "
                     f"near-tie id swaps {nbad}, dead slots {dead}")
+    return errs
+
+
+def precision_variants_synthetic(torch) -> dict:
+    """The split-precision variants against their twins at kd 151 with
+    duplicated rows, and each one's distance from "highest" on the same
+    inputs (the kernel ranks with bf16 splits, so its scores must move);
+    returns {kernel name: max_abs_err}."""
+    from snickery_tpu_torch.ops.cuda_topk import cuda_topk_preselect, kernel_name
+    dev = torch.device("cuda")
+    errs = {}
+    for precision, k in (("split3cat", 48), ("split3", 40)):
+        name = kernel_name(False, False, precision)
+        for T, M in ((128, 8192), (2048, 65536), (300, 8192 + 37)):
+            rng = np.random.default_rng(T + M)
+            raw_np, aff_np = synthetic_block(rng, M, KD, True)
+            raw = torch.from_numpy(raw_np).to(dev)
+            aff = tuple(torch.from_numpy(a).to(dev) for a in aff_np)
+            tg = torch.from_numpy(rng.standard_normal((T, KD), dtype=np.float32)).to(dev)
+            err, nbad, _ = compare(tg, raw, aff, M, k, precision=precision)
+            errs[name] = max(errs.get(name, 0.0), err)
+            ih, vh = cuda_topk_preselect(tg, raw, k, aff, M)
+            ik, vk = cuda_topk_preselect(tg, raw, k, aff, M, precision=precision)
+            same = (torch.sort(ih.long(), 1)[0] == torch.sort(ik.long(), 1)[0]).all(1)
+            vs = (torch.sort(vk[same], 1)[0] - torch.sort(vh[same], 1)[0]).abs()
+            log(f"{name} vs plain T={T} M={M} kd={KD} k={k} dup=True: max_abs_err "
+                f"{err:.3e}, near-tie id swaps {nbad}; vs highest: rows with other "
+                f"ids {int((~same).sum())}, max |score diff| on the others "
+                f"{float(vs.max()) if vs.numel() else 0.0:.3e}")
+    for precision in ("split3cat", "split3", "highest"):
+        err = split_probe_error(dev, precision)
+        log(f"{precision} on the split probe (kd 8, lo * lo 2.7e-6 - 2.5e-5 of each dot): "
+            f"max |score - f64 hh+hl+lh| / (2 sum |t||u|) {err:.3e} (limit {PROBE_RTOL})")
+        if precision == "highest":
+            check(err > PROBE_RTOL, "the split probe cannot tell full f32 from the split")
+        else:
+            check(err <= PROBE_RTOL, f"{precision} kernel does not form hh + hl + lh")
     return errs
 
 
@@ -324,9 +314,10 @@ class Run:
         self.launches[kernel] = self.launches.get(kernel, 0) + got[kernel]
         return out
 
-    def kernel_at(self, kernel, synth, tgts, kwargs, T_list):
+    def kernel_at(self, kernel, synth, tgts, kwargs, T_list, report=True):
         """The kernel against its twin, and both timed, at the main path's
-        shapes (the last of ``T_list`` is the one reported)."""
+        shapes (with ``report``, the last of ``T_list`` is the time the
+        kernels line reports)."""
         from snickery_tpu_torch.ops.cuda_topk import topk_preselect_zt_plain
         from snickery_tpu_torch.ops.topk import preselect_margin
         from snickery_tpu_torch.synth import fused_masks
@@ -335,7 +326,8 @@ class Run:
         kd = tgts.shape[-1]
         tw = ((tgts - d.mean_t) / d.std_t * d.sqrt_wt).reshape(-1, kd).contiguous()
         m_rows = d.cut1.shape[0]
-        k = min(kwargs["n_cand"] + preselect_margin(True, "highest", zero_transient=True,
+        precision = kwargs["precision"]
+        k = min(kwargs["n_cand"] + preselect_margin(True, precision, zero_transient=True,
                                                     override=kwargs["margin"]), m_rows)
         masks = fused_masks(d, kwargs["tgt_codes"], kwargs["tgt_ctx"], kwargs["tgt_vids"],
                             halfphone=kwargs["halfphone"], multivoice=kwargs["multivoice"],
@@ -343,13 +335,14 @@ class Run:
         for T in T_list:
             x = tw[:T].contiguous()
             m = dict(masks, tgt_meta=masks["tgt_meta"][:T].contiguous()) if masks else {}
-            err, nbad, dead = compare(torch, x, d.raw, aff, m_rows, k, **m)
+            err, nbad, dead = compare(x, d.raw, aff, m_rows, k, precision, **m)
             self.errs[kernel] = max(self.errs.get(kernel, 0.0), err)
             ms = time_ms(torch, lambda: self.cuda_topk.cuda_topk_preselect(
-                x, d.raw, k, aff, m_rows, **m), 3)
+                x, d.raw, k, aff, m_rows, precision=precision, **m), 3)
             plain_ms = time_ms(torch, lambda: topk_preselect_zt_plain(
-                x, d.raw, k, aff, m_rows, **m), 1)
-            self.times[kernel] = (ms, plain_ms)
+                x, d.raw, k, aff, m_rows, precision=precision, **m), 1)
+            if report:
+                self.times[kernel] = (ms, plain_ms)
             log(f"{kernel} T={T} M={m_rows} kd={kd} k={k}: kernel {ms:.2f} ms, plain "
                 f"{plain_ms:.2f} ms, max_abs_err {err:.3e}, near-tie id swaps {nbad}, "
                 f"dead slots {dead}")
@@ -390,7 +383,6 @@ def check_result(db, res):
 
 def config3(run: Run):
     torch = run.torch
-    from snickery_tpu import oracle
     from snickery_tpu.voicedb.build import build_voicedb
     from snickery_tpu_torch import Synthesiser
 
@@ -429,30 +421,239 @@ def config3(run: Run):
                 log(msg)
         for B in (8, 32):
             with Phase(f"config-3 main path: synth_batch B={B} x T={T_BUCKET}"):
-                for res in timed_batch(torch, synth, 2, [u.features for u in held[:B]]):
+                out = timed_batch(torch, synth, 2, [u.features for u in held[:B]])
+                for res in out:
                     check_result(db, res)
+        return out
 
-    run.main_path("config 3", "topk_preselect_zt", drive)
+    out32 = run.main_path("config 3", "topk_preselect_zt", drive)
     prepped = [synth.targets_from_features(u.features) for u in held[:32]]
     tgts, lengths, kwargs = synth.batch_inputs(prepped)
     stage_split("config-3 B=32", synth, tgts, lengths, kwargs)
     with Phase("config-3 kernel vs plain at main-path shapes"):
         run.kernel_at("topk_preselect_zt", synth, tgts, kwargs, (T_BUCKET, 32 * T_BUCKET))
     with Phase("config-3 held-out utterance vs float64 oracle (full DB)"):
-        res = synth.synth_from_features(short.features)
-        tgt, n = synth.targets_from_features(short.features)
-        tw_o = (((tgt - db.mean_target) / db.std_target) * synth._sqrt_wt).astype(np.float32)
-        feats_w = db.normalised_features().astype(np.float32) * synth._sqrt_wt[None, :]
-        jl, jr = db.normalised_joins()
-        ids_ref, _ = oracle.synth_pipeline(
-            tw_o, feats_w, (jl * synth._sqrt_wj).astype(np.float32),
-            (jr * synth._sqrt_wj).astype(np.float32), n_candidates=cfg.n_candidates,
-            join_cost_weight=JCW, fast_preselect=True)
-        agree = float((res["unit_ids"] == ids_ref).mean())
-        c_dev, c_ref = path_cost(db, synth, tw_o, res["unit_ids"]), path_cost(db, synth, tw_o, ids_ref)
-        log(f"{n} held-out units: raw agreement {agree:.5f}, f64 path cost "
-            f"{c_dev:.6f} vs oracle {c_ref:.6f} (gap {(c_dev - c_ref) / abs(c_ref):+.3e})")
+        agree, _ = oracle_check(db, synth, short.features, "highest")
         check(agree >= 0.99, f"oracle agreement {agree} < 0.99")
+    return db, held, short, out32
+
+
+def oracle_check(db, synth, feats, label):
+    """A held-out utterance through ``synth`` against the float64 oracle over
+    the full DB; returns (raw agreement, relative f64 path-cost gap)."""
+    from snickery_tpu import oracle
+    res = synth.synth_from_features(feats)
+    tgt, n = synth.targets_from_features(feats)
+    tw_o = (((tgt - db.mean_target) / db.std_target) * synth._sqrt_wt).astype(np.float32)
+    feats_w = db.normalised_features().astype(np.float32) * synth._sqrt_wt[None, :]
+    jl, jr = db.normalised_joins()
+    ids_ref, _ = oracle.synth_pipeline(
+        tw_o, feats_w, (jl * synth._sqrt_wj).astype(np.float32),
+        (jr * synth._sqrt_wj).astype(np.float32), n_candidates=synth.cfg.n_candidates,
+        join_cost_weight=JCW, fast_preselect=True)
+    agree = float((res["unit_ids"] == ids_ref).mean())
+    c_dev, c_ref = path_cost(db, synth, tw_o, res["unit_ids"]), path_cost(db, synth, tw_o, ids_ref)
+    gap = (c_dev - c_ref) / abs(c_ref)
+    log(f"{label}: {n} held-out units, raw agreement {agree:.5f}, f64 path cost "
+        f"{c_dev:.6f} vs oracle {c_ref:.6f} (gap {gap:+.3e})")
+    return agree, gap
+
+
+def tie_adjusted_agreement(db, ids_a, ids_b):
+    """(raw, tie-adjusted) agreement of two flat unit-id arrays, as
+    ``bench.py`` computes it: a differing pair counts as agreeing when the
+    two units' target features and join contexts are bit-identical."""
+    m = ids_a != ids_b
+    uids = np.unique(np.concatenate([ids_a[m], ids_b[m]]))
+    fw, jl, jr = (np.asarray(a[uids]) for a in (db.unit_features, db.join_left,
+                                                 db.join_right))
+    pa, pb = np.searchsorted(uids, ids_a[m]), np.searchsorted(uids, ids_b[m])
+    eq = (fw[pa] == fw[pb]).all(-1) & (jl[pa] == jl[pb]).all(-1) & (jr[pa] == jr[pb]).all(-1)
+    return float((~m).mean()), float(((~m).sum() + eq.sum()) / ids_a.size)
+
+
+def config3_split3cat(run: Run, db, held, short, out_highest):
+    """Config 3 at the JAX bench's speed precision, then config 4 streaming
+    on the same Synthesiser."""
+    torch = run.torch
+    from snickery_tpu_torch import Synthesiser
+
+    cfg = smoke_config(length_buckets=[64, T_BUCKET], preselect_precision="split3cat")
+    with Phase("config-3 split3cat Synthesiser(device='cuda')"):
+        synth = Synthesiser(cfg, db=db, device="cuda")
+        torch.cuda.synchronize()
+    feats = [u.features for u in held[:32]]
+
+    def drive():
+        with Phase(f"config-3 split3cat main path: synth_batch B=32 x T={T_BUCKET}"):
+            out = timed_batch(torch, synth, 2, feats)
+            for res in out:
+                check_result(db, res)
+        return out
+
+    out = run.main_path("config 3 split3cat", "topk_preselect_zt_split3cat", drive)
+    ids_s = np.concatenate([r["unit_ids"] for r in out])
+    ids_h = np.concatenate([r["unit_ids"] for r in out_highest])
+    raw, adj = tie_adjusted_agreement(db, ids_s, ids_h)
+    log(f"split3cat vs highest over {len(ids_s)} units: raw {raw:.5f}, tie-adjusted {adj:.5f}")
+    check(adj >= 0.999, f"split3cat-vs-highest tie-adjusted agreement {adj} < 0.999")
+    tgts, lengths, kwargs = synth.batch_inputs([synth.targets_from_features(f) for f in feats])
+    stage_split("config-3 split3cat B=32", synth, tgts, lengths, kwargs)
+    with Phase("config-3 split3cat kernel vs plain at main-path shapes"):
+        run.kernel_at("topk_preselect_zt_split3cat", synth, tgts, kwargs,
+                      (T_BUCKET, 32 * T_BUCKET))
+    with Phase("config-3 split3cat held-out utterance vs float64 oracle (full DB)"):
+        agree, gap = oracle_check(db, synth, short.features, "split3cat")
+        check(agree >= 0.99, f"split3cat oracle agreement {agree} < 0.99")
+        check(gap <= 1e-4, f"split3cat f64 path-cost gap {gap} > 1e-4")
+    ids = run.main_path("config 4", "topk_preselect_zt_split3cat",
+                        lambda: config4(db, synth, held[0]))
+    config4_checks(run, synth, held[0], ids)
+
+
+def drive_stream(synth, chunks, **kw):
+    """One streaming pass: (per-chunk ms to each yielded piece, wall s,
+    the pieces), as ``bench.py::_drive_stream`` times it."""
+    times, pieces = [], []
+    t_all = time.perf_counter()
+    gen = synth.synth_streaming(iter(chunks), **kw)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            piece = next(gen)
+        except StopIteration:
+            break
+        times.append(1e3 * (time.perf_counter() - t0))
+        pieces.append(piece)
+    return np.asarray(times), time.perf_counter() - t_all, pieces
+
+
+def config4(db, synth, utt):
+    """Streaming on the config-3 voice at split3cat: fixed-rate 5 ms frames
+    and epoch-rate units, chunks of STREAM_CHUNK, bucket 64; returns the
+    epoch-rate stream's unit ids."""
+    from snickery_tpu_torch.features.world import resample_to_fixed
+
+    fs, taper = 0.005, synth.cfg.taper_length
+    fixed = resample_to_fixed(utt.features, utt.epochs, SR, fs)
+    feats = utt.features[1:-1]
+    def chunked(x):
+        return [x[i:i + STREAM_CHUNK] for i in range(0, len(x), STREAM_CHUNK)]
+
+    inputs = {"fixed-rate": (chunked(fixed), dict(fixed_frameshift=fs)),
+              "epoch-rate": (chunked(feats), {})}
+    for label, (chunks, kw) in inputs.items():
+        with Phase(f"config-4 main path: synth_streaming, {label}, {len(chunks)} chunks"):
+            list(synth.synth_streaming(iter(chunks[:3]), **kw))               # warm-up
+            per, wall, pieces = drive_stream(synth, chunks, **kw)
+            audio = np.concatenate(pieces)
+            ids = np.concatenate(synth.last_stream_unit_ids)
+            spans = (db.cutpoints[ids, 2] - db.cutpoints[ids, 1]).astype(np.int64)
+            inner = per[1:-1]
+            log(f"{label}: {len(ids)} units, {len(audio) / SR:.2f} s audio, chunk latency "
+                f"p50 {np.percentile(inner, 50):.2f} ms, p95 {np.percentile(inner, 95):.2f} ms "
+                f"(first {per[0]:.2f}, last {per[-1]:.2f}), RTF {wall / (len(audio) / SR):.6f}")
+            log("host stage means ms: " + json.dumps({
+                k: round(float(np.mean(v)), 3) for k, v in synth.last_stream_stages.items()}))
+            log("host stages ms: " + json.dumps({
+                k: [round(x, 2) for x in v] for k, v in synth.last_stream_stages.items()}))
+            check(bool(np.isfinite(audio).all()), f"{label}: non-finite audio")
+            check(len(audio) == 2 * taper + int(spans.sum()),
+                  f"{label}: {len(audio)} samples, expected {2 * taper + int(spans.sum())}")
+    return ids
+
+
+def config4_checks(run: Run, synth, utt, ids):
+    """After the config-4 main path: the epoch-rate stream's ids against
+    one-shot greedy, one chunk's device stage split, and the kernel against
+    its twin on the last chunk's targets (the streaming shape, T = 64)."""
+    from snickery_tpu import utils
+    from snickery_tpu_torch.synth import streaming_step
+
+    with Phase("config-4 streamed vs synth_from_features(greedy=True)"):
+        ref = synth.synth_from_features(utt.features, greedy=True)["unit_ids"]
+        agree = float((ids == ref).mean()) if len(ids) == len(ref) else 0.0
+        log(f"epoch-rate streamed ids vs one-shot greedy: {len(ids)} vs {len(ref)} units, "
+            f"agreement {agree:.5f}")
+        check(agree >= 0.99, f"streamed-vs-greedy agreement {agree} < 0.99")
+    with Phase("config-4 one chunk's device stage split (synchronised stage edges)"):
+        args, kwargs = synth._last_stream_step
+        timer = utils.StageTimer()
+        out = streaming_step(*args, stage_timer=timer, **kwargs)
+        t0 = time.perf_counter()
+        _, event = synth._to_host((out[0], out[2], out[3]))
+        event.synchronize()
+        split = {k: round(1e3 * v, 3) for k, v in timer.report().items()}
+        split["fetch"] = round(1e3 * (time.perf_counter() - t0), 3)
+        log(f"chunk of {args[2]} units (bucket {args[1].shape[0]}), stages ms: "
+            + json.dumps(split))
+    with Phase("config-4 kernel vs plain at the streaming shape"):
+        kw = dict(kwargs, tgt_codes=None, tgt_ctx=None, tgt_vids=None, halfphone=False,
+                  ling_weights=None)
+        run.kernel_at("topk_preselect_zt_split3cat", synth, args[1], kw,
+                      (args[1].shape[0],), report=False)
+
+
+def host_free_gib() -> float:
+    with open("/proc/meminfo") as f:
+        info = dict(line.split(":", 1) for line in f)
+    return int(info["MemAvailable"].split()[0]) / 2**20
+
+
+def capacity(run: Run, db, held):
+    """The config-3 voice tiled x CAP_TILE on one card at split3, int16
+    waves, audio on the host; gated by split3-vs-highest agreement on the
+    same resident block (replicas are bit-identical, so raw agreement is
+    printed only)."""
+    torch = run.torch
+    from snickery_tpu_torch import Synthesiser
+    from snickery_tpu_torch.synth import synth_pipeline_step
+
+    cfg = smoke_config(length_buckets=[T_BUCKET], preselect_precision="split3",
+                       waves_dtype="int16", preload_all_waves=False,
+                       voice_name="smokecap")
+    with Phase(f"capacity voice: config 3 tiled x{CAP_TILE}"):
+        log(f"host memory available before tiling: {host_free_gib():.1f} GiB")
+        big = db.tiled(CAP_TILE)
+        log(f"{big.n_units} units; host memory available {host_free_gib():.1f} GiB")
+    with Phase("capacity Synthesiser(device='cuda')"):
+        torch.cuda.reset_peak_memory_stats()
+        synth = Synthesiser(cfg, db=big, device="cuda")
+        torch.cuda.synchronize()
+        log(f"{synth.n_units_padded} padded units, raw block "
+            f"{synth.device_db.raw.nbytes / 1e9:.2f} GB, resident DB "
+            f"{synth.device_db.nbytes / 2**30:.2f} GiB, waves on the device "
+            f"{synth.device_db.waves.numel()} samples (placeholder)")
+    feats = [u.features for u in held[:8]]
+
+    def drive():
+        with Phase(f"capacity main path: synth_batch B=8 x T={T_BUCKET}"):
+            out = timed_batch(torch, synth, 2, feats)
+            for res in out:
+                check_result(big, res)
+            log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                f"(torch.cuda.max_memory_allocated)")
+        return out
+
+    out = run.main_path("capacity", "topk_preselect_zt_split3", drive)
+    tgts, lengths, kwargs = synth.batch_inputs([synth.targets_from_features(f) for f in feats])
+    stage_split("capacity B=8", synth, tgts, lengths, kwargs)
+    t0 = time.perf_counter()
+    for res in out:
+        synth._host_ola(res["unit_ids"])
+    log(f"host OLA of the {len(out)} utterances: {1e3 * (time.perf_counter() - t0):.1f} ms")
+    with Phase("capacity kernel vs plain at main-path shape"):
+        run.kernel_at("topk_preselect_zt_split3", synth, tgts, kwargs, (T_BUCKET,))
+    with Phase("capacity: the same targets at highest on the same block"):
+        ids_h, *_ = synth_pipeline_step(synth.device_db, tgts, lengths,
+                                        **dict(kwargs, precision="highest"))
+        ids_h = ids_h.cpu().numpy()
+        ids_s = np.concatenate([r["unit_ids"] for r in out])
+        ids_h = np.concatenate([ids_h[b, :len(r["unit_ids"])] for b, r in enumerate(out)])
+        raw, adj = tie_adjusted_agreement(big, ids_s, ids_h)
+        log(f"split3 vs highest over {len(ids_s)} units: raw {raw:.5f} (replicas are "
+            f"bit-identical: not gated), tie-adjusted {adj:.5f}")
+        check(adj >= 0.999, f"split3-vs-highest tie-adjusted agreement {adj} < 0.999")
 
 
 def identity_match(synth, db, results, segs_list) -> float:
@@ -647,6 +848,7 @@ def composition(run: Run, n_utts: int):
 
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -673,11 +875,22 @@ def main() -> int:
     with Phase("kernel variants vs plain, synthetic"):
         for name, err in kernel_variants_synthetic(torch).items():
             run.errs[name] = max(run.errs.get(name, 0.0), err)
-    for path in (config3, config2, config5, lambda r: composition(r, COMP_UTTS),
+    with Phase("split precisions vs plain, synthetic"):
+        for name, err in precision_variants_synthetic(torch).items():
+            run.errs[name] = max(run.errs.get(name, 0.0), err)
+    db, held, short, out32 = config3(run)
+    torch.cuda.empty_cache()
+    config3_split3cat(run, db, held, short, out32)
+    torch.cuda.empty_cache()
+    capacity(run, db, held)
+    del db
+    torch.cuda.empty_cache()
+    for path in (config2, config5, lambda r: composition(r, COMP_UTTS),
                  lambda r: composition(r, HP_UTTS)):
         path(run)
         torch.cuda.empty_cache()
 
+    log(f"chip_smoke.py: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES[name], "launches": run.launches[name],

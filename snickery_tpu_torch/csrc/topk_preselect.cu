@@ -1,16 +1,19 @@
-// Exact fused distance + top-k preselect over the resident raw unit block,
+// Fused distance + top-k preselect over the resident raw unit block,
 // hand-written CUDA C++ for Hopper (sm_90a).
 //
 // Replaces snickery_tpu/ops/pallas_topk.py::pallas_topk_preselect in the
-// forms the synthesis paths run: precision "highest", zero_transient=True,
-// select="stream" (_topk_kernel + _compute_scores + _stream_select), with or
-// without the fused partition mask (multi-voice DBs, _compute_scores :187-191)
-// and the fused quinphone penalties (halfphone voices, :192-208).  One
-// exported entry point per variant (topk_partial<PART, LING> below).
+// forms the synthesis paths run: zero_transient=True, select="stream"
+// (_topk_kernel + _compute_scores + _stream_select).  At precision "highest"
+// with or without the fused partition mask (multi-voice DBs,
+// _compute_scores :187-191) and the fused quinphone penalties (halfphone
+// voices, :192-208): topk_partial<PART, LING>.  At the bf16-split precisions
+// "split3" (_split3_dot :77-93) and "split3cat" (_bf16_split :96-99, the
+// in-kernel [hi|hi|lo] concat :158-178), without masks: topk_partial_split.
+// One exported entry point per variant.
 //
 // For every target row t and DB row u in [0, m_rows):
 //
-//     score(t, u) = sqn[u] - 2 * sum_{c < kd} raw[u, c] * t2[t, c]
+//     score(t, u) = sqn[u] - 2 * cross(t, u),  cross = sum_{c < kd} raw[u, c] * t2[t, c]
 //
 // where raw is the (q, kd + 2) block [data kd | sqn | ptr] built by
 // voicedb.device_layout.build_raw_blocks(affine=...).  Column kd holds the
@@ -18,6 +21,16 @@
 // column kd + 1 holds int32 pointer BITS and is never loaded (as f32 it can
 // be NaN or denormal).  Per target the k smallest (score, u) pairs are kept,
 // the lowest u winning ties, and comp[t] is added to the returned scores.
+//
+// Precisions.  "highest": cross in FP32 FMAs on the CUDA cores.  The split
+// precisions cut each operand once into bf16 hi = bf16_rn(x) and
+// lo = bf16_rn(x - hi), as JAX's astype(bfloat16) does, and form
+// cross = hi.hi + hi.lo + lo.hi (raw side first) on the tensor cores
+// (mma.sync m16n8k16, bf16 in, f32 accumulate).  Each bf16 x bf16 product is
+// exact in f32, so only the summation order differs from the TPU kernel:
+// "split3cat" keeps one accumulator over the 3 * kd pairs (the TPU's one
+// K = 3d pass), "split3" three, combined as (hh + hl) + lh (its three
+// passes).
 //
 // Fused masks, in the Pallas order (so the plain twin agrees bit for bit):
 //   PART: score = +inf where vid(t) != vid(u);
@@ -36,36 +49,46 @@
 // parallel and in no order, so the DB is cut into S contiguous splits as
 // well as the targets into tiles of TT rows:
 //
-//   pass 1 (topk_partial), grid (target tiles) x (S splits): the target tile
-//     sits in shared memory (column-major); DB rows stream through shared
-//     memory in tiles of R rows x KC columns with coalesced-by-row scalar
-//     loads (the 4 * (kd + 2)-byte row stride is not 16-byte aligned); each
-//     thread accumulates a 4 x 4 register tile with FP32 FMAs on the CUDA
-//     cores (no TF32).  After each DB tile one warp per target offers the
-//     tile's 64 scores to a sorted k-slot list in shared memory: a candidate
-//     enters only if it beats the worst (score, index) pair, so a warm list
-//     costs one ballot per 32 scores.
+//   pass 1 (topk_partial, topk_partial_split), grid (target tiles) x
+//     (S splits): the target tile sits in shared memory; DB rows stream
+//     through shared memory in tiles of R rows x KC columns with scalar
+//     loads (the 4 * (kd + 2)-byte row stride is not 16-byte aligned).
+//     "highest": each thread accumulates a 4 x 4 register tile with FP32
+//     FMAs (no TF32).  Split precisions: the tile is split to bf16 hi / lo
+//     while it is stored, and each warp computes a 16-row x 32-target block
+//     of the 64 x 64 tile with mma.sync.  After each DB tile one warp per
+//     target offers the tile's 64 scores to a sorted k-slot list in shared
+//     memory: a candidate enters only if it beats the worst (score, index)
+//     pair, so a warm list costs one ballot per 32 scores.
 //   pass 2 (topk_merge): one warp per target merges the S sorted partial
 //     lists under the same (score, index) order and adds comp.
 //
 // S is chosen by the wrapper so that tiles x S fills the card at small T
 // (one utterance: 2 to 32 target tiles) as well as at large T.
 //
-// Shared memory of pass 1 is 4 * (64 * kd + 8,256 + 128 * k) bytes, plus
-// 4 KB of metadata in the masked variants: at kd = 151 (epoch units) two
-// CTAs fit per SM; at kd = 453 (halfphone units, [first | mid | last]
-// frames) about 150-160 KB, so one CTA per SM.
+// Shared memory of pass 1 ("highest") is 4 * (64 * kd + 8,256 + 128 * k)
+// bytes, plus 4 KB of metadata in the masked variants: at kd = 151 (epoch
+// units) two CTAs fit per SM; at kd = 453 (halfphone units, [first | mid |
+// last] frames) about 150-160 KB, so one CTA per SM.  The split variants
+// hold the target tile as bf16 hi and lo (the same bytes as one f32 copy,
+// row stride padded by 8 against bank conflicts): 4 * (4,160 + 128 * k) +
+// 256 * (kd rounded up to 32, + 8) + 10,240 bytes, about 92 KB at kd 151 and
+// k 48, so two CTAs still fit per SM.
 //
 // Bound: at the config-3 batch shape (65,536 targets x 1,048,576 units x
-// kd = 151) the work is about 2.1e13 FLOP of FP32 FMA, so the kernel is
-// bound by FP32 FMA throughput and shared-memory operand traffic; the DB
-// (about 640 MB) is read from device memory about once per wave of
-// resident target tiles, and from L2 by the other tiles of that wave.
+// kd = 151) "highest" is about 2.1e13 FLOP of FP32 FMA, so it is bound by
+// FP32 FMA throughput and shared-memory operand traffic.  The split
+// variants do 3x the products at bf16 tensor-core rate, which leaves them
+// bound by the DB staging (every target tile reads the ~640 MB block, from
+// device memory about once per wave of resident tiles and from L2 for the
+// rest, scalar loads) and by the selection epilogue.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -78,6 +101,12 @@ constexpr int KMAX = 64;                // list slots: two per lane
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int META = 8;                 // [code, ctx0..ctx4, vid, 0]
 constexpr float ID_RANK_PENALTY = 16777216.f;   // 2^24, const.ID_RANK_PENALTY
+// preselect precisions; the values are the ``precision`` argument of
+// snk_topk_partial_smem
+constexpr int HIGHEST = 0, SPLIT3 = 1, SPLIT3CAT = 2;
+constexpr int KS = 16;                  // mma depth (bf16 pairs)
+constexpr int SPAD = 8;                 // bf16 row padding of the split tiles
+constexpr int DS = KC + SPAD;           // bf16 row stride of the DB stage
 
 struct Penalties {
   float w[5];                             // float32(w_c * scale); 0 = skip
@@ -133,6 +162,42 @@ __device__ void warp_offer(float* lv, int* li, int k, float v, int i, bool ok,
     const int ci = __shfl_sync(FULL, i, src);
     if (lex_less(cv, ci, lv[k - 1], li[k - 1])) {
       warp_insert(lv, li, k, cv, ci, lane);
+    }
+  }
+}
+
+// Every list of the CTA empty: (+inf, INT_MAX) in each slot.
+__device__ void init_lists(float* lv, int* li, int k, int tid) {
+  for (int e = tid; e < TT * k; e += THREADS) {
+    lv[e] = pos_inf();
+    li[e] = INT_MAX;
+  }
+}
+
+// One warp per target offers the tile's R scores sS[t][.] (DB rows
+// base .. base + R - 1, those at or past row_hi left out) to its list.
+__device__ void offer_tile(const float* sS, float* lv, int* li, int k, int t0,
+                           int T, int base, int row_hi, int warp, int lane) {
+  for (int t = warp; t < TT; t += WARPS) {
+    if (t0 + t >= T) continue;            // uniform across the warp
+    for (int h = 0; h < R; h += 32) {
+      const int u = base + h + lane;
+      warp_offer(lv + t * k, li + t * k, k, sS[t * R + h + lane], u,
+                 u < row_hi, lane);
+    }
+  }
+}
+
+// The CTA's lists to its slot of the (T, splits, k) partial outputs.
+__device__ void store_lists(const float* lv, const int* li, float* part_v,
+                            int* part_i, int k, int t0, int T, int split,
+                            int splits, int warp, int lane) {
+  for (int t = warp; t < TT; t += WARPS) {
+    if (t0 + t >= T) continue;
+    const size_t o = (static_cast<size_t>(t0 + t) * splits + split) * k;
+    for (int j = lane; j < k; j += 32) {
+      part_v[o + j] = lv[t * k + j];
+      part_i[o + j] = li[t * k + j];
     }
   }
 }
@@ -198,10 +263,7 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
       sTM[e] = t < T ? tmeta[static_cast<size_t>(t) * META + e % META] : -1;
     }
   }
-  for (int e = tid; e < TT * k; e += THREADS) {
-    lv[e] = pos_inf();
-    li[e] = INT_MAX;
-  }
+  init_lists(lv, li, k, tid);
   __syncthreads();                        // lists are owned per warp below
 
   const int tx = tid & 15;                // DB rows tx * 4 .. tx * 4 + 3
@@ -266,24 +328,151 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
           make_float4(v[0], v[1], v[2], v[3]);
     }
     __syncthreads();
-    for (int t = warp; t < TT; t += WARPS) {
-      if (t0 + t >= T) continue;          // uniform across the warp
-      for (int h = 0; h < R; h += 32) {
-        const int u = base + h + lane;
-        warp_offer(lv + t * k, li + t * k, k, sS[t * R + h + lane], u,
-                   u < row_hi, lane);
+    offer_tile(sS, lv, li, k, t0, T, base, row_hi, warp, lane);
+  }
+  store_lists(lv, li, part_v, part_i, k, t0, T, split, splits, warp, lane);
+}
+
+// bf16 hi / lo split of x (hi = bf16_rn(x), lo = bf16_rn(x - hi), the
+// split of pallas_topk._bf16_split), stored as raw bf16 bits.
+__device__ __forceinline__ void split_store(float x, unsigned short* hi,
+                                            unsigned short* lo) {
+  const __nv_bfloat16 h = __float2bfloat16_rn(x);
+  *hi = __bfloat16_as_ushort(h);
+  *lo = __bfloat16_as_ushort(__float2bfloat16_rn(x - __bfloat162float(h)));
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const unsigned short* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a * b, one m16n8k16 bf16 tensor-core product with f32 accumulation.
+// a: 16 x 16 row-major fragment (4 registers of 2 bf16), b: 16 x 8
+// column-major fragment (2 registers), d: 16 x 8 f32 fragment.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Pass 1 at the split precisions (no fused masks).  Shared memory: the
+// tile's scores and lists as in topk_partial, the target tile as bf16
+// [TT][kp + SPAD] hi and lo (kp = kd rounded up to KC, zero past kd), and
+// the DB stage as bf16 [R][DS] hi and lo.  Warp w computes DB rows
+// (w % 4) * 16 .. + 16 against targets (w / 4) * 32 .. + 32: one A fragment
+// (DB rows, row-major over columns) and four B fragments (8 targets each)
+// per 16 columns.  Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), with
+// g = lane / 4 and q = lane % 4: a0 = (g, 2q..2q+1), a1 = (g + 8, 2q..),
+// a2 = (g, 2q + 8..), a3 = (g + 8, 2q + 8..); b0 = (k 2q..2q+1, n g),
+// b1 = (k 2q + 8.., n g); d0..d3 = (g, 2q), (g, 2q + 1), (g + 8, 2q),
+// (g + 8, 2q + 1).  Row indices are int and element offsets size_t: the
+// capacity block has 8.4 M rows x 153 columns.
+template <int PREC>
+__global__ void __launch_bounds__(THREADS, 2)
+topk_partial_split(const float* __restrict__ t2, const float* __restrict__ raw,
+                   float* __restrict__ part_v, int* __restrict__ part_i, int T,
+                   int kd, int width, int m_rows, int rows_per_split, int k,
+                   int splits) {
+  // split3: accumulators hh, hl, lh; split3cat: one for all three
+  constexpr int NACC = PREC == SPLIT3 ? 3 : 1;
+  constexpr int HL = NACC == 3 ? 1 : 0, LH = NACC == 3 ? 2 : 0;
+  extern __shared__ __align__(16) float smem[];
+  const int kp = (kd + KC - 1) / KC * KC;
+  const int ts = kp + SPAD;               // bf16 row stride of the target tile
+  float* sS = smem;                       // [TT][R]   scores of the tile
+  float* sSqn = sS + TT * R;              // [R]       sqn column of the tile
+  float* lv = sSqn + R;                   // [TT][k]   list values
+  int* li = reinterpret_cast<int*>(lv + TT * k);   // [TT][k] list indices
+  unsigned short* sThi = reinterpret_cast<unsigned short*>(li + TT * k);
+  unsigned short* sTlo = sThi + TT * ts;  // [TT][ts]  target tile, bf16
+  unsigned short* sDhi = sTlo + TT * ts;  // [R][DS]   DB stage, bf16
+  unsigned short* sDlo = sDhi + R * DS;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t0 = blockIdx.x * TT;
+  const int split = blockIdx.y;
+  const int row_lo = split * rows_per_split;
+  const int row_hi = min(row_lo + rows_per_split, m_rows);
+
+  for (int e = tid; e < TT * kp; e += THREADS) {
+    const int t = e / kp, c = e % kp;
+    const float x = (t0 + t < T && c < kd)
+                        ? t2[static_cast<size_t>(t0 + t) * kd + c]
+                        : 0.f;
+    split_store(x, sThi + t * ts + c, sTlo + t * ts + c);
+  }
+  init_lists(lv, li, k, tid);
+  __syncthreads();
+
+  const int g = lane >> 2, q = lane & 3;
+  const int m0 = (warp & 3) * 16;         // DB rows of this warp's block
+  const int n0 = (warp >> 2) * 32;        // targets of this warp's block
+  for (int base = row_lo; base < row_hi; base += R) {
+    float acc[NACC][4][4];
+#pragma unroll
+    for (int s = 0; s < NACC; ++s)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) acc[s][j][h] = 0.f;
+
+    for (int c0 = 0; c0 < kp; c0 += KC) {
+      __syncthreads();                    // previous stage / selection done
+      for (int e = tid; e < R * KC; e += THREADS) {
+        const int r = e / KC, cc = e % KC;
+        const int u = base + r, c = c0 + cc;
+        const float x = (c < kd && u < row_hi)
+                            ? __ldg(raw + static_cast<size_t>(u) * width + c)
+                            : 0.f;
+        split_store(x, sDhi + r * DS + cc, sDlo + r * DS + cc);
+      }
+      if (c0 == 0 && tid < R) {
+        const int u = base + tid;
+        sSqn[tid] = u < row_hi
+                        ? __ldg(raw + static_cast<size_t>(u) * width + kd)
+                        : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += KS) {
+        const int ra = (m0 + g) * DS + kk + 2 * q;
+        const uint32_t ah[4] = {ld_pair(sDhi + ra), ld_pair(sDhi + ra + 8 * DS),
+                                ld_pair(sDhi + ra + 8),
+                                ld_pair(sDhi + ra + 8 * DS + 8)};
+        const uint32_t al[4] = {ld_pair(sDlo + ra), ld_pair(sDlo + ra + 8 * DS),
+                                ld_pair(sDlo + ra + 8),
+                                ld_pair(sDlo + ra + 8 * DS + 8)};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int rb = (n0 + j * 8 + g) * ts + c0 + kk + 2 * q;
+          const uint32_t bh[2] = {ld_pair(sThi + rb), ld_pair(sThi + rb + 8)};
+          const uint32_t bl[2] = {ld_pair(sTlo + rb), ld_pair(sTlo + rb + 8)};
+          mma_bf16(acc[0][j], ah, bh);    // db_hi . t_hi
+          mma_bf16(acc[HL][j], ah, bl);   // db_hi . t_lo
+          mma_bf16(acc[LH][j], al, bh);   // db_lo . t_hi
+        }
       }
     }
-  }
-
-  for (int t = warp; t < TT; t += WARPS) {
-    if (t0 + t >= T) continue;
-    const size_t o = (static_cast<size_t>(t0 + t) * splits + split) * k;
-    for (int j = lane; j < k; j += 32) {
-      part_v[o + j] = lv[t * k + j];
-      part_i[o + j] = li[t * k + j];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int r = m0 + g + (h >> 1) * 8;
+        const int t = n0 + j * 8 + 2 * q + (h & 1);
+        float cross = acc[0][j][h];
+        if constexpr (PREC == SPLIT3) {
+          cross = (acc[0][j][h] + acc[1][j][h]) + acc[2][j][h];
+        }
+        sS[t * R + r] = sSqn[r] - 2.f * cross;
+      }
     }
+    __syncthreads();
+    offer_tile(sS, lv, li, k, t0, T, base, row_hi, warp, lane);
   }
+  store_lists(lv, li, part_v, part_i, k, t0, T, split, splits, warp, lane);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -320,12 +509,36 @@ topk_merge(const float* __restrict__ part_v, const int* __restrict__ part_i,
   }
 }
 
-size_t partial_smem(int kd, int k, bool masked) {
-  if (kd < 1 || k < 1 || k > KMAX) return 0;
+size_t partial_smem(int kd, int k, bool masked, int prec) {
+  if (kd < 1 || k < 1 || k > KMAX || prec < HIGHEST || prec > SPLIT3CAT ||
+      (masked && prec != HIGHEST)) {
+    return 0;
+  }
+  if (prec != HIGHEST) {
+    const size_t ts = static_cast<size_t>((kd + KC - 1) / KC * KC + SPAD);
+    return static_cast<size_t>(TT * R + R + 2 * TT * k) * sizeof(float) +
+           2 * (TT * ts + R * DS) * sizeof(unsigned short);
+  }
   return static_cast<size_t>(kd * TT + KC * R + TT * R + R + TT * k) *
              sizeof(float) +
          static_cast<size_t>(TT * k + (masked ? (TT + R) * META : 0)) *
              sizeof(int);
+}
+
+bool bad_shape(size_t smem, int T, int kd, int width, int m_rows, int k,
+               int splits, int rows_per_split) {
+  return smem == 0 || T < 1 || width < kd + 2 || m_rows < k || splits < 1 ||
+         rows_per_split < 1 ||
+         static_cast<long long>(splits) * rows_per_split < m_rows;
+}
+
+int merge(const float* part_v, const int* part_i, const float* comp,
+          float* out_v, int* out_i, int T, int k, int splits,
+          cudaStream_t stream) {
+  const size_t smem2 = static_cast<size_t>(WARPS * k) * (sizeof(float) + sizeof(int));
+  topk_merge<<<(T + WARPS - 1) / WARPS, THREADS, smem2, stream>>>(
+      part_v, part_i, comp, out_v, out_i, T, k, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool PART, bool LING>
@@ -335,10 +548,8 @@ int launch(const float* t2, const float* raw, const float* comp,
            int m_rows, int k, int splits, int rows_per_split,
            cudaStream_t stream) {
   constexpr bool MASKED = PART || LING;
-  const size_t smem1 = partial_smem(kd, k, MASKED);
-  if (smem1 == 0 || T < 1 || width < kd + 2 || m_rows < k || splits < 1 ||
-      rows_per_split < 1 ||
-      static_cast<long long>(splits) * rows_per_split < m_rows ||
+  const size_t smem1 = partial_smem(kd, k, MASKED, HIGHEST);
+  if (bad_shape(smem1, T, kd, width, m_rows, k, splits, rows_per_split) ||
       (MASKED && (tmeta == nullptr || dmeta == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -352,10 +563,29 @@ int launch(const float* t2, const float* raw, const float* comp,
       rows_per_split, k, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem2 = static_cast<size_t>(WARPS * k) * (sizeof(float) + sizeof(int));
-  topk_merge<<<(T + WARPS - 1) / WARPS, THREADS, smem2, stream>>>(
-      part_v, part_i, comp, out_v, out_i, T, k, splits);
-  return static_cast<int>(cudaGetLastError());
+  return merge(part_v, part_i, comp, out_v, out_i, T, k, splits, stream);
+}
+
+template <int PREC>
+int launch_split(const float* t2, const float* raw, const float* comp,
+                 float* part_v, int* part_i, float* out_v, int* out_i, int T,
+                 int kd, int width, int m_rows, int k, int splits,
+                 int rows_per_split, cudaStream_t stream) {
+  const size_t smem1 = partial_smem(kd, k, false, PREC);
+  if (bad_shape(smem1, T, kd, width, m_rows, k, splits, rows_per_split)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_partial_split<PREC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem1));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid1((T + TT - 1) / TT, splits);
+  topk_partial_split<PREC><<<grid1, THREADS, smem1, stream>>>(
+      t2, raw, part_v, part_i, T, kd, width, m_rows, rows_per_split, k,
+      splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return merge(part_v, part_i, comp, out_v, out_i, T, k, splits, stream);
 }
 
 }  // namespace
@@ -363,9 +593,10 @@ int launch(const float* t2, const float* raw, const float* comp,
 extern "C" {
 
 // Dynamic shared memory pass 1 needs (masked != 0: a variant with fused
-// masks); 0 if the shape is not supported.
-size_t snk_topk_partial_smem(int kd, int k, int masked) {
-  return partial_smem(kd, k, masked != 0);
+// masks; precision: 0 highest, 1 split3, 2 split3cat); 0 if the shape or
+// the combination is not supported.
+size_t snk_topk_partial_smem(int kd, int k, int masked, int precision) {
+  return partial_smem(kd, k, masked != 0, precision);
 }
 
 int snk_topk_tile_rows() { return TT; }
@@ -374,24 +605,36 @@ int snk_topk_db_tile_rows() { return R; }
 
 // Each entry point launches both passes on `stream` and returns the
 // cudaError_t of the launches.  tmeta (T, 8) and dmeta (m_rows, 8) are read
-// by the masked variants only; p0..p4 by the linguistic ones only.
-#define SNK_TOPK_ENTRY(NAME, PART, LING)                                      \
+// by the masked variants only; p0..p4 by the linguistic ones only.  All
+// entry points share one signature.
+#define SNK_TOPK_ENTRY(NAME, CALL)                                            \
   int NAME(const float* t2, const float* raw, const float* comp,            \
            const int* tmeta, const int* dmeta, float p0, float p1, float p2, \
            float p3, float p4, float* part_v, int* part_i, float* out_v,     \
            int* out_i, int T, int kd, int width, int m_rows, int k,          \
            int splits, int rows_per_split, cudaStream_t stream) {            \
     const Penalties pen = {{p0, p1, p2, p3, p4}};                           \
-    return launch<PART, LING>(t2, raw, comp, tmeta, dmeta, pen, part_v,     \
-                              part_i, out_v, out_i, T, kd, width, m_rows, k, \
-                              splits, rows_per_split, stream);              \
+    (void)pen;                                                              \
+    return CALL;                                                            \
   }
 
-SNK_TOPK_ENTRY(snk_topk_preselect_zt, false, false)
-SNK_TOPK_ENTRY(snk_topk_preselect_zt_part, true, false)
-SNK_TOPK_ENTRY(snk_topk_preselect_zt_ling, false, true)
-SNK_TOPK_ENTRY(snk_topk_preselect_zt_ling_part, true, true)
+#define SNK_MASKED(PART, LING)                                               \
+  launch<PART, LING>(t2, raw, comp, tmeta, dmeta, pen, part_v, part_i, out_v, \
+                     out_i, T, kd, width, m_rows, k, splits, rows_per_split,  \
+                     stream)
+#define SNK_SPLIT(PREC)                                                      \
+  launch_split<PREC>(t2, raw, comp, part_v, part_i, out_v, out_i, T, kd,     \
+                     width, m_rows, k, splits, rows_per_split, stream)
 
+SNK_TOPK_ENTRY(snk_topk_preselect_zt, SNK_MASKED(false, false))
+SNK_TOPK_ENTRY(snk_topk_preselect_zt_part, SNK_MASKED(true, false))
+SNK_TOPK_ENTRY(snk_topk_preselect_zt_ling, SNK_MASKED(false, true))
+SNK_TOPK_ENTRY(snk_topk_preselect_zt_ling_part, SNK_MASKED(true, true))
+SNK_TOPK_ENTRY(snk_topk_preselect_zt_split3, SNK_SPLIT(SPLIT3))
+SNK_TOPK_ENTRY(snk_topk_preselect_zt_split3cat, SNK_SPLIT(SPLIT3CAT))
+
+#undef SNK_SPLIT
+#undef SNK_MASKED
 #undef SNK_TOPK_ENTRY
 
 }  // extern "C"

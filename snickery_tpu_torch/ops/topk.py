@@ -139,9 +139,7 @@ def order_topk_positions(vals: torch.Tensor, ids: torch.Tensor,
     (zero-filled)."""
     T, n = vals.shape
     iota = torch.arange(n, dtype=torch.int32, device=vals.device).expand(T, n)
-    big = torch.tensor(2 ** 30, dtype=torch.int32, device=vals.device)
-    inf = torch.tensor(float("inf"), dtype=vals.dtype, device=vals.device)
-    nn = torch.tensor(n, dtype=torch.int32, device=vals.device)
+    big = 2 ** 30               # python scalars: no host-to-device copies
     v, idd = vals, ids.to(torch.int32)
     outs = []
     for _ in range(min(k, n)):
@@ -149,10 +147,10 @@ def order_topk_positions(vals: torch.Tensor, ids: torch.Tensor,
         tied = v == m[:, None]
         sel_id = torch.where(tied, idd, big).min(dim=1).values
         hit = tied & (idd == sel_id[:, None])
-        pos = torch.where(hit, iota, nn).min(dim=1).values
+        pos = torch.where(hit, iota, n).min(dim=1).values
         outs.append(torch.clamp(pos, max=n - 1))
         # retire the extracted entry: value -> +inf AND id -> big
-        v = torch.where(hit, inf, v)
+        v = torch.where(hit, float("inf"), v)
         idd = torch.where(hit, big, idd)
     outp = torch.stack(outs, dim=1)
     if outp.shape[1] < k:

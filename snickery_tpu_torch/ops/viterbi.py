@@ -15,6 +15,9 @@ reduction.  Semantics carried over unchanged:
 Padding invariance lets the loop stop at the longest live length of the
 batch: past it every state carries the best cost and the JAX scan's path is
 0, which is what is returned there.
+
+:func:`greedy_decode_stream` is the streaming form: one chunk, a join
+context carried in and out, its live length a host int.
 """
 
 from __future__ import annotations
@@ -120,3 +123,32 @@ def greedy_decode(target_costs, join_left, join_right, join_cost_weight=1.0,
         acc = acc + total[rows, choice]
         path.append(choice)
     return torch.stack(path, dim=1), acc
+
+
+def greedy_decode_stream(target_costs, join_left, join_right, init_ctx,
+                         jcw_first: float, jcw_rest: float, n_live: int,
+                         squared_joins: bool = False):
+    """Greedy selection over one streaming chunk, from an incoming join
+    context (the scan of ``snickery_tpu.synth._streaming_step``).
+
+    ``target_costs`` (T, N); ``join_left``/``join_right`` (T, N, dj);
+    ``init_ctx`` (dj,) the context the previous chunk left, weighted by
+    ``jcw_first`` at the first step (0 at the start of a stream, where there
+    is none) and by ``jcw_rest`` after it; steps ``>= n_live`` (a host int)
+    are dead: they choose 0 and keep the context.  Nothing here waits on the
+    device.  Returns (path (T,) int64, outgoing context (dj,))."""
+    T = target_costs.shape[0]
+    ctx, w = init_ctx, jcw_first
+    choices = []
+    for t in range(n_live):
+        d = torch.clamp(torch.sum((join_left[t] - ctx[None, :]) ** 2, dim=-1), min=0.0)
+        if not squared_joins:
+            d = torch.sqrt(d)
+        choice = torch.argmin(target_costs[t] + w * d).reshape(1)
+        ctx = join_right[t].index_select(0, choice)[0]
+        choices.append(choice)
+        w = jcw_rest
+    path = torch.zeros(T, dtype=torch.int64, device=target_costs.device)
+    if choices:
+        path[:n_live] = torch.cat(choices)
+    return path, ctx

@@ -1,30 +1,34 @@
 """Synthesiser in PyTorch: unit-selection synthesis from a resident unit DB.
 
 Counterpart of ``snickery_tpu.synth`` for epoch-unit voices (BASELINE
-config #3), halfphone voices (#2), merged multi-voice DBs (#5) and merged
-halfphone voices: normalise and weight the targets, preselect the top
-k + margin over the whole DB with the hand-written kernel (zero-transient
-form; quinphone penalties fused for halfphone voices, the voice partition
-mask for merged DBs), rescore the candidates in exact f32 and keep the top k
-in canonical (score, unit id) order (halfphone voices rank by the exact
-squared distance plus penalties and mask identity fallbacks in the lattice),
-gather join contexts, Viterbi, and crossfade overlap-add.  One batched step
+config #3), halfphone voices (#2), merged multi-voice DBs (#5), merged
+halfphone voices and streaming synthesis (#4): normalise and weight the
+targets, preselect the top k + margin over the whole DB with the
+hand-written kernel (zero-transient form; at precision "highest" with the
+quinphone penalties fused for halfphone voices and the voice partition mask
+for merged DBs, or ranked by bf16-split products at "split3" / "split3cat"),
+rescore the candidates in exact f32 and keep the top k in canonical
+(score, unit id) order (halfphone voices rank by the exact squared distance
+plus penalties and mask identity fallbacks in the lattice), gather join
+contexts, Viterbi (or greedy), and crossfade overlap-add on the device or,
+with ``preload_all_waves=False``, on the host.  One batched step
 (:func:`synth_pipeline_step`) serves ``synth_from_features`` (B = 1) and
-``synth_batch``.
+``synth_batch``; :func:`streaming_step` serves ``synth_streaming``.
 
 The device is an explicit argument.  ``device="cuda"`` runs the CUDA kernel
 and raises where CUDA is absent; ``device="cpu"`` runs the kernel's plain
 PyTorch twin.  Nothing falls back from one to the other.
 
-Not ported yet (each raises NotImplementedError; see ROADMAP.md): preselect
-precisions other than "highest", ``preload_all_waves=False``, multi-device
-meshes, streaming and magphase resynthesis.
+Not ported yet (each raises NotImplementedError; see ROADMAP.md): a split
+precision together with a fused mask (halfphone quinphone preselection or a
+merged DB), multi-device meshes and magphase resynthesis.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import time
 from dataclasses import dataclass, field, fields
 
 import numpy as np
@@ -34,12 +38,14 @@ from snickery_tpu import utils
 from snickery_tpu.config import SnickeryConfig
 from snickery_tpu.voicedb.db import VoiceDB
 from snickery_tpu.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
-from snickery_tpu_torch.ops.cuda_topk import cuda_topk_preselect, pack_meta
-from snickery_tpu_torch.ops.ola import overlap_add_units
+from snickery_tpu_torch.ops.cuda_topk import (PRECISIONS, cuda_topk_preselect,
+                                              kernel_name, pack_meta)
+from snickery_tpu_torch.ops.ola import host_overlap_add, overlap_add_units
 from snickery_tpu_torch.ops.topk import (halfphone_exact_rank,
                                          halfphone_lattice_mask,
                                          order_topk_positions, preselect_margin)
-from snickery_tpu_torch.ops.viterbi import greedy_decode, viterbi_decode
+from snickery_tpu_torch.ops.viterbi import (greedy_decode, greedy_decode_stream,
+                                            viterbi_decode)
 from snickery_tpu_torch.voicedb.device_layout import (affine_rows,
                                                       build_raw_blocks,
                                                       gather_join_contexts)
@@ -70,7 +76,8 @@ class DeviceDB:
     n_real: torch.Tensor      # () int32: rows >= n_real are padding
     cut1: torch.Tensor        # (Mp,) int32
     cut2: torch.Tensor        # (Mp,) int32
-    waves: torch.Tensor       # (S,) f32, or int16
+    waves: torch.Tensor       # (S,) f32, or int16; (128,) zeros placeholder
+                              # when the audio stays on the host
     wave_scale: torch.Tensor  # () f32: audio = waves * wave_scale
     mean_t: torch.Tensor      # (kd,)
     std_t: torch.Tensor
@@ -107,44 +114,24 @@ def device_db_from_numpy(arrays: dict[str, np.ndarray], device) -> DeviceDB:
                        for n in names})
 
 
-def synth_pipeline_step(db: DeviceDB, targets: torch.Tensor,
-                        lengths: torch.Tensor, tgt_codes: torch.Tensor | None = None,
-                        tgt_ctx: torch.Tensor | None = None,
-                        tgt_vids: torch.Tensor | None = None, *, n_cand: int,
-                        jcw: float, eps: float, max_frag: int, out_len: int,
-                        taper: int, greedy: bool = False,
-                        squared_joins: bool = False, margin: int = -1,
-                        halfphone: bool = False, multivoice: bool = False,
-                        ling_weights: tuple | None = None,
-                        stage_timer: utils.StageTimer | None = None):
-    """Select, decode and concatenate B utterances in one step.
-
-    ``targets`` (B, T, kd) raw unit-rate target features, ``lengths`` (B,)
-    live steps.  The single-device body of the JAX batched step
-    (``parallel/sharded.py::_select_decode_batch`` at one DB shard plus its
-    OLA).  ``halfphone``: fuse the quinphone penalties of ``tgt_codes``
-    (B, T) and ``tgt_ctx`` (B, T, 5) into the preselect (weights
-    ``ling_weights`` = (w0..w4, scale), default the const values), rank the
-    candidates by :func:`halfphone_exact_rank` and apply the identity
-    fallback mask to the lattice costs.  ``multivoice``: restrict each step
-    to the DB rows whose voice id equals ``tgt_vids`` (B, T).  Either mode
-    takes all three target arrays (``Synthesiser.batch_inputs``).  Returns
-    (unit_ids (B, T), total costs (B,), audio (B, out_len), total samples
-    (B,)).
-
-    ``stage_timer``: when given, each stage (preselect, rescore, decode,
-    ola) is timed into it, the device synchronised at every stage edge; for
-    measurement runs only, since the synchronisations serialise the step.
-    """
+def _stage_fn(stage_timer, device):
     def stage(name):
         if stage_timer is None:
             return contextlib.nullcontext()
-        return _synced_stage(stage_timer, name, targets.device)
+        return _synced_stage(stage_timer, name, device)
+    return stage
 
+
+def _candidates(db: DeviceDB, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, *,
+                n_cand: int, margin: int, halfphone: bool, multivoice: bool,
+                ling_weights: tuple | None, precision: str, stage):
+    """Normalise and weight the (B, T, kd) targets, preselect k + margin with
+    the kernel at ``precision``, rescore in exact f32 and keep ``n_cand``.
+    Returns (live (B, T), candidate ids (B*T, n), target costs (B*T, n),
+    join-left and join-right contexts (B*T, n, dj))."""
     B, T, kd = targets.shape
     dev = targets.device
     m_pad = db.cut1.shape[0]
-    dj = db.sqrt_wj.shape[0]
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     tw = (targets - db.mean_t) / db.std_t
     tw = tw * db.sqrt_wt
@@ -157,16 +144,74 @@ def synth_pipeline_step(db: DeviceDB, targets: torch.Tensor,
                         multivoice=multivoice, ling_weights=ling_weights)
     ling = ((tgt_codes.reshape(B * T), tgt_ctx.reshape(B * T, 5), ling_weights)
             if halfphone else None)
-    k_sel = min(n_cand + preselect_margin(True, "highest", halfphone,
+    k_sel = min(n_cand + preselect_margin(True, precision, halfphone,
                                           zero_transient=True, override=margin),
                 m_pad)
     with stage("preselect"):
         idx, scores = cuda_topk_preselect(tw, db.raw, k_sel,
                                           (db.mean_t, db.std_t, db.sqrt_wt), m_pad,
-                                          **masks)
+                                          precision=precision, **masks)
     with stage("rescore"):
         cand_idx, target_costs, jl, jr = _rescore(db, tw, idx.long(), scores,
                                                   live, n_cand, ling)
+    return live, cand_idx, target_costs, jl, jr
+
+
+def _concatenate(db: DeviceDB, unit_ids, live, lengths, *, do_ola: bool,
+                 max_frag: int, out_len: int, taper: int):
+    """(audio (B, out_len), total samples (B,)) of the (B, T) unit ids: the
+    device OLA, or with ``do_ola=False`` (audio kept on the host) an (B, 8)
+    zeros placeholder and the exact totals ``2 * taper + sum of spans``."""
+    cut1 = torch.where(live, db.cut1[unit_ids], 0)
+    cut2 = torch.where(live, db.cut2[unit_ids], 0)
+    if do_ola:
+        return overlap_add_units(db.waves, cut1, cut2, lengths, max_frag=max_frag,
+                                 out_len=out_len, taper=taper,
+                                 wave_scale=db.wave_scale)
+    totals = 2 * taper + (cut2 - cut1).long().sum(dim=1)
+    return torch.zeros((unit_ids.shape[0], 8), dtype=torch.float32,
+                       device=unit_ids.device), totals
+
+
+def synth_pipeline_step(db: DeviceDB, targets: torch.Tensor,
+                        lengths: torch.Tensor, tgt_codes: torch.Tensor | None = None,
+                        tgt_ctx: torch.Tensor | None = None,
+                        tgt_vids: torch.Tensor | None = None, *, n_cand: int,
+                        jcw: float, eps: float, max_frag: int, out_len: int,
+                        taper: int, greedy: bool = False,
+                        squared_joins: bool = False, margin: int = -1,
+                        halfphone: bool = False, multivoice: bool = False,
+                        ling_weights: tuple | None = None,
+                        precision: str = "highest", do_ola: bool = True,
+                        stage_timer: utils.StageTimer | None = None):
+    """Select, decode and concatenate B utterances in one step.
+
+    ``targets`` (B, T, kd) raw unit-rate target features, ``lengths`` (B,)
+    live steps.  The single-device body of the JAX batched step
+    (``parallel/sharded.py::_select_decode_batch`` at one DB shard plus its
+    OLA).  ``halfphone``: fuse the quinphone penalties of ``tgt_codes``
+    (B, T) and ``tgt_ctx`` (B, T, 5) into the preselect (weights
+    ``ling_weights`` = (w0..w4, scale), default the const values), rank the
+    candidates by :func:`halfphone_exact_rank` and apply the identity
+    fallback mask to the lattice costs.  ``multivoice``: restrict each step
+    to the DB rows whose voice id equals ``tgt_vids`` (B, T).  Either mode
+    takes all three target arrays (``Synthesiser.batch_inputs``).
+    ``precision``: the kernel's ranking precision (the rank margin follows
+    it).  ``do_ola=False``: the audio stays on the host (see
+    :func:`_concatenate`).  Returns (unit_ids (B, T), total costs (B,),
+    audio (B, out_len), total samples (B,)).
+
+    ``stage_timer``: when given, each stage (preselect, rescore, decode,
+    ola) is timed into it, the device synchronised at every stage edge; for
+    measurement runs only, since the synchronisations serialise the step.
+    """
+    stage = _stage_fn(stage_timer, targets.device)
+    B, T, _ = targets.shape
+    dj = db.sqrt_wj.shape[0]
+    live, cand_idx, target_costs, jl, jr = _candidates(
+        db, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, n_cand=n_cand,
+        margin=margin, halfphone=halfphone, multivoice=multivoice,
+        ling_weights=ling_weights, precision=precision, stage=stage)
     n = cand_idx.shape[1]
     decode = greedy_decode if greedy else viterbi_decode
     kw = {} if greedy else {"search_epsilon": eps}
@@ -178,12 +223,56 @@ def synth_pipeline_step(db: DeviceDB, targets: torch.Tensor,
     with stage("ola"):
         sel = torch.gather(cand_idx, 1, paths.reshape(B * T, 1)).reshape(B, T)
         unit_ids = torch.where(live, sel, 0)
-        cut1 = torch.where(live, db.cut1[sel], 0)
-        cut2 = torch.where(live, db.cut2[sel], 0)
-        audio, totals = overlap_add_units(db.waves, cut1, cut2, lengths,
-                                          max_frag=max_frag, out_len=out_len,
-                                          taper=taper, wave_scale=db.wave_scale)
+        audio, totals = _concatenate(db, unit_ids, live, lengths, do_ola=do_ola,
+                                     max_frag=max_frag, out_len=out_len, taper=taper)
     return unit_ids, costs, audio, totals
+
+
+def streaming_step(db: DeviceDB, targets: torch.Tensor, n_live: int,
+                   voice_id: int, init_ctx: torch.Tensor, jcw_first: float,
+                   jcw_rest: float, *, n_cand: int, max_frag: int, out_len: int,
+                   taper: int, squared_joins: bool = False, margin: int = -1,
+                   multivoice: bool = False, precision: str = "highest",
+                   do_ola: bool = True, stage_timer: utils.StageTimer | None = None):
+    """One streaming chunk: preselect, rescore, greedy decode from an
+    incoming join context, and the chunk's OLA (counterpart of
+    ``snickery_tpu.synth._streaming_step``).
+
+    ``targets`` (T, kd) unit-rate targets of which the first ``n_live``
+    (a host int, so the step never waits on the device) are live;
+    ``voice_id`` restricts the preselect to one voice of a merged DB
+    (``multivoice``); ``init_ctx`` (dj,) is the join context carried from
+    the previous chunk, weighted by ``jcw_first`` at the chunk's first step
+    (0 at the stream's start) and by ``jcw_rest`` after it.  The audio
+    covers the chunk's units including both tapers; the caller crossfades
+    consecutive chunks by summing the trailing ``2 * taper`` samples into
+    the next chunk's head.  Returns (unit ids (T,), outgoing context (dj,),
+    audio (out_len,) or the host-OLA placeholder, total samples ())."""
+    stage = _stage_fn(stage_timer, targets.device)
+    T, kd = targets.shape
+    dev = targets.device
+    dj = db.sqrt_wj.shape[0]
+    lengths = torch.full((1,), n_live, dtype=torch.int64, device=dev)
+    codes = torch.zeros((1, T), dtype=torch.int32, device=dev)
+    step_live = torch.arange(T, device=dev)[None, :] < n_live
+    vids = torch.where(step_live, voice_id, -1).to(torch.int32)
+    live, cand_idx, target_costs, jl, jr = _candidates(
+        db, targets.reshape(1, T, kd), lengths, codes,
+        torch.zeros((1, T, 5), dtype=torch.int32, device=dev), vids,
+        n_cand=n_cand, margin=margin, halfphone=False, multivoice=multivoice,
+        ling_weights=None, precision=precision, stage=stage)
+    n = cand_idx.shape[1]
+    with stage("greedy"):
+        path, ctx = greedy_decode_stream(target_costs, jl.reshape(T, n, dj),
+                                         jr.reshape(T, n, dj), init_ctx,
+                                         jcw_first, jcw_rest, n_live,
+                                         squared_joins=squared_joins)
+    with stage("ola"):
+        sel = torch.gather(cand_idx, 1, path.reshape(T, 1)).reshape(1, T)
+        unit_ids = torch.where(live, sel, 0)
+        audio, total = _concatenate(db, unit_ids, live, lengths, do_ola=do_ola,
+                                    max_frag=max_frag, out_len=out_len, taper=taper)
+    return unit_ids[0], ctx, audio[0], total[0]
 
 
 def fused_masks(db: DeviceDB, tgt_codes, tgt_ctx, tgt_vids, *, halfphone: bool,
@@ -247,7 +336,8 @@ def _rescore(db: DeviceDB, tw, idx, scores, live, n_cand, ling=None):
 
 class Synthesiser:
     """Loads a VoiceDB onto one device and synthesises from it: epoch-unit
-    and halfphone voices, and DBs merged from several voices of either kind.
+    and halfphone voices, and DBs merged from several voices of either kind,
+    in batches or (epoch units) as a stream.
 
     ``device`` is explicit: "cuda" (the default) raises where CUDA is absent;
     "cpu" runs the kernels' plain twins (tests)."""
@@ -270,22 +360,23 @@ class Synthesiser:
         self.timer = utils.StageTimer()
         with self.timer.stage("load_db"):
             self.db = db if db is not None else VoiceDB.load(cfg.db_path)
-        self._check_supported()
         self.halfphone = self.db.target_representation == "halfphone"
         self.is_multivoice = self.db.is_multivoice
+        self._check_supported()
         self.frames_per_unit = 3 if self.halfphone else self.db.multiepoch
         with self.timer.stage("prepare_db"):
             self._prepare_device_db()
 
     def _check_supported(self) -> None:
+        """Refuse what the port does not serve yet: meshes, and a split
+        precision with a fused mask (the kernel variant does not exist)."""
         cfg = self.cfg
-        if cfg.preselect_precision != "highest":
-            raise NotImplementedError(
-                f"preselect_precision={cfg.preselect_precision!r}: {_TODO}")
-        if not cfg.preload_all_waves:
-            raise NotImplementedError(f"preload_all_waves=False: {_TODO}")
         if max(1, cfg.mesh_data) * max(1, cfg.mesh_db) > 1:
             raise NotImplementedError(f"multi-device meshes: {_TODO}")
+        if cfg.preselect_precision not in PRECISIONS:
+            raise ValueError(f"preselect_precision={cfg.preselect_precision!r}; "
+                             f"have {PRECISIONS}")
+        kernel_name(self.is_multivoice, self._use_ling(), cfg.preselect_precision)
 
     # ------------------------------------------------------------------ setup
     def _prepare_device_db(self) -> None:
@@ -339,8 +430,13 @@ class Synthesiser:
                          constant_values=-1)
         else:
             codes, ctx = np.zeros(mp, np.int32), np.zeros((mp, 5), np.int32)
+        # preload_all_waves=False keeps the corpus audio on the host and the
+        # OLA runs in numpy after the step (_host_ola); the device holds a
+        # placeholder
         wave_scale = np.float32(1.0)
-        if cfg.waves_dtype == "int16":
+        if not cfg.preload_all_waves:
+            waves = np.zeros(128, np.float32)
+        elif cfg.waves_dtype == "int16":
             w32 = np.asarray(db.waves, np.float32)
             peak = float(np.abs(w32).max()) if len(w32) else 1.0
             wave_scale = np.float32(max(peak, 1e-9) / 32767.0)
@@ -496,7 +592,8 @@ class Synthesiser:
             squared_joins=cfg.join_cost_type == "squared",
             margin=cfg.preselect_margin,
             halfphone=self._use_ling(), multivoice=self.is_multivoice,
-            ling_weights=self._ling_weights())
+            ling_weights=self._ling_weights(),
+            precision=cfg.preselect_precision, do_ola=cfg.preload_all_waves)
         return (torch.from_numpy(tgts).to(dev), torch.from_numpy(lengths).to(dev),
                 kwargs)
 
@@ -508,10 +605,21 @@ class Synthesiser:
                 self.device_db, tgts, lengths, greedy=greedy, **kwargs)
             unit_ids, costs = unit_ids.cpu().numpy(), costs.cpu().numpy()
             audio, totals = audio.cpu().numpy(), totals.cpu().numpy()
-        return [{"wave": audio[b, : int(totals[b])],
-                 "unit_ids": unit_ids[b, :n].astype(np.int32),
-                 "total_cost": float(costs[b]),
-                 "n_units": int(n)} for b, (_, n) in enumerate(prepped)]
+        results = []
+        for b, (_, n) in enumerate(prepped):
+            ids = unit_ids[b, :n].astype(np.int32)
+            wave = (audio[b, : int(totals[b])] if self.cfg.preload_all_waves
+                    else self._host_ola(ids))
+            results.append({"wave": wave, "unit_ids": ids,
+                            "total_cost": float(costs[b]), "n_units": int(n)})
+        return results
+
+    def _host_ola(self, unit_ids: np.ndarray) -> np.ndarray:
+        """Host-side concatenation for preload_all_waves=False."""
+        cuts = self.db.cutpoints
+        ids = np.asarray(unit_ids)
+        return host_overlap_add(np.asarray(self.db.waves), cuts[ids, 1],
+                                cuts[ids, 2], self.cfg.taper_length)
 
     def synth_from_features(self, features: np.ndarray,
                             greedy: bool | None = None,
@@ -542,8 +650,168 @@ class Synthesiser:
         prepped, vids = self._prepare(feature_list, segments_list, voices)
         return self._run(prepped, greedy, segments_list, vids)
 
-    def synth_streaming(self, *args, **kwargs):
-        raise NotImplementedError(f"streaming synthesis: {_TODO}")
+    def synth_streaming(self, feature_chunks, greedy: bool = True, voice=None,
+                        fixed_frameshift: float = 0.0):
+        """Streaming synthesis (BASELINE config #4): consume target feature
+        chunks, yield audio chunks as soon as their units are decided.
+
+        The semantics of ``snickery_tpu.synth.Synthesiser.synth_streaming``:
+        greedy decoding with the join context carried across chunks (the
+        decode is greedy whatever ``greedy`` says), epochs left over from a
+        chunk carried into the next, the last frame repeated at the end of
+        the stream to fill a whole unit, and each yielded chunk complete
+        except its trailing ``2 * taper`` samples, which are summed into the
+        next chunk's head (the final tail is yielded last).
+        ``feature_chunks``: iterable of (n_i, d) epoch-rate arrays, or with
+        ``fixed_frameshift > 0`` (seconds) fixed-rate DNN-style frames whose
+        lf0 stream is integrated into an epoch grid chunk by chunk
+        (:class:`~snickery_tpu_torch.features.world.StreamingEpochResampler`).
+        ``voice``: required for merged DBs.  Yields float32 audio arrays.
+
+        Chunk i + 1 is enqueued on the device before chunk i is waited for:
+        chunk i's ids, audio and total are copied into pinned host buffers
+        without blocking, and an event recorded after the copies is waited on
+        only when chunk i is yielded.  ``last_stream_unit_ids`` keeps the ids
+        of each chunk, ``last_stream_stages`` the host times (ms) of each:
+        pulling the chunk, preparing it, enqueuing its step, and waiting for
+        its results."""
+        cfg = self.cfg
+        if self.halfphone:
+            raise NotImplementedError(
+                "streaming synthesis is epoch-mode only, as in the JAX package "
+                "(see ROADMAP.md queue 3)")
+        if fixed_frameshift and fixed_frameshift > 0:
+            from snickery_tpu_torch.features.world import StreamingEpochResampler
+            lf0_col = None
+            for name, a, _ in cfg.stream_slices:
+                if name == "lf0":
+                    lf0_col = a
+            if lf0_col is None:
+                raise ValueError("fixed_frameshift streaming needs an lf0 stream "
+                                 "to integrate the epoch grid from")
+            resampler = StreamingEpochResampler(lf0_col, cfg.sample_rate,
+                                                fixed_frameshift)
+
+            def epoch_chunks():
+                for chunk in feature_chunks:
+                    rows = resampler.push(np.asarray(chunk, np.float32))
+                    if len(rows):
+                        yield rows
+                rows = resampler.flush()
+                if len(rows):
+                    yield rows
+
+            yield from self.synth_streaming(epoch_chunks(), voice=voice)
+            return
+        if self.is_multivoice and voice is None:
+            raise ValueError(
+                "this is a multi-voice DB: pass voice=<name or id> "
+                f"(available: {self.db.voice_names})")
+        vid = self._voice_code(voice) if self.is_multivoice else 0
+        k, d = self.frames_per_unit, cfg.target_dim
+        dev, ddb = self.device, self.device_db
+        t2 = 2 * cfg.taper_length
+        ctx = torch.zeros(ddb.sqrt_wj.shape[0], dtype=torch.float32, device=dev)
+        started = False                 # a join context exists
+        tail = np.zeros(t2, np.float32)
+        leftover = np.zeros((0, d), np.float32)
+        self.last_stream_unit_ids: list[np.ndarray] = []
+        stages: dict[str, list] = {"pull_ms": [], "prep_ms": [],
+                                   "dispatch_ms": [], "fetch_ms": []}
+        self.last_stream_stages = stages
+        self._last_stream_step = None   # (args, kwargs) of the last step
+
+        def chunks_then_flush():
+            yield from feature_chunks
+            yield None                   # end of stream: flush the leftover
+
+        def finish(pending):
+            nonlocal tail
+            (ids, audio, total), event, t_units = pending
+            t0 = time.perf_counter()
+            if event is not None:
+                event.synchronize()
+            stages["fetch_ms"].append((time.perf_counter() - t0) * 1e3)
+            ids = ids.numpy()[:t_units].astype(np.int32)
+            self.last_stream_unit_ids.append(ids)
+            audio = (audio.numpy()[: int(total)].copy() if cfg.preload_all_waves
+                     else self._host_ola(ids))
+            audio[:t2] += tail
+            tail = audio[-t2:].copy()
+            return audio[:-t2]
+
+        pending = None
+        src = chunks_then_flush()
+        while True:
+            t_pull = time.perf_counter()
+            try:
+                chunk_feats = next(src)
+            except StopIteration:
+                break
+            stages["pull_ms"].append((time.perf_counter() - t_pull) * 1e3)
+            t_prep = time.perf_counter()
+            if chunk_feats is None:
+                if len(leftover) == 0:
+                    break
+                reps = k - len(leftover) % k if len(leftover) % k else 0
+                feats = np.concatenate([leftover, np.repeat(leftover[-1:], reps, axis=0)])
+            else:
+                feats = np.concatenate([leftover, np.asarray(chunk_feats, np.float32)])
+            t_units = len(feats) // k
+            if t_units == 0:
+                leftover = feats
+                continue
+            leftover = (np.zeros((0, d), np.float32) if chunk_feats is None
+                        else feats[t_units * k:])
+            t_bucket = utils.bucket_length(t_units, tuple(cfg.length_buckets))
+            tgt = np.zeros((t_bucket, k * d), np.float32)
+            tgt[:t_units] = feats[: t_units * k].reshape(t_units, k * d)
+            args = (ddb, self._to_device(tgt), t_units, vid, ctx,
+                    cfg.join_cost_weight if started else 0.0, cfg.join_cost_weight)
+            kwargs = dict(n_cand=min(cfg.n_candidates, self.n_units_padded),
+                          max_frag=self.max_frag,
+                          out_len=utils.next_multiple(t_bucket * self.max_span + t2, 128),
+                          taper=cfg.taper_length,
+                          squared_joins=cfg.join_cost_type == "squared",
+                          margin=cfg.preselect_margin, multivoice=self.is_multivoice,
+                          precision=cfg.preselect_precision,
+                          do_ola=cfg.preload_all_waves)
+            stages["prep_ms"].append((time.perf_counter() - t_prep) * 1e3)
+            t_disp = time.perf_counter()
+            unit_ids, ctx, audio, total = streaming_step(*args, **kwargs)
+            started = True
+            fetched = self._to_host((unit_ids, audio, total))
+            stages["dispatch_ms"].append((time.perf_counter() - t_disp) * 1e3)
+            self._last_stream_step = (args, kwargs)
+            if pending is not None:
+                yield finish(pending)
+            pending = (*fetched, t_units)
+        if pending is not None:
+            yield finish(pending)
+        yield tail
+
+    def _to_device(self, array: np.ndarray) -> torch.Tensor:
+        """A host array on the device without waiting for queued work: on a
+        card through pinned memory and an asynchronous copy."""
+        t = torch.from_numpy(array)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _to_host(self, tensors):
+        """(host tensors, event): on a card, pinned buffers filled without
+        blocking and the event recorded after the copies (wait on it before
+        reading them); on the CPU, the tensors themselves and no event."""
+        if self.device.type != "cuda":
+            return tuple(tensors), None
+        out = []
+        for t in tensors:
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t, non_blocking=True)
+            out.append(buf)
+        event = torch.cuda.Event()
+        event.record()
+        return tuple(out), event
 
     def resynth_magphase(self, *args, **kwargs):
         raise NotImplementedError(f"magphase resynthesis: {_TODO}")

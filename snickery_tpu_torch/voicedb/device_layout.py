@@ -22,8 +22,7 @@ def affine_rows(x, mean, std, w, valid=None, pad_value=0.0):
     v = ((x - mean) / std) * w
     if valid is None:
         return v
-    return torch.where(valid[..., None], v, torch.tensor(
-        pad_value, dtype=torch.float32, device=w.device) * w)
+    return torch.where(valid[..., None], v, pad_value * w)
 
 
 def gather_join_contexts(raw_rows, raw_block, idx, dj,

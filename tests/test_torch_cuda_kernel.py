@@ -1,6 +1,7 @@
-"""The port on a CUDA card: the preselect kernel (and its masked variants)
-against its plain twin, and the synthesiser on the card against the same
-synthesiser on the CPU, for epoch, halfphone and merged voices.
+"""The port on a CUDA card: the preselect kernel (its masked and its
+split-precision variants) against its plain twin, and the synthesiser on the
+card against the same synthesiser on the CPU, for epoch, halfphone and
+merged voices, at the split3cat precision, and streaming.
 
 Marked ``cuda``; each test skips where no card is visible.  This file
 imports no jax, so it also runs on a GPU host without jax, where the
@@ -18,6 +19,7 @@ from snickery_tpu.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
 from snickery_tpu.voicedb.build import UtteranceData, build_voicedb
 from snickery_tpu.voicedb.device_layout import build_raw_blocks
 from snickery_tpu.voicedb.multivoice import merge_voicedbs
+from snickery_tpu_torch.kernel_check import PROBE_RTOL, compare, split_probe_error
 from snickery_tpu_torch.ops import cuda_topk
 from snickery_tpu_torch.ops.cuda_topk import (cuda_topk_preselect, pack_meta,
                                               topk_preselect_zt_plain)
@@ -191,3 +193,84 @@ def test_masked_synthesiser_on_card_matches_cpu(cuda_device, kind):
         np.testing.assert_allclose(g["wave"], c["wave"], atol=1e-5)
         if voices:
             assert (db.voice_ids[g["unit_ids"]] == gpu._voice_code(voices[i])).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,k", [("split3cat", 48), ("split3", 40)])
+@pytest.mark.parametrize("T,M", [(128, 8192), (300, 8229), (2048, 65536)])
+def test_split_kernel_matches_plain(cuda_device, precision, k, T, M):
+    """The tensor-core split variants against the twin on the same card
+    tensors, with duplicated rows: scores of shared ids within 1e-3 + 1 ulp
+    (f32 sums in another order), id sets equal except on at most 1% of rows,
+    where the differing ids are near-ties of the k-th score in float64."""
+    rng, raw, aff = _block(T + M + k, M, True)
+    tg = torch.from_numpy(rng.standard_normal((T, KD)).astype(np.float32)).to(cuda_device)
+    R = torch.from_numpy(raw).to(cuda_device)
+    A = tuple(torch.from_numpy(a).to(cuda_device) for a in aff)
+    name = cuda_topk.kernel_name(False, False, precision)
+    before = cuda_topk.LAUNCH_COUNTS[name]
+    compare(tg, R, A, M, k, precision)
+    assert cuda_topk.LAUNCH_COUNTS[name] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["split3cat", "split3", "highest"])
+def test_kernel_on_split_probe(cuda_device, precision):
+    """On operands where the lo * lo products the split drops exceed the f32
+    rounding, the split kernels' scores equal the float64 hh + hl + lh to
+    1e-6 relative; the "highest" kernel (full f32 products) misses it."""
+    err = split_probe_error(cuda_device, precision)
+    if precision == "highest":
+        assert err > PROBE_RTOL
+    else:
+        assert err <= PROBE_RTOL
+
+
+def _epoch_config(**over):
+    return SnickeryConfig(
+        stream_list=["mag", "real", "imag", "lf0"],
+        datadims={"mag": 60, "real": 45, "imag": 45, "lf0": 1},
+        n_candidates=30, taper_length=50, join_cost_weight=0.7,
+        length_buckets=[64, 256], **over)
+
+
+@pytest.mark.cuda
+def test_split3cat_synthesiser_on_card_matches_cpu(cuda_device):
+    """Config 3 at split3cat: the whole step on the card (the split3cat
+    kernel, rescore, Viterbi, OLA) gives the CPU path's unit ids and audio
+    (atol 1e-5): the margin absorbs the kernel's rounding."""
+    cfg = _epoch_config(preselect_precision="split3cat")
+    db = build_voicedb(cfg, _utterances(1, 40, 202))
+    held = [u.features for u in _utterances(2, 3, 258)]
+    gpu, cpu = Synthesiser(cfg, db, device=cuda_device), Synthesiser(cfg, db, device="cpu")
+    name = cuda_topk.kernel_name(False, False, "split3cat")
+    before = cuda_topk.LAUNCH_COUNTS[name]
+    out_g = gpu.synth_batch(held)
+    assert cuda_topk.LAUNCH_COUNTS[name] == before + 1
+    for g, c in zip(out_g, cpu.synth_batch(held)):
+        np.testing.assert_array_equal(g["unit_ids"], c["unit_ids"])
+        np.testing.assert_allclose(g["wave"], c["wave"], atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "split3cat"])
+def test_streaming_on_card_matches_cpu(cuda_device, precision):
+    """synth_streaming on the card (pinned asynchronous fetches, the kernel
+    once a chunk) gives the CPU stream's unit ids per chunk and its audio
+    (atol 1e-5), with the host OLA as well as the device one."""
+    db = build_voicedb(_epoch_config(), _utterances(1, 40, 202))
+    feats = _utterances(3, 1, 300)[0].features[1:-1]
+    chunks = [feats[i:i + 32] for i in range(0, len(feats), 32)]
+    for preload in (True, False):
+        cfg = _epoch_config(preselect_precision=precision, preload_all_waves=preload)
+        runs = []
+        for device in (cuda_device, "cpu"):
+            synth = Synthesiser(cfg, db, device=device)
+            audio = list(synth.synth_streaming(iter(chunks)))
+            runs.append((audio, synth.last_stream_unit_ids))
+        (audio_g, ids_g), (audio_c, ids_c) = runs
+        assert len(ids_g) == len(ids_c) == len(chunks)
+        for g, c in zip(ids_g, ids_c):
+            np.testing.assert_array_equal(g, c)
+        for g, c in zip(audio_g, audio_c):
+            np.testing.assert_allclose(g, c, atol=1e-5)
