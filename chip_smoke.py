@@ -56,22 +56,51 @@ Phases, each timed, any failure ending the run with a non-zero exit:
     block) at ``preselect_precision="split3"`` with int16 waves and the audio
     on the host (``preload_all_waves=False``): ``synth_batch`` B = 8 x 2048,
     peak device memory, the kernel against its twin, and the same targets at
-    "highest" on the same block (tie-adjusted agreement).
+    "highest" on the same block (tie-adjusted agreement);
+13. the split precisions with the fused masks (the six split x mask
+    variants) against their twins at kd 151 and 453, T in {128, 2048, 300},
+    with duplicated rows, starved voices and codes no row carries (this
+    check runs with phases 3, 4 and 9, before the voices are built);
+14. the port's HTTP server (``snickery_tpu_torch.server``, warmed as
+    ``serve`` warms it, on 127.0.0.1 at an ephemeral port, ``urllib``
+    clients) on the config-2 voice at split3cat: 4 concurrent ``POST
+    /synth`` with segments (identity match, f64 path-cost gap against the
+    oracle, equal to direct calls, ``/stream`` answers 400), then one
+    synth_batch step at split3 (agreement with "highest");
+15. the server on the config-5 voice at split3cat, max_batch 32, max_wait
+    20 ms: 64 concurrent ``POST /synth`` of 256 units round-robin over the 8
+    voices (all 200, no leaks, ids equal to direct calls, tie-adjusted
+    agreement with phase 7's "highest" batch, batching observed in
+    ``/stats``), one ``POST /stream`` (ids equal to a direct
+    ``synth_streaming``, audio to f32 rounding, exact sample total); then
+    one step at split3;
+16. the CLI: the config-5 DB saved with ``VoiceDB.save``, 8 DNN-target
+    utterances as stream files, ``python -m snickery_tpu_torch.cli synth
+    --voice v3 --dump-units`` in a subprocess at synth_batch 8 and
+    split3cat; its units.npy must equal a direct synth_batch;
+17. the server on the two merged 50,000-unit halfphone voices at split3cat
+    with voices and segments, then one step at split3.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after; the kernel it needs must have launched.  Standard output ends
-with a JSON line of the kernels, the card's name and power limit from
-nvidia-smi, and ``{"ok": true, "device": {...}}``.
+with a JSON line of the kernels (launches on the main paths, max error
+against the twin, kernel, twin and ``torch.matmul``-of-the-product times,
+and the bound from the card's published peaks), the card's name and power
+limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import base64
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 
@@ -94,7 +123,17 @@ REPLACES = {
     "topk_preselect_zt_ling_part": "snickery_tpu/ops/pallas_topk.py:904 (+:187-208)",
     "topk_preselect_zt_split3cat": "snickery_tpu/ops/pallas_topk.py:904 (+:158-178)",
     "topk_preselect_zt_split3": "snickery_tpu/ops/pallas_topk.py:904 (+:77-93, :156-157)",
+    "topk_preselect_zt_split3cat_part": "snickery_tpu/ops/pallas_topk.py:904 (+:158-191)",
+    "topk_preselect_zt_split3cat_ling": "snickery_tpu/ops/pallas_topk.py:904 (+:158-178, :192-208)",
+    "topk_preselect_zt_split3cat_ling_part": "snickery_tpu/ops/pallas_topk.py:904 (+:158-208)",
+    "topk_preselect_zt_split3_part": "snickery_tpu/ops/pallas_topk.py:904 (+:77-93, :156-157, :187-191)",
+    "topk_preselect_zt_split3_ling": "snickery_tpu/ops/pallas_topk.py:904 (+:77-93, :156-157, :192-208)",
+    "topk_preselect_zt_split3_ling_part": "snickery_tpu/ops/pallas_topk.py:904 (+:77-93, :156-157, :187-208)",
 }
+# the card's published peaks (H100 SXM data sheet, dense, at 700 W): FP32
+# outside the tensor cores for "highest", bf16 tensor cores for the splits
+PEAK_FLOPS = {"highest": 67e12, "split3": 989e12, "split3cat": 989e12}
+HBM_BYTES_PER_S = 3.35e12
 STREAM_CHUNK = 32        # config 4: units (epoch-rate) or 5 ms frames a chunk
 CAP_TILE = 8             # capacity: the config-3 voice x8, 8,388,000 units
 JAX_TPU_CONFIG2_AGREEMENT = 0.9875   # BENCH_full.json config2, a TPU v5e run
@@ -139,6 +178,54 @@ def synthetic_block(rng, m: int, kd: int, dup: bool):
     w = rng.uniform(0.2, 1.0, kd).astype(np.float32)
     raw, _, _ = build_raw_blocks(feats, jr, m, affine=(mean, std, w))
     return raw, (mean, std, w)
+
+
+def bound_ms(T: int, m_rows: int, kd: int, k: int, precision: str, masked: bool):
+    """(least time in ms, "operations" or "bytes") the card could take for
+    one preselect call: 2 T m_rows kd FLOP per product (three bf16 products
+    at a split precision) at the peak rate of its type, against the bytes
+    the call must move (targets, the raw block's data and sqn columns, the
+    metadata rows when masked, each read once; the (T, k) scores and ids
+    written once) at HBM bandwidth.  The mask compares are integer work
+    beside the kd products of each score and are not counted."""
+    flops = 2.0 * T * m_rows * kd * (1 if precision == "highest" else 3)
+    nbytes = 4.0 * (T * kd + m_rows * (kd + 1) + 2 * T * k)
+    if masked:
+        nbytes += 32.0 * (T + m_rows)
+    t_ops, t_bytes = flops / PEAK_FLOPS[precision], nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def matmul_ms(torch, x, rows, precision: str) -> float:
+    """Card time of the product alone, ``x @ rows.T`` for targets x (T, kd)
+    and DB rows (m, kd), as torch.matmul computes it at the same precision:
+    f32 (no TF32) at "highest"; at a split precision bf16 operands with f32
+    accumulation, one matmul over the 3 kd pairs (split3cat) or three
+    (split3).  Chunked over the DB so each output stays within 1 GiB.  A
+    yardstick only: no PyTorch call fuses the product with an exact top-k,
+    and the port never calls this."""
+    from snickery_tpu_torch.ops.cuda_topk import split_bf16
+    T = x.shape[0]
+    step = max(64, (1 << 28) // T)
+    if precision == "highest":
+        pairs = [(x, rows)]
+    else:
+        bf = torch.bfloat16
+        th, tl = (a.to(bf) for a in split_bf16(x))
+        rh, rl = (a.to(bf) for a in split_bf16(rows.contiguous()))
+        if precision == "split3cat":
+            pairs = [(torch.cat([th, tl, th], 1), torch.cat([rh, rh, rl], 1))]
+        else:
+            pairs = [(th, rh), (tl, rh), (th, rl)]
+
+    def run():
+        for lo in range(0, rows.shape[0], step):
+            for a, b in pairs:
+                torch.matmul(a, b[lo:lo + step].T)
+
+    ms = time_ms(torch, run, 1)
+    del pairs
+    return ms
 
 
 def time_ms(torch, fn, reps: int) -> float:
@@ -188,10 +275,47 @@ def synthetic_labels(rng, T: int, M: int, k: int):
     return tc, tx, tv, dc, dx, dv
 
 
+def split_masked_variants_synthetic(torch) -> dict:
+    """The split precisions with the fused masks (partition, quinphone
+    penalties, both) against their twins at kd 151 and 453, with duplicated
+    rows, starved voices and codes no row carries; returns {kernel name:
+    max_abs_err}."""
+    from snickery_tpu_torch.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
+    from snickery_tpu_torch.ops.cuda_topk import kernel_name, pack_meta
+    from snickery_tpu_torch.synth import BACKOFF_LING_WEIGHTS
+    dev = torch.device("cuda")
+    errs = {}
+    variants = [(True, None), (False, (*QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE)),
+                (True, BACKOFF_LING_WEIGHTS)]
+    for kd in (KD, 3 * KD):
+        for T, M in ((128, 65536), (2048, 65536), (300, 8192 + 37)):
+            rng = np.random.default_rng(7 * kd + T)
+            raw_np, aff_np = synthetic_block(rng, M, kd, True)
+            raw = torch.from_numpy(raw_np).to(dev)
+            aff = tuple(torch.from_numpy(a).to(dev) for a in aff_np)
+            tg = torch.from_numpy(rng.standard_normal((T, kd), dtype=np.float32)).to(dev)
+            for precision, k in (("split3cat", 48), ("split3", 40)):
+                tc, tx, tv, dc, dx, dv = (torch.from_numpy(a).to(dev)
+                                          for a in synthetic_labels(rng, T, M, k))
+                meta = dict(tgt_meta=pack_meta(tc, tx, tv), db_meta=pack_meta(dc, dx, dv))
+                for partition, weights in variants:
+                    name = kernel_name(partition, weights is not None, precision)
+                    err, nbad, dead = compare(tg, raw, aff, M, k, precision,
+                                              partition=partition, ling_weights=weights,
+                                              **meta)
+                    errs[name] = max(errs.get(name, 0.0), err)
+                    if partition:
+                        check(dead >= 32 * (k - k // 2) + 8 * k,
+                              f"starved slots missing ({dead})")
+                    log(f"{name} vs plain T={T} M={M} kd={kd} k={k} dup=True: max_abs_err "
+                        f"{err:.3e}, near-tie id swaps {nbad}, dead slots {dead}")
+    return errs
+
+
 def kernel_variants_synthetic(torch) -> dict:
     """Every masked variant against its twin at kd 151 and 453; returns
     {kernel name: max_abs_err}."""
-    from snickery_tpu.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
+    from snickery_tpu_torch.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
     from snickery_tpu_torch.ops.cuda_topk import kernel_name, pack_meta
     from snickery_tpu_torch.synth import BACKOFF_LING_WEIGHTS
     dev = torch.device("cuda")
@@ -272,7 +396,7 @@ def weighted(db, synth, ids):
 def path_cost(db, synth, tw, ids, masked=None) -> float:
     """Float64 cost of a unit path in the oracle's terms; ``masked`` (T,)
     bool marks steps whose cost the identity rule raises to BIG_PENALTY."""
-    from snickery_tpu.const import BIG_PENALTY
+    from snickery_tpu_torch.const import BIG_PENALTY
     f64 = np.float64
     fw, jl, jr = weighted(db, synth, ids)
     tc = np.sqrt(((fw.astype(f64) - tw.astype(f64)) ** 2).sum(-1))
@@ -283,7 +407,7 @@ def path_cost(db, synth, tw, ids, masked=None) -> float:
 
 
 def smoke_config(**over):
-    from snickery_tpu.config import SnickeryConfig
+    from snickery_tpu_torch.config import SnickeryConfig
     base = dict(workdir=os.path.join("build", "chip_smoke"), stream_list=list(STREAMS),
                 datadims=dict(DATADIMS), sample_rate=SR, n_candidates=30,
                 taper_length=50, join_cost_weight=JCW, voice_name="smoke")
@@ -301,6 +425,8 @@ class Run:
         self.launches: dict[str, int] = {}
         self.errs: dict[str, float] = {}
         self.times: dict[str, tuple[float, float]] = {}
+        self.bounds: dict[str, tuple[float, str]] = {}
+        self.matmul: dict[str, float] = {}
 
     def main_path(self, label: str, kernel: str, fn):
         """Drive one main path with every count set to 0 just before and
@@ -316,8 +442,8 @@ class Run:
 
     def kernel_at(self, kernel, synth, tgts, kwargs, T_list, report=True):
         """The kernel against its twin, and both timed, at the main path's
-        shapes (with ``report``, the last of ``T_list`` is the time the
-        kernels line reports)."""
+        shapes (with ``report``, the last of ``T_list`` is the shape whose
+        times, bound and matmul yardstick the kernels line reports)."""
         from snickery_tpu_torch.ops.cuda_topk import topk_preselect_zt_plain
         from snickery_tpu_torch.ops.topk import preselect_margin
         from snickery_tpu_torch.synth import fused_masks
@@ -341,11 +467,16 @@ class Run:
                 x, d.raw, k, aff, m_rows, precision=precision, **m), 3)
             plain_ms = time_ms(torch, lambda: topk_preselect_zt_plain(
                 x, d.raw, k, aff, m_rows, precision=precision, **m), 1)
+            b_ms, b_by = bound_ms(T, m_rows, kd, k, precision, bool(masks))
+            msg = ""
             if report:
                 self.times[kernel] = (ms, plain_ms)
+                self.bounds[kernel] = (b_ms, b_by)
+                self.matmul[kernel] = matmul_ms(torch, x, d.raw[:m_rows, :kd], precision)
+                msg = f", torch.matmul of the product alone {self.matmul[kernel]:.2f} ms"
             log(f"{kernel} T={T} M={m_rows} kd={kd} k={k}: kernel {ms:.2f} ms, plain "
-                f"{plain_ms:.2f} ms, max_abs_err {err:.3e}, near-tie id swaps {nbad}, "
-                f"dead slots {dead}")
+                f"{plain_ms:.2f} ms, bound {b_ms:.3f} ms ({b_by}){msg}, max_abs_err "
+                f"{err:.3e}, near-tie id swaps {nbad}, dead slots {dead}")
 
 
 def timed_batch(torch, synth, reps: int, *args, **kw):
@@ -365,7 +496,7 @@ def timed_batch(torch, synth, reps: int, *args, **kw):
 
 
 def stage_split(label, synth, tgts, lengths, kwargs):
-    from snickery_tpu import utils
+    from snickery_tpu_torch import utils
     from snickery_tpu_torch.synth import synth_pipeline_step
     with Phase(f"{label} per-stage split (synchronised stage edges)"):
         timer = utils.StageTimer()
@@ -383,7 +514,7 @@ def check_result(db, res):
 
 def config3(run: Run):
     torch = run.torch
-    from snickery_tpu.voicedb.build import build_voicedb
+    from snickery_tpu_torch.voicedb.build import build_voicedb
     from snickery_tpu_torch import Synthesiser
 
     cfg = smoke_config(length_buckets=[T_BUCKET])
@@ -441,7 +572,7 @@ def config3(run: Run):
 def oracle_check(db, synth, feats, label):
     """A held-out utterance through ``synth`` against the float64 oracle over
     the full DB; returns (raw agreement, relative f64 path-cost gap)."""
-    from snickery_tpu import oracle
+    from snickery_tpu_torch import oracle
     res = synth.synth_from_features(feats)
     tgt, n = synth.targets_from_features(feats)
     tw_o = (((tgt - db.mean_target) / db.std_target) * synth._sqrt_wt).astype(np.float32)
@@ -567,7 +698,7 @@ def config4_checks(run: Run, synth, utt, ids):
     """After the config-4 main path: the epoch-rate stream's ids against
     one-shot greedy, one chunk's device stage split, and the kernel against
     its twin on the last chunk's targets (the streaming shape, T = 64)."""
-    from snickery_tpu import utils
+    from snickery_tpu_torch import utils
     from snickery_tpu_torch.synth import streaming_step
 
     with Phase("config-4 streamed vs synth_from_features(greedy=True)"):
@@ -664,9 +795,7 @@ def identity_match(synth, db, results, segs_list) -> float:
 
 def config2(run: Run):
     torch = run.torch
-    from snickery_tpu import oracle
-    from snickery_tpu.const import ID_RANK_PENALTY
-    from snickery_tpu.voicedb.build import build_voicedb
+    from snickery_tpu_torch.voicedb.build import build_voicedb
     from snickery_tpu_torch import Synthesiser
 
     cfg = smoke_config(target_representation="halfphone", n_candidates=20,
@@ -716,38 +845,47 @@ def config2(run: Run):
     with Phase("config-2 kernel vs plain at main-path shapes"):
         run.kernel_at("topk_preselect_zt_ling", synth, tgts, kwargs, (128, tgts.shape[0] * 128))
     with Phase("config-2 held-out utterance vs float64 oracle (full DB)"):
-        tgt, kept = targets[1]
-        codes = np.asarray([synth._unit_vocab.get(s.name, -1) for s in kept])
-        ctx = np.asarray([[synth._phone_vocab.get(p, 0) for p in s.quinphone] for s in kept])
-        *ctx_w, scale = synth._ling_weights()
-        id_pen = (codes[:, None] != db.unit_code[None, :]) * float(ID_RANK_PENALTY)
-        pen = id_pen.copy()
-        for c, w in enumerate(ctx_w):
-            if w:
-                pen = pen + (ctx[:, c:c + 1] != db.context_codes[None, :, c]) * (w * scale)
-        tw_o = (((tgt - db.mean_target) / db.std_target) * synth._sqrt_wt).astype(np.float32)
-        feats_w = db.normalised_features().astype(np.float32) * synth._sqrt_wt[None, :]
-        jl, jr = db.normalised_joins()
-        ids_ref, _ = oracle.synth_pipeline(
-            tw_o, feats_w, (jl * synth._sqrt_wj).astype(np.float32),
-            (jr * synth._sqrt_wj).astype(np.float32), n_candidates=cfg.n_candidates,
-            join_cost_weight=JCW, extra=pen, lattice_penalty=id_pen, fast_preselect=True)
-        ids = out[0]["unit_ids"]
-        has = (codes[:, None] == db.unit_code[None, :]).any(1)
-        agree = float((ids == ids_ref).mean())
-        c_dev = path_cost(db, synth, tw_o, ids, has & (db.unit_code[ids] != codes))
-        c_ref = path_cost(db, synth, tw_o, ids_ref, has & (db.unit_code[ids_ref] != codes))
-        gap = (c_dev - c_ref) / abs(c_ref)
-        log(f"{len(ids)} held-out halfphone units: raw agreement {agree:.5f} (the JAX "
-            f"package's TPU figure: {JAX_TPU_CONFIG2_AGREEMENT}), f64 path cost "
-            f"{c_dev:.6f} vs oracle {c_ref:.6f} (gap {gap:+.3e})")
-        check(gap <= 1e-4, f"config-2 f64 path-cost gap {gap} > 1e-4")
+        halfphone_oracle_gap(db, synth, *targets[1], out[0]["unit_ids"], "highest")
+    return db, feats, segs, out
+
+
+def halfphone_oracle_gap(db, synth, tgt, kept, ids, label) -> float:
+    """A halfphone utterance's ids against the float64 oracle with the same
+    penalties over the full DB: the relative f64 path-cost gap, gated at
+    1e-4."""
+    from snickery_tpu_torch import oracle
+    from snickery_tpu_torch.const import ID_RANK_PENALTY
+    codes = np.asarray([synth._unit_vocab.get(s.name, -1) for s in kept])
+    ctx = np.asarray([[synth._phone_vocab.get(p, 0) for p in s.quinphone] for s in kept])
+    *ctx_w, scale = synth._ling_weights()
+    id_pen = (codes[:, None] != db.unit_code[None, :]) * float(ID_RANK_PENALTY)
+    pen = id_pen.copy()
+    for c, w in enumerate(ctx_w):
+        if w:
+            pen = pen + (ctx[:, c:c + 1] != db.context_codes[None, :, c]) * (w * scale)
+    tw_o = (((tgt - db.mean_target) / db.std_target) * synth._sqrt_wt).astype(np.float32)
+    feats_w = db.normalised_features().astype(np.float32) * synth._sqrt_wt[None, :]
+    jl, jr = db.normalised_joins()
+    ids_ref, _ = oracle.synth_pipeline(
+        tw_o, feats_w, (jl * synth._sqrt_wj).astype(np.float32),
+        (jr * synth._sqrt_wj).astype(np.float32), n_candidates=synth.cfg.n_candidates,
+        join_cost_weight=JCW, extra=pen, lattice_penalty=id_pen, fast_preselect=True)
+    has = (codes[:, None] == db.unit_code[None, :]).any(1)
+    agree = float((ids == ids_ref).mean())
+    c_dev = path_cost(db, synth, tw_o, ids, has & (db.unit_code[ids] != codes))
+    c_ref = path_cost(db, synth, tw_o, ids_ref, has & (db.unit_code[ids_ref] != codes))
+    gap = (c_dev - c_ref) / abs(c_ref)
+    log(f"{label}: {len(ids)} held-out halfphone units, raw agreement {agree:.5f} (the "
+        f"JAX package's TPU figure: {JAX_TPU_CONFIG2_AGREEMENT}), f64 path cost "
+        f"{c_dev:.6f} vs oracle {c_ref:.6f} (gap {gap:+.3e})")
+    check(gap <= 1e-4, f"{label}: f64 path-cost gap {gap} > 1e-4")
+    return gap
 
 
 def config5(run: Run):
     torch = run.torch
-    from snickery_tpu.voicedb.build import build_voicedb
-    from snickery_tpu.voicedb.multivoice import merge_voicedbs
+    from snickery_tpu_torch.voicedb.build import build_voicedb
+    from snickery_tpu_torch.voicedb.multivoice import merge_voicedbs
     from snickery_tpu_torch import Synthesiser
 
     cfg = smoke_config(length_buckets=[256], voice_name="smokemv")
@@ -792,14 +930,16 @@ def config5(run: Run):
                 f"natural continuation {rate:.4f}, cost {res['total_cost']:.4f}")
             check(leaks == 0, f"{leaks} units leaked across voices")
             check(rate >= 0.85, f"natural continuation {rate} < 0.85")
+            return out
 
-    run.main_path("config 5", "topk_preselect_zt_part", drive)
+    out = run.main_path("config 5", "topk_preselect_zt_part", drive)
     prepped = [synth.targets_from_features(f) for f in feats]
     tgts, lengths, kwargs = synth.batch_inputs(prepped, None,
                                                [synth._voice_code(v) for v in voices])
     stage_split(f"config-5 B={B}", synth, tgts, lengths, kwargs)
     with Phase("config-5 kernel vs plain at main-path shapes"):
         run.kernel_at("topk_preselect_zt_part", synth, tgts, kwargs, (256, B * 256))
+    return db, feats, voices, out, held
 
 
 def composition(run: Run, n_utts: int):
@@ -807,8 +947,8 @@ def composition(run: Run, n_utts: int):
     pair for the gates, then a pair at config-2 scale (625 utterances,
     50,000 units a voice), whose kernel time is the one reported."""
     torch = run.torch
-    from snickery_tpu.voicedb.build import build_voicedb
-    from snickery_tpu.voicedb.multivoice import merge_voicedbs
+    from snickery_tpu_torch.voicedb.build import build_voicedb
+    from snickery_tpu_torch.voicedb.multivoice import merge_voicedbs
     from snickery_tpu_torch import Synthesiser
 
     cfg = smoke_config(target_representation="halfphone", n_candidates=20,
@@ -838,12 +978,305 @@ def composition(run: Run, n_utts: int):
             log(f"cross-voice leaks {leaks}, halfphone identity match {match:.4f}")
             check(leaks == 0, f"{leaks} units leaked across voices")
             check(match >= 0.9, f"identity match {match} < 0.9")
+            return out
 
-    run.main_path(label, "topk_preselect_zt_ling_part", drive)
+    out = run.main_path(label, "topk_preselect_zt_ling_part", drive)
     tgts, _, kwargs = synth.batch_inputs([(f, len(f)) for f in feats], segs,
                                          [synth._voice_code(v) for v in voices])
     with Phase(f"{label} kernel vs plain at main-path shape"):
         run.kernel_at("topk_preselect_zt_ling_part", synth, tgts, kwargs, (4 * 128,))
+    return db, feats, segs, voices, out
+
+
+# ------------------------------------------------------------------ serving
+def start_server(synth, **kw):
+    """The port's HTTP server on 127.0.0.1 at an ephemeral port, warmed as
+    ``serve`` warms it; returns (server, base url, thread)."""
+    from snickery_tpu_torch.server import SynthHTTPServer, warm_up
+    warm_up(synth)
+    httpd = SynthHTTPServer(synth, host="127.0.0.1", port=0, **kw)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    return httpd, f"http://127.0.0.1:{httpd.server_address[1]}", thread
+
+
+def stop_server(httpd, thread) -> None:
+    httpd.shutdown()
+    httpd.server_close()
+    thread.join(timeout=30)
+
+
+def http(url: str, payload: dict | None = None):
+    """(status, body bytes) of a GET (no payload) or a JSON POST."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+    except OSError as e:                  # no response at all: status 0
+        return 0, repr(e).encode()
+
+
+def post_all(url: str, payloads: list):
+    """POST every payload at once from its own thread; (responses in payload
+    order, wall seconds)."""
+    out = [None] * len(payloads)
+
+    def one(i):
+        out[i] = http(url, payloads[i])
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(payloads))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out, time.perf_counter() - t0
+
+
+def synth_payload(feats, voice=None, segs=None) -> dict:
+    payload = {"features_b64": base64.b64encode(
+        np.ascontiguousarray(feats, np.float32).tobytes()).decode()}
+    if voice is not None:
+        payload["voice"] = voice
+    if segs is not None:
+        payload["segments"] = [{"name": s.name, "quinphone": list(s.quinphone)} for s in segs]
+    return payload
+
+
+def served_ids(label, responses, db, synth, voices) -> list:
+    """Every response 200 with finite audio; returns the unit ids, after
+    checking that none comes from another voice (merged DBs)."""
+    ids = []
+    for i, (status, body) in enumerate(responses):
+        check(status == 200, f"{label}: request {i} answered {status}: {body[:200]!r}")
+        res = json.loads(body)
+        wave = np.frombuffer(base64.b64decode(res["wave_b64"]), np.float32)
+        check(len(wave) == res["n_samples"] > 0 and bool(np.isfinite(wave).all()),
+              f"{label}: request {i} audio")
+        ids.append(np.asarray(res["unit_ids"], np.int64))
+    if voices is not None:
+        leaks = sum(int((db.voice_ids[u] != synth._voice_code(v)).sum())
+                    for u, v in zip(ids, voices))
+        log(f"{label}: cross-voice leaks {leaks}")
+        check(leaks == 0, f"{label}: {leaks} units leaked across voices")
+    return ids
+
+
+def log_stats(label, base, httpd, n_requests, wall):
+    status, body = http(base + "/stats")
+    check(status == 200, f"{label}: /stats answered {status}")
+    stats = json.loads(body)
+    sizes = httpd.batcher.batch_sizes
+    steps = sum(sizes.values())
+    share = {str(b): round(n / steps, 4) for b, n in sorted(sizes.items())}
+    log(f"{label}: /stats {json.dumps(stats)}; {n_requests / wall:.2f} requests/s over "
+        f"{wall:.3f} s; share of steps per batch size {share}")
+    return stats
+
+
+def same_as_direct(label, ids, direct_ids) -> None:
+    bad = [i for i, (a, b) in enumerate(zip(ids, direct_ids)) if not np.array_equal(a, b)]
+    log(f"{label}: {len(ids) - len(bad)} of {len(ids)} responses equal direct calls")
+    check(not bad, f"{label}: responses {bad[:8]} differ from direct calls")
+
+
+def server_config5(run: Run, db, feats, voices, out_highest, held):
+    """Config 5 served at split3cat: 64 concurrent POST /synth of 256 units
+    round-robin over the 8 voices, then one POST /stream."""
+    torch = run.torch
+    from snickery_tpu_torch import Synthesiser
+
+    cfg = smoke_config(length_buckets=[64, 256], voice_name="smokemv",
+                       preselect_precision="split3cat")
+    with Phase("server config 5: Synthesiser(split3cat) and warm-up"):
+        synth = Synthesiser(cfg, db=db, device="cuda")
+        httpd, base, thread = start_server(synth, max_batch=32, max_wait_ms=20.0)
+        torch.cuda.synchronize()
+    payloads = [synth_payload(f, v) for f, v in zip(feats, voices)]
+    stream_feats = held[3].features
+    stream_payload = dict(synth_payload(stream_feats, "v2"), chunk_frames=STREAM_CHUNK)
+
+    def drive():
+        with Phase(f"server config-5 main path: {len(payloads)} concurrent POST /synth, "
+                   "then POST /stream"):
+            responses, wall = post_all(base + "/synth", payloads)
+            stream = http(base + "/stream", stream_payload)
+        return responses, wall, stream
+
+    try:
+        responses, wall, (st_status, st_body) = run.main_path(
+            "server config 5", "topk_preselect_zt_split3cat_part", drive)
+        # the /stream handler ran synth_streaming on this Synthesiser
+        st_ids = np.concatenate(synth.last_stream_unit_ids)
+        stats = log_stats("server config 5", base, httpd, len(payloads), wall)
+    finally:
+        stop_server(httpd, thread)
+    ids = served_ids("server config 5", responses, db, synth, voices)
+    check(stats["batches"] < stats["requests"] and stats["max_batch_seen"] > 1,
+          f"server config 5: requests were not batched ({stats})")
+    with Phase("server config 5: responses vs direct calls and vs highest"):
+        direct = [synth.synth_from_features(f, voice=v)["unit_ids"]
+                  for f, v in zip(feats, voices)]
+        same_as_direct("server config 5", ids, direct)
+        raw, adj = tie_adjusted_agreement(db, np.concatenate(ids), np.concatenate(
+            [r["unit_ids"] for r in out_highest]))
+        log(f"served split3cat vs the highest batch: raw {raw:.5f}, tie-adjusted {adj:.5f}")
+        check(adj >= 0.999, f"served split3cat tie-adjusted agreement {adj} < 0.999")
+    with Phase("server config 5: POST /stream vs synth_streaming"):
+        check(st_status == 200, f"/stream answered {st_status}")
+        chunks = [stream_feats[i:i + STREAM_CHUNK]
+                  for i in range(0, len(stream_feats), STREAM_CHUNK)]
+        ref = np.concatenate(list(synth.synth_streaming(iter(chunks), voice="v2")))
+        s_ids = np.concatenate(synth.last_stream_unit_ids)
+        spans = (db.cutpoints[s_ids, 2] - db.cutpoints[s_ids, 1]).astype(np.int64)
+        audio = np.frombuffer(st_body, np.float32)
+        same = len(audio) == len(ref)
+        err = float(np.abs(audio - ref).max()) if same else float("inf")
+        log(f"/stream: {len(st_body)} bytes, {len(audio)} samples; direct synth_streaming "
+            f"{len(ref)} samples; expected {2 * cfg.taper_length + int(spans.sum())}; "
+            f"ids equal {np.array_equal(st_ids, s_ids)}; bytes equal "
+            f"{st_body == ref.tobytes()}; max |streamed - direct| {err:.3e} (the OLA's "
+            "atomic adds sum overlaps in no fixed order)")
+        check(np.array_equal(st_ids, s_ids), "/stream unit ids differ from direct")
+        check(same and err <= 1e-5, f"/stream audio differs from direct by {err}")
+        check(len(audio) == 2 * cfg.taper_length + int(spans.sum()), "/stream sample total")
+        check(bool((db.voice_ids[s_ids] == 2).all()), "/stream leaked across voices")
+    B = stats["max_batch_seen"]
+    tgts, _, kwargs = synth.batch_inputs([synth.targets_from_features(f) for f in feats[:B]],
+                                         None, [synth._voice_code(v) for v in voices[:B]])
+    with Phase("server config 5: kernel vs plain at the served shapes"):
+        run.kernel_at("topk_preselect_zt_split3cat_part", synth, tgts, kwargs, (B * 256,))
+        args, kw = synth._last_stream_step
+        T = args[1].shape[0]
+        kw = dict(kw, tgt_codes=torch.zeros((1, T), dtype=torch.int32, device=synth.device),
+                  tgt_ctx=torch.zeros((1, T, 5), dtype=torch.int32, device=synth.device),
+                  tgt_vids=torch.full((1, T), 2, dtype=torch.int32, device=synth.device),
+                  halfphone=False, ling_weights=None)
+        run.kernel_at("topk_preselect_zt_split3cat_part", synth, args[1], kw,
+                      (args[1].shape[0],), report=False)
+    return synth
+
+
+def server_halfphone(run: Run, label, kernel, db, feats, segs, voices, oracle_gate):
+    """A halfphone voice (or two merged) served at split3cat: concurrent
+    POST /synth with segments (and voices), gated by the halfphone identity,
+    equality with direct calls and (``oracle_gate``) the float64 oracle;
+    POST /stream must answer 400."""
+    torch = run.torch
+    from snickery_tpu_torch import Synthesiser
+
+    cfg = smoke_config(target_representation="halfphone", n_candidates=20,
+                       length_buckets=[128], voice_name="smokehp",
+                       preselect_precision="split3cat")
+    with Phase(f"{label}: Synthesiser(split3cat) and warm-up"):
+        synth = Synthesiser(cfg, db=db, device="cuda")
+        httpd, base, thread = start_server(synth, max_batch=32, max_wait_ms=20.0)
+        torch.cuda.synchronize()
+    vs = voices or [None] * len(feats)
+    payloads = [synth_payload(f, v, s) for f, v, s in zip(feats, vs, segs)]
+
+    def drive():
+        with Phase(f"{label} main path: {len(payloads)} concurrent POST /synth"):
+            return post_all(base + "/synth", payloads)
+
+    try:
+        responses, wall = run.main_path(label, kernel, drive)
+        log_stats(label, base, httpd, len(payloads), wall)
+        st_status, _ = http(base + "/stream", synth_payload(feats[0]))
+    finally:
+        stop_server(httpd, thread)
+    check(st_status == 400, f"{label}: /stream answered {st_status}, expected 400")
+    ids = served_ids(label, responses, db, synth, voices)
+    results = [{"unit_ids": u} for u in ids]
+    match = identity_match(synth, db, results, segs)
+    log(f"{label}: halfphone identity match {match:.4f}")
+    check(match >= (0.95 if oracle_gate else 0.9), f"{label}: identity match {match}")
+    direct = [synth.synth_from_features(f, target_segments=s, voice=v)["unit_ids"]
+              for f, s, v in zip(feats, segs, vs)]
+    same_as_direct(label, ids, direct)
+    if oracle_gate:
+        halfphone_oracle_gap(db, synth, feats[0], segs[0], ids[0], f"{label} split3cat")
+    tgts, _, kwargs = synth.batch_inputs(
+        [(f, len(f)) for f in feats], segs,
+        None if voices is None else [synth._voice_code(v) for v in voices])
+    with Phase(f"{label}: kernel vs plain at the served shape"):
+        run.kernel_at(kernel, synth, tgts, kwargs, (tgts.shape[0] * 128,))
+
+
+def split3_masked(run: Run, label, kernel, db, cfg_over, feats, out_highest,
+                  voices=None, segs=None):
+    """One synth_batch step at split3 on a masked voice: no leaks, and
+    tie-adjusted agreement with the "highest" step on the same inputs."""
+    torch = run.torch
+    from snickery_tpu_torch import Synthesiser
+    synth = Synthesiser(smoke_config(preselect_precision="split3", **cfg_over),
+                        db=db, device="cuda")
+
+    def drive():
+        with Phase(f"{label} split3 main path: synth_batch B={len(feats)}"):
+            return timed_batch(torch, synth, 1, feats, voices=voices, segments_list=segs)
+
+    out = run.main_path(f"{label} split3", kernel, drive)
+    if voices is not None:
+        leaks = sum(int((db.voice_ids[r["unit_ids"]] != synth._voice_code(v)).sum())
+                    for r, v in zip(out, voices))
+        log(f"{label} split3: cross-voice leaks {leaks}")
+        check(leaks == 0, f"{label} split3: {leaks} units leaked across voices")
+    raw, adj = tie_adjusted_agreement(db, np.concatenate([r["unit_ids"] for r in out]),
+                                      np.concatenate([r["unit_ids"] for r in out_highest]))
+    log(f"{label}: split3 vs highest over {sum(len(r['unit_ids']) for r in out)} units: "
+        f"raw {raw:.5f}, tie-adjusted {adj:.5f}")
+    check(adj >= 0.999, f"{label}: split3 tie-adjusted agreement {adj} < 0.999")
+    if segs is None:
+        prepped = [synth.targets_from_features(f) for f in feats]
+    else:
+        prepped = [(f, len(f)) for f in feats]
+    tgts, _, kwargs = synth.batch_inputs(
+        prepped, segs, None if voices is None else [synth._voice_code(v) for v in voices])
+    with Phase(f"{label} split3: kernel vs plain at main-path shape"):
+        run.kernel_at(kernel, synth, tgts, kwargs, (tgts.shape[0] * tgts.shape[1],))
+
+
+def cli_phase(run: Run, db, synth5, feats):
+    """The CLI on the config-5 voice: the merged DB saved with the port's
+    VoiceDB.save, 8 DNN-target utterances as stream files, a JSON config at
+    synth_batch 8 and split3cat, and ``python -m snickery_tpu_torch.cli
+    synth --voice v3 --dump-units`` in a subprocess; its units.npy must equal
+    a direct synth_batch of the same 8 utterances."""
+    from snickery_tpu_torch.io.speech import put_speech
+    root = os.path.abspath(os.path.join("build", "chip_smoke", "cli"))
+    with Phase("CLI: save the merged voice and write the stream files"):
+        db.save(os.path.join(root, "smokemv.voicedb"))
+        test_dir = os.path.join(root, "test")
+        for name, a, b in synth5.cfg.stream_slices:
+            os.makedirs(os.path.join(test_dir, name), exist_ok=True)
+            for i, f in enumerate(feats[:8]):
+                put_speech(f[:, a:b], os.path.join(test_dir, name, f"t{i}.{name}"))
+        cfg = dict(workdir=root, voice_name="smokemv", test_data_dir=test_dir,
+                   stream_list=list(STREAMS), datadims=dict(DATADIMS), sample_rate=SR,
+                   n_candidates=30, taper_length=50, join_cost_weight=JCW,
+                   length_buckets=[64, 256], synth_batch=8,
+                   preselect_precision="split3cat")
+        cfg_path = os.path.join(root, "voice.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+    out_dir = os.path.join(root, "out")
+    with Phase("CLI main path: python -m snickery_tpu_torch.cli synth (subprocess)"):
+        res = subprocess.run([sys.executable, "-m", "snickery_tpu_torch.cli", "synth",
+                              "-c", cfg_path, "-o", out_dir, "--voice", "v3",
+                              "--dump-units"], capture_output=True, text=True, timeout=600)
+        for line in (res.stdout + res.stderr).strip().splitlines()[-12:]:
+            log(f"cli: {line}")
+        check(res.returncode == 0, f"CLI synth exited {res.returncode}")
+    direct = synth5.synth_batch(feats[:8], voices=["v3"] * 8)
+    for i, r in enumerate(direct):
+        got = np.load(os.path.join(out_dir, f"t{i}.units.npy"))
+        check(np.array_equal(got, r["unit_ids"]), f"CLI t{i}.units.npy differs from direct")
+        check(os.path.getsize(os.path.join(out_dir, f"t{i}.wav")) > 44, f"CLI t{i}.wav empty")
+    log("CLI: 8 of 8 units.npy equal a direct synth_batch")
 
 
 def main() -> int:
@@ -878,6 +1311,9 @@ def main() -> int:
     with Phase("split precisions vs plain, synthetic"):
         for name, err in precision_variants_synthetic(torch).items():
             run.errs[name] = max(run.errs.get(name, 0.0), err)
+    with Phase("split precisions with fused masks vs plain, synthetic"):
+        for name, err in split_masked_variants_synthetic(torch).items():
+            run.errs[name] = max(run.errs.get(name, 0.0), err)
     db, held, short, out32 = config3(run)
     torch.cuda.empty_cache()
     config3_split3cat(run, db, held, short, out32)
@@ -885,17 +1321,38 @@ def main() -> int:
     capacity(run, db, held)
     del db
     torch.cuda.empty_cache()
-    for path in (config2, config5, lambda r: composition(r, COMP_UTTS),
-                 lambda r: composition(r, HP_UTTS)):
-        path(run)
-        torch.cuda.empty_cache()
+    hp_over = dict(target_representation="halfphone", n_candidates=20, length_buckets=[128])
+    db, feats, segs, out = config2(run)
+    server_halfphone(run, "server config 2", "topk_preselect_zt_split3cat_ling", db,
+                     feats, segs, None, True)
+    split3_masked(run, "config 2", "topk_preselect_zt_split3_ling", db, hp_over, feats,
+                  out, segs=segs)
+    torch.cuda.empty_cache()
+    db, feats, voices, out, held = config5(run)
+    synth5 = server_config5(run, db, feats, voices, out, held)
+    split3_masked(run, "config 5", "topk_preselect_zt_split3_part", db,
+                  dict(length_buckets=[256]), feats, out, voices=voices)
+    cli_phase(run, db, synth5, feats)
+    del synth5
+    torch.cuda.empty_cache()
+    composition(run, COMP_UTTS)
+    torch.cuda.empty_cache()
+    db, feats, segs, voices, out = composition(run, HP_UTTS)
+    server_halfphone(run, "server composition", "topk_preselect_zt_split3cat_ling_part",
+                     db, feats, segs, voices, False)
+    split3_masked(run, "composition", "topk_preselect_zt_split3_ling_part", db, hp_over,
+                  feats, out, voices=voices, segs=segs)
+    del db
+    torch.cuda.empty_cache()
 
     log(f"chip_smoke.py: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": REPLACES[name], "launches": run.launches[name],
         "max_abs_err": run.errs[name], "ms": run.times[name][0],
-        "plain_ms": run.times[name][1]} for name in REPLACES]}))
+        "plain_ms": run.times[name][1], "bound_ms": run.bounds[name][0],
+        "bound_by": run.bounds[name][1], "library_ms": None,
+        "matmul_ms": run.matmul[name]} for name in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

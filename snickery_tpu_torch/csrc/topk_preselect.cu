@@ -8,8 +8,9 @@
 // _compute_scores :187-191) and the fused quinphone penalties (halfphone
 // voices, :192-208): topk_partial<PART, LING>.  At the bf16-split precisions
 // "split3" (_split3_dot :77-93) and "split3cat" (_bf16_split :96-99, the
-// in-kernel [hi|hi|lo] concat :158-178), without masks: topk_partial_split.
-// One exported entry point per variant.
+// in-kernel [hi|hi|lo] concat :158-178), with the same fused masks applied
+// after the product (:156-208 composed): topk_partial_split<PREC, PART,
+// LING>.  One exported entry point per variant, twelve in all.
 //
 // For every target row t and DB row u in [0, m_rows):
 //
@@ -32,7 +33,8 @@
 // K = 3d pass), "split3" three, combined as (hh + hl) + lh (its three
 // passes).
 //
-// Fused masks, in the Pallas order (so the plain twin agrees bit for bit):
+// Fused masks, at every precision, applied to the score after the product in
+// the Pallas order (so at "highest" the plain twin agrees bit for bit):
 //   PART: score = +inf where vid(t) != vid(u);
 //   LING: score += 2^24 (const.ID_RANK_PENALTY) where code(t) != code(u),
 //         then score += pen[c] where ctx_c(t) != ctx_c(u), c = 0..4 in order,
@@ -72,8 +74,9 @@
 // last] frames) about 150-160 KB, so one CTA per SM.  The split variants
 // hold the target tile as bf16 hi and lo (the same bytes as one f32 copy,
 // row stride padded by 8 against bank conflicts): 4 * (4,160 + 128 * k) +
-// 256 * (kd rounded up to 32, + 8) + 10,240 bytes, about 92 KB at kd 151 and
-// k 48, so two CTAs still fit per SM.
+// 256 * (kd rounded up to 32, + 8) + 10,240 bytes, plus the same 4 KB of
+// metadata in the masked variants: about 96 KB at kd 151 and k 48, so two
+// CTAs still fit per SM; about 176 KB at kd 453 (halfphone), one CTA.
 //
 // Bound: at the config-3 batch shape (65,536 targets x 1,048,576 units x
 // kd = 151) "highest" is about 2.1e13 FLOP of FP32 FMA, so it is bound by
@@ -358,8 +361,9 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Pass 1 at the split precisions (no fused masks).  Shared memory: the
-// tile's scores and lists as in topk_partial, the target tile as bf16
+// Pass 1 at the split precisions.  Shared memory: the tile's scores and
+// lists as in topk_partial, the metadata rows of the target tile and of the
+// DB tile when a mask is fused (MASKED), the target tile as bf16
 // [TT][kp + SPAD] hi and lo (kp = kd rounded up to KC, zero past kd), and
 // the DB stage as bf16 [R][DS] hi and lo.  Warp w computes DB rows
 // (w % 4) * 16 .. + 16 against targets (w / 4) * 32 .. + 32: one A fragment
@@ -369,16 +373,20 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 // a2 = (g, 2q + 8..), a3 = (g + 8, 2q + 8..); b0 = (k 2q..2q+1, n g),
 // b1 = (k 2q + 8.., n g); d0..d3 = (g, 2q), (g, 2q + 1), (g + 8, 2q),
 // (g + 8, 2q + 1).  Row indices are int and element offsets size_t: the
-// capacity block has 8.4 M rows x 153 columns.
-template <int PREC>
+// capacity block has 8.4 M rows x 153 columns.  The fused masks are
+// applied to each score in the epilogue, after the product and before the
+// selection, in the order of topk_partial (fused_score).
+template <int PREC, bool PART, bool LING>
 __global__ void __launch_bounds__(THREADS, 2)
 topk_partial_split(const float* __restrict__ t2, const float* __restrict__ raw,
-                   float* __restrict__ part_v, int* __restrict__ part_i, int T,
-                   int kd, int width, int m_rows, int rows_per_split, int k,
-                   int splits) {
+                   const int* __restrict__ tmeta, const int* __restrict__ dmeta,
+                   Penalties pen, float* __restrict__ part_v,
+                   int* __restrict__ part_i, int T, int kd, int width,
+                   int m_rows, int rows_per_split, int k, int splits) {
   // split3: accumulators hh, hl, lh; split3cat: one for all three
   constexpr int NACC = PREC == SPLIT3 ? 3 : 1;
   constexpr int HL = NACC == 3 ? 1 : 0, LH = NACC == 3 ? 2 : 0;
+  constexpr bool MASKED = PART || LING;
   extern __shared__ __align__(16) float smem[];
   const int kp = (kd + KC - 1) / KC * KC;
   const int ts = kp + SPAD;               // bf16 row stride of the target tile
@@ -386,7 +394,10 @@ topk_partial_split(const float* __restrict__ t2, const float* __restrict__ raw,
   float* sSqn = sS + TT * R;              // [R]       sqn column of the tile
   float* lv = sSqn + R;                   // [TT][k]   list values
   int* li = reinterpret_cast<int*>(lv + TT * k);   // [TT][k] list indices
-  unsigned short* sThi = reinterpret_cast<unsigned short*>(li + TT * k);
+  int* sTM = li + TT * k;                          // [TT][META] if MASKED
+  int* sDM = sTM + (MASKED ? TT * META : 0);       // [R][META]  if MASKED
+  unsigned short* sThi =
+      reinterpret_cast<unsigned short*>(sDM + (MASKED ? R * META : 0));
   unsigned short* sTlo = sThi + TT * ts;  // [TT][ts]  target tile, bf16
   unsigned short* sDhi = sTlo + TT * ts;  // [R][DS]   DB stage, bf16
   unsigned short* sDlo = sDhi + R * DS;
@@ -403,6 +414,12 @@ topk_partial_split(const float* __restrict__ t2, const float* __restrict__ raw,
                         ? t2[static_cast<size_t>(t0 + t) * kd + c]
                         : 0.f;
     split_store(x, sThi + t * ts + c, sTlo + t * ts + c);
+  }
+  if constexpr (MASKED) {
+    for (int e = tid; e < TT * META; e += THREADS) {
+      const int t = t0 + e / META;
+      sTM[e] = t < T ? tmeta[static_cast<size_t>(t) * META + e % META] : -1;
+    }
   }
   init_lists(lv, li, k, tid);
   __syncthreads();
@@ -435,6 +452,16 @@ topk_partial_split(const float* __restrict__ t2, const float* __restrict__ raw,
                         ? __ldg(raw + static_cast<size_t>(u) * width + kd)
                         : 0.f;
       }
+      if constexpr (MASKED) {
+        if (c0 == 0) {
+          for (int e = tid; e < R * META; e += THREADS) {
+            const int u = base + e / META;
+            sDM[e] = u < row_hi
+                         ? __ldg(dmeta + static_cast<size_t>(u) * META + e % META)
+                         : -1;
+          }
+        }
+      }
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < KC; kk += KS) {
@@ -466,7 +493,9 @@ topk_partial_split(const float* __restrict__ t2, const float* __restrict__ raw,
         if constexpr (PREC == SPLIT3) {
           cross = (acc[0][j][h] + acc[1][j][h]) + acc[2][j][h];
         }
-        sS[t * R + r] = sSqn[r] - 2.f * cross;
+        sS[t * R + r] = fused_score<PART, LING>(sSqn[r] - 2.f * cross,
+                                                sTM + t * META, sDM + r * META,
+                                                pen);
       }
     }
     __syncthreads();
@@ -510,13 +539,13 @@ topk_merge(const float* __restrict__ part_v, const int* __restrict__ part_i,
 }
 
 size_t partial_smem(int kd, int k, bool masked, int prec) {
-  if (kd < 1 || k < 1 || k > KMAX || prec < HIGHEST || prec > SPLIT3CAT ||
-      (masked && prec != HIGHEST)) {
+  if (kd < 1 || k < 1 || k > KMAX || prec < HIGHEST || prec > SPLIT3CAT) {
     return 0;
   }
   if (prec != HIGHEST) {
     const size_t ts = static_cast<size_t>((kd + KC - 1) / KC * KC + SPAD);
     return static_cast<size_t>(TT * R + R + 2 * TT * k) * sizeof(float) +
+           static_cast<size_t>(masked ? (TT + R) * META : 0) * sizeof(int) +
            2 * (TT * ts + R * DS) * sizeof(unsigned short);
   }
   return static_cast<size_t>(kd * TT + KC * R + TT * R + R + TT * k) *
@@ -566,23 +595,26 @@ int launch(const float* t2, const float* raw, const float* comp,
   return merge(part_v, part_i, comp, out_v, out_i, T, k, splits, stream);
 }
 
-template <int PREC>
+template <int PREC, bool PART, bool LING>
 int launch_split(const float* t2, const float* raw, const float* comp,
+                 const int* tmeta, const int* dmeta, Penalties pen,
                  float* part_v, int* part_i, float* out_v, int* out_i, int T,
                  int kd, int width, int m_rows, int k, int splits,
                  int rows_per_split, cudaStream_t stream) {
-  const size_t smem1 = partial_smem(kd, k, false, PREC);
-  if (bad_shape(smem1, T, kd, width, m_rows, k, splits, rows_per_split)) {
+  constexpr bool MASKED = PART || LING;
+  const size_t smem1 = partial_smem(kd, k, MASKED, PREC);
+  if (bad_shape(smem1, T, kd, width, m_rows, k, splits, rows_per_split) ||
+      (MASKED && (tmeta == nullptr || dmeta == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaFuncSetAttribute(
-      topk_partial_split<PREC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem1));
+      topk_partial_split<PREC, PART, LING>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem1));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid1((T + TT - 1) / TT, splits);
-  topk_partial_split<PREC><<<grid1, THREADS, smem1, stream>>>(
-      t2, raw, part_v, part_i, T, kd, width, m_rows, rows_per_split, k,
-      splits);
+  topk_partial_split<PREC, PART, LING><<<grid1, THREADS, smem1, stream>>>(
+      t2, raw, tmeta, dmeta, pen, part_v, part_i, T, kd, width, m_rows,
+      rows_per_split, k, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return merge(part_v, part_i, comp, out_v, out_i, T, k, splits, stream);
@@ -622,16 +654,28 @@ int snk_topk_db_tile_rows() { return R; }
   launch<PART, LING>(t2, raw, comp, tmeta, dmeta, pen, part_v, part_i, out_v, \
                      out_i, T, kd, width, m_rows, k, splits, rows_per_split,  \
                      stream)
-#define SNK_SPLIT(PREC)                                                      \
-  launch_split<PREC>(t2, raw, comp, part_v, part_i, out_v, out_i, T, kd,     \
-                     width, m_rows, k, splits, rows_per_split, stream)
+#define SNK_SPLIT(PREC, PART, LING)                                          \
+  launch_split<PREC, PART, LING>(t2, raw, comp, tmeta, dmeta, pen, part_v,   \
+                                 part_i, out_v, out_i, T, kd, width, m_rows, \
+                                 k, splits, rows_per_split, stream)
 
 SNK_TOPK_ENTRY(snk_topk_preselect_zt, SNK_MASKED(false, false))
 SNK_TOPK_ENTRY(snk_topk_preselect_zt_part, SNK_MASKED(true, false))
 SNK_TOPK_ENTRY(snk_topk_preselect_zt_ling, SNK_MASKED(false, true))
 SNK_TOPK_ENTRY(snk_topk_preselect_zt_ling_part, SNK_MASKED(true, true))
-SNK_TOPK_ENTRY(snk_topk_preselect_zt_split3, SNK_SPLIT(SPLIT3))
-SNK_TOPK_ENTRY(snk_topk_preselect_zt_split3cat, SNK_SPLIT(SPLIT3CAT))
+SNK_TOPK_ENTRY(snk_topk_preselect_zt_split3, SNK_SPLIT(SPLIT3, false, false))
+SNK_TOPK_ENTRY(snk_topk_preselect_zt_split3_part, SNK_SPLIT(SPLIT3, true, false))
+SNK_TOPK_ENTRY(snk_topk_preselect_zt_split3_ling, SNK_SPLIT(SPLIT3, false, true))
+SNK_TOPK_ENTRY(snk_topk_preselect_zt_split3_ling_part,
+               SNK_SPLIT(SPLIT3, true, true))
+SNK_TOPK_ENTRY(snk_topk_preselect_zt_split3cat,
+               SNK_SPLIT(SPLIT3CAT, false, false))
+SNK_TOPK_ENTRY(snk_topk_preselect_zt_split3cat_part,
+               SNK_SPLIT(SPLIT3CAT, true, false))
+SNK_TOPK_ENTRY(snk_topk_preselect_zt_split3cat_ling,
+               SNK_SPLIT(SPLIT3CAT, false, true))
+SNK_TOPK_ENTRY(snk_topk_preselect_zt_split3cat_ling_part,
+               SNK_SPLIT(SPLIT3CAT, true, true))
 
 #undef SNK_SPLIT
 #undef SNK_MASKED

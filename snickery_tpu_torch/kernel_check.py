@@ -2,6 +2,13 @@
 tests (``tests/test_torch_cuda_kernel.py``).
 
 - :func:`compare`: the kernel against its plain twin on the same tensors.
+  At a split precision the tolerance on a score grows with the product's
+  magnitude (:func:`split_slack`): the tensor cores accumulate in f32 but
+  not as IEEE sums (partial sums are aligned and cut, not rounded), so the
+  kernel's error is up to one f32 ulp of the running sum per ``mma`` step,
+  and a step adds 16 products.  On correlated rows (halfphone targets and
+  their own units, all products of one sign) that reaches ~5e-3 on scores
+  of ~1e3 at kd 453, where independent rows stay under 5e-4.
 - :func:`split_probe_error`: the kernel at a split precision against the
   float64 sum of its three bf16 products, on operands where the products
   the split drops (lo * lo) are 2.7e-6 to 2.5e-5 of each dot product: a
@@ -18,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from snickery_tpu.const import ID_RANK_PENALTY
+from snickery_tpu_torch.const import ID_RANK_PENALTY
 from snickery_tpu_torch.ops.cuda_topk import (cuda_topk_preselect, penalty_constants,
                                               split_scores64, topk_preselect_zt_plain)
 
@@ -26,6 +33,7 @@ SCORE_ATOL = 1e-3        # |kernel - plain| on scores of ~1e2: f32 sums of
                          # kd products taken in another order
 TIE_RTOL = 1e-5          # a differing id must be an f32 near-tie of the k-th
 F32_EPS = float(np.finfo(np.float32).eps)
+MMA_DEPTH = 16           # bf16 products an mma.sync m16n8k16 step adds
 PROBE_RTOL = 1e-6        # split probe: |score - f64 score| / (2 sum |t| |u|)
 
 
@@ -58,13 +66,29 @@ def scores64(raw, aff, targets, ids, masks, precision="highest"):
     return s
 
 
+def split_slack(targets, raw, aff, ids, precision) -> torch.Tensor:
+    """(n, k) float64 bound of a split kernel's accumulation error on the
+    scores of rows ``ids`` (n, k) for targets (n, kd), 0 at "highest":
+    one f32 ulp of the running sum for each of the ``ceil(3 kd / 16)`` mma
+    steps, the running sum bounded by ``sum_c |t2_c| |u_c|``, times the 2
+    of ``- 2 * cross``."""
+    if precision == "highest":
+        return torch.zeros(ids.shape, dtype=torch.float64, device=ids.device)
+    kd = targets.shape[1]
+    mean, std, w = aff
+    t2 = (targets * (w / std)[None, :]).double().abs()
+    mag = torch.einsum("nkc,nc->nk", raw[ids][..., :kd].double().abs(), t2)
+    return -(-3 * kd // MMA_DEPTH) * F32_EPS * 2.0 * mag
+
+
 def compare(targets, raw, aff, m_rows, k, precision="highest", **masks):
     """Kernel vs plain twin on the same card tensors.  Per row: scores
     ascending; the same number of dead slots, each (+inf, 0); id sets
     equal, except where the differing ids are f32 near-ties of the k-th
     score (checked in float64, penalties included, on the three bf16
     products at a split precision), on at most 1% of the rows; scores of
-    shared ids within SCORE_ATOL plus one f32 ulp of the score (penalised
+    shared ids within SCORE_ATOL (at a split precision the larger of that
+    and :func:`split_slack`) plus one f32 ulp of the score (penalised
     scores sit near 2^24, ulp 2).
     Returns (max_abs_err, rows_with_differing_ids, dead slots)."""
     ik, vk = cuda_topk_preselect(targets, raw, k, aff, m_rows, precision=precision, **masks)
@@ -86,8 +110,10 @@ def compare(targets, raw, aff, m_rows, k, precision="highest", **masks):
     live = same[:, None] & torch.isfinite(vp_s)
     diff = (vk_s - vp_s).abs()[live]
     err = float(diff.max()) if diff.numel() else 0.0
-    allowed = SCORE_ATOL + F32_EPS * vp_s.abs()[live]
-    check(bool((diff <= allowed).all()), f"score error {err} beyond {SCORE_ATOL} + 1 ulp")
+    slack = split_slack(targets, raw, aff, ip_s, precision)
+    allowed = torch.clamp(slack[live], min=SCORE_ATOL) + F32_EPS * vp_s.abs()[live]
+    check(bool((diff <= allowed).all()),
+          f"score error {err} beyond max({SCORE_ATOL}, accumulation bound) + 1 ulp")
     bad = torch.nonzero(~same).flatten()
     if len(bad):
         sub = {}
@@ -99,7 +125,8 @@ def compare(targets, raw, aff, m_rows, k, precision="highest", **masks):
             return torch.where(torch.isinf(s), -float("inf"), s).max(1).values
 
         worst_k, worst_p = worst(ik_s), worst(ip_s)
-        gap = float(((worst_k - worst_p) / worst_p.abs().clamp(min=1.0)).max())
+        row_slack = slack[bad].max(1).values
+        gap = float(((worst_k - worst_p - row_slack) / worst_p.abs().clamp(min=1.0)).max())
         check(gap <= TIE_RTOL, f"differing ids are not near-ties (gap {gap})")
         check(len(bad) <= 0.01 * targets.shape[0], f"{len(bad)} rows differ")
     return err, int(len(bad)), int(dead_k.sum())

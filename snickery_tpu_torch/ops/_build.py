@@ -8,7 +8,9 @@ compiled together into one shared library for ``sm_90a``::
 
 The library's file name carries a hash of the sources and flags, so a build
 from other sources is never loaded.  Only the sources in the package are
-built; nothing is fetched.  The library is loaded once per process.
+built; nothing is fetched.  The library is built and loaded once per
+process, under a lock: a server's batcher thread and its streaming handlers
+may reach the kernels first at the same time.
 """
 
 from __future__ import annotations
@@ -19,12 +21,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "snickery_tpu_torch_kernels"
+_LOCK = threading.Lock()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,9 +54,14 @@ def _nvcc() -> str:
     return found
 
 
-@functools.cache
 def kernel_library() -> KernelLibrary:
-    """Compile (if needed) and load the kernels of ``csrc/``."""
+    """Compile (if needed) and load the kernels of ``csrc/``; thread-safe."""
+    with _LOCK:
+        return _kernel_library()
+
+
+@functools.cache
+def _kernel_library() -> KernelLibrary:
     sources = sorted(CSRC_DIR.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")

@@ -2,10 +2,10 @@
 
 Counterpart of ``snickery_tpu/ops/pallas_topk.py::pallas_topk_preselect``
 in the forms the synthesis paths run (zero_transient=True,
-``select="stream"``): precision "highest" with or without the fused voice
-partition mask and the fused quinphone penalties, and the bf16-split
-precisions "split3" and "split3cat" without masks.  The CUDA C++ kernel
-lives in ``csrc/topk_preselect.cu``; its plain PyTorch twin
+``select="stream"``): precision "highest" and the bf16-split precisions
+"split3" and "split3cat", each with or without the fused voice partition
+mask and the fused quinphone penalties (twelve entry points).  The CUDA C++
+kernel lives in ``csrc/topk_preselect.cu``; its plain PyTorch twin
 :func:`topk_preselect_zt_plain` computes the same thing.
 
 Precisions (``pallas_topk._split3_dot``, ``_bf16_split``): "highest" forms
@@ -55,16 +55,17 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
 
-from snickery_tpu.const import ID_RANK_PENALTY
+from snickery_tpu_torch.const import ID_RANK_PENALTY
 from snickery_tpu_torch.ops.topk import smallest_k
 
 META_WIDTH = 8             # [code, ctx0..ctx4, voice id, 0] per row
 # one exported kernel entry point per (partition, linguistic) variant at
-# precision "highest", and one per split precision (no fused masks)
+# precision "highest", and the same four variants at each split precision
 KERNELS = {(False, False): "topk_preselect_zt",
            (True, False): "topk_preselect_zt_part",
            (False, True): "topk_preselect_zt_ling",
@@ -73,25 +74,28 @@ KERNEL = KERNELS[False, False]
 PRECISIONS = ("highest", "split3", "split3cat")   # kernel precision codes 0..2
 SPLIT_KERNELS = {"split3": "topk_preselect_zt_split3",
                  "split3cat": "topk_preselect_zt_split3cat"}
+_MASK_SUFFIX = {(False, False): "", (True, False): "_part", (False, True): "_ling",
+                (True, True): "_ling_part"}
 # launches of each hand-written kernel by its wrapper, for run reports
+# (updated under _LOCK: a server launches from several threads)
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
+_LOCK = threading.Lock()
 MAX_K = 64                 # list slots the kernel keeps per target
 _TARGET_CTAS_PER_SM = 4    # two resident CTAs per SM, two waves
 
 
 def kernel_name(partition: bool, linguistic: bool, precision: str = "highest") -> str:
-    """The kernel entry point of a variant; a split precision together with
-    a fused mask is not ported and raises NotImplementedError."""
+    """The kernel entry point (without its ``snk_`` prefix) of a variant."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; have {PRECISIONS}")
     if precision == "highest":
         return KERNELS[bool(partition), bool(linguistic)]
-    if partition or linguistic:
-        raise NotImplementedError(
-            f"precision {precision!r} with the fused partition / quinphone "
-            "masks: not ported to snickery_tpu_torch yet (see ROADMAP.md "
-            "queue 2 item 4.7)")
-    return SPLIT_KERNELS[precision]
+    return SPLIT_KERNELS[precision] + _MASK_SUFFIX[bool(partition), bool(linguistic)]
+
+
+# every entry point, in (precision, partition, linguistic) order
+ALL_KERNELS = tuple(kernel_name(p, ling, prec) for prec in PRECISIONS
+                    for p in (False, True) for ling in (False, True))
 
 
 def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -248,11 +252,18 @@ def topk_preselect_zt_plain(targets, raw_block, k, db_affine, m_rows, *,
     return torch.cat(out_i), torch.cat(out_v)
 
 
-@functools.cache
 def _kernel():
+    """The kernel library with its entry points typed, built at first use
+    (thread-safe)."""
+    with _LOCK:
+        return _bound_library()
+
+
+@functools.cache
+def _bound_library():
     from snickery_tpu_torch.ops._build import kernel_library
     lib = kernel_library().lib
-    for name in (*KERNELS.values(), *SPLIT_KERNELS.values()):
+    for name in ALL_KERNELS:
         fn = getattr(lib, "snk_" + name)
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float] * 5
                        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
@@ -281,8 +292,7 @@ def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
                         tgt_meta=None, db_meta=None, partition=False,
                         ling_weights=None, precision: str = "highest"):
     """Top-k DB rows per target, zero-transient form: exact at precision
-    "highest", ranked by the bf16-split products at "split3" / "split3cat"
-    (no fused masks there: NotImplementedError).
+    "highest", ranked by the bf16-split products at "split3" / "split3cat".
 
     ``targets`` (T, kd) f32: normalised, weighted target rows.
     ``raw_block`` (q, kd + 2) f32: the resident ``[data | sqn | ptr]`` block.
@@ -332,5 +342,6 @@ def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
         stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
-    LAUNCH_COUNTS[name] += 1
+    with _LOCK:
+        LAUNCH_COUNTS[name] += 1
     return out_i, out_v

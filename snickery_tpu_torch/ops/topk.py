@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from snickery_tpu.const import (BIG_PENALTY, ID_RANK_PENALTY, PRESELECT_MARGIN,
+from snickery_tpu_torch.const import (BIG_PENALTY, ID_RANK_PENALTY, PRESELECT_MARGIN,
                                 PRESELECT_MARGIN_SPLIT3CAT,
                                 QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE)
 from snickery_tpu_torch.voicedb.device_layout import affine_rows

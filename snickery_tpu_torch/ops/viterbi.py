@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from snickery_tpu.const import BIG_PENALTY
+from snickery_tpu_torch.const import BIG_PENALTY
 
 
 def _f32(x, device) -> torch.Tensor:

@@ -4,9 +4,10 @@ Counterpart of ``snickery_tpu.synth`` for epoch-unit voices (BASELINE
 config #3), halfphone voices (#2), merged multi-voice DBs (#5), merged
 halfphone voices and streaming synthesis (#4): normalise and weight the
 targets, preselect the top k + margin over the whole DB with the
-hand-written kernel (zero-transient form; at precision "highest" with the
-quinphone penalties fused for halfphone voices and the voice partition mask
-for merged DBs, or ranked by bf16-split products at "split3" / "split3cat"),
+hand-written kernel (zero-transient form, exact at precision "highest" or
+ranked by bf16-split products at "split3" / "split3cat", at each precision
+with the quinphone penalties fused for halfphone voices and the voice
+partition mask for merged DBs),
 rescore the candidates in exact f32 and keep the top k in canonical
 (score, unit id) order (halfphone voices rank by the exact squared distance
 plus penalties and mask identity fallbacks in the lattice), gather join
@@ -19,9 +20,9 @@ The device is an explicit argument.  ``device="cuda"`` runs the CUDA kernel
 and raises where CUDA is absent; ``device="cpu"`` runs the kernel's plain
 PyTorch twin.  Nothing falls back from one to the other.
 
-Not ported yet (each raises NotImplementedError; see ROADMAP.md): a split
-precision together with a fused mask (halfphone quinphone preselection or a
-merged DB), multi-device meshes and magphase resynthesis.
+Not ported yet (each raises NotImplementedError; see ROADMAP.md): the
+derived DB operand (config ``zero_transient: 0``), multi-device meshes and
+magphase resynthesis.
 """
 
 from __future__ import annotations
@@ -34,12 +35,11 @@ from dataclasses import dataclass, field, fields
 import numpy as np
 import torch
 
-from snickery_tpu import utils
-from snickery_tpu.config import SnickeryConfig
-from snickery_tpu.voicedb.db import VoiceDB
-from snickery_tpu.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
-from snickery_tpu_torch.ops.cuda_topk import (PRECISIONS, cuda_topk_preselect,
-                                              kernel_name, pack_meta)
+from snickery_tpu_torch import utils
+from snickery_tpu_torch.config import SnickeryConfig
+from snickery_tpu_torch.voicedb.db import VoiceDB
+from snickery_tpu_torch.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
+from snickery_tpu_torch.ops.cuda_topk import PRECISIONS, cuda_topk_preselect, pack_meta
 from snickery_tpu_torch.ops.ola import host_overlap_add, overlap_add_units
 from snickery_tpu_torch.ops.topk import (halfphone_exact_rank,
                                          halfphone_lattice_mask,
@@ -368,15 +368,20 @@ class Synthesiser:
             self._prepare_device_db()
 
     def _check_supported(self) -> None:
-        """Refuse what the port does not serve yet: meshes, and a split
-        precision with a fused mask (the kernel variant does not exist)."""
+        """Refuse what the port does not serve yet: meshes, and the derived
+        DB operand that ``zero_transient: 0`` asks the JAX package for (the
+        port's kernel always reads the resident raw block)."""
         cfg = self.cfg
         if max(1, cfg.mesh_data) * max(1, cfg.mesh_db) > 1:
             raise NotImplementedError(f"multi-device meshes: {_TODO}")
+        if cfg.zero_transient == 0:
+            raise NotImplementedError(
+                "zero_transient: 0 (the derived DB operand with a separate sqn): "
+                "not ported to snickery_tpu_torch yet (see ROADMAP.md queue 2 "
+                "item 4.5); the port runs the zero-transient kernel (-1 or 1)")
         if cfg.preselect_precision not in PRECISIONS:
             raise ValueError(f"preselect_precision={cfg.preselect_precision!r}; "
                              f"have {PRECISIONS}")
-        kernel_name(self.is_multivoice, self._use_ling(), cfg.preselect_precision)
 
     # ------------------------------------------------------------------ setup
     def _prepare_device_db(self) -> None:
@@ -519,8 +524,8 @@ class Synthesiser:
         epoch-rate trajectory and the target's halfphone segmentation, with
         the DB builder's frame-picking rule; returns (targets, kept
         segments)."""
-        from snickery_tpu.io.labels import segments_to_sample_bounds
-        from snickery_tpu.voicedb.build import halfphone_frame_indices
+        from snickery_tpu_torch.io.labels import segments_to_sample_bounds
+        from snickery_tpu_torch.voicedb.build import halfphone_frame_indices
 
         bounds = segments_to_sample_bounds(segments, self.cfg.sample_rate)
         rows, kept = [], []

@@ -13,8 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from snickery_tpu.io.labels import HalfphoneSegment
-from snickery_tpu.voicedb.build import UtteranceData
+from snickery_tpu_torch.io.labels import HalfphoneSegment
+from snickery_tpu_torch.voicedb.build import UtteranceData
 
 SR = 16000
 DATADIMS = {"mag": 60, "real": 45, "imag": 45, "lf0": 1}

@@ -1,7 +1,7 @@
-"""The port on a CUDA card: the preselect kernel (its masked and its
-split-precision variants) against its plain twin, and the synthesiser on the
-card against the same synthesiser on the CPU, for epoch, halfphone and
-merged voices, at the split3cat precision, and streaming.
+"""The port on a CUDA card: the preselect kernel (its masked variants, its
+split-precision variants and the two composed) against its plain twin, and
+the synthesiser on the card against the same synthesiser on the CPU, for
+epoch, halfphone and merged voices, at the split precisions, and streaming.
 
 Marked ``cuda``; each test skips where no card is visible.  This file
 imports no jax, so it also runs on a GPU host without jax, where the
@@ -14,11 +14,11 @@ import numpy as np
 import pytest
 import torch
 
-from snickery_tpu.config import SnickeryConfig
-from snickery_tpu.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
-from snickery_tpu.voicedb.build import UtteranceData, build_voicedb
-from snickery_tpu.voicedb.device_layout import build_raw_blocks
-from snickery_tpu.voicedb.multivoice import merge_voicedbs
+from snickery_tpu_torch.config import SnickeryConfig
+from snickery_tpu_torch.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
+from snickery_tpu_torch.voicedb.build import UtteranceData, build_voicedb
+from snickery_tpu_torch.voicedb.device_layout import build_raw_blocks
+from snickery_tpu_torch.voicedb.multivoice import merge_voicedbs
 from snickery_tpu_torch.kernel_check import PROBE_RTOL, compare, split_probe_error
 from snickery_tpu_torch.ops import cuda_topk
 from snickery_tpu_torch.ops.cuda_topk import (cuda_topk_preselect, pack_meta,
@@ -211,6 +211,82 @@ def test_split_kernel_matches_plain(cuda_device, precision, k, T, M):
     before = cuda_topk.LAUNCH_COUNTS[name]
     compare(tg, R, A, M, k, precision)
     assert cuda_topk.LAUNCH_COUNTS[name] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("precision,k", [("split3cat", 48), ("split3", 40)])
+@pytest.mark.parametrize("T,M,kd", [(300, 8229, KD), (2048, 65536, 3 * KD)])
+def test_split_masked_kernel_matches_plain(cuda_device, variant, precision, k, T, M, kd):
+    """The six split x mask entry points against the twin on the same card
+    tensors, with duplicated rows, a voice of k // 2 rows (starved slots
+    (+inf, 0)), a voice of none and a code no row carries: the rule of
+    kernel_check.compare (scores within max(1e-3, the tensor cores'
+    accumulation bound) + 1 ulp, near-ties judged in float64 on the three
+    bf16 products plus the penalties)."""
+    partition, weights = VARIANTS[variant]
+    rng, raw, aff = _block(T + M + kd + k, M, True, kd)
+    tc = rng.integers(0, 80, T).astype(np.int32)
+    tc[:16] = 80
+    tv = rng.integers(0, 7, T).astype(np.int32)
+    tv[16:48], tv[48:56] = 7, 9
+    dv = rng.integers(0, 7, M).astype(np.int32)
+    dv[rng.choice(M, k // 2, replace=False)] = 7
+    D = lambda a: torch.from_numpy(a).to(cuda_device)
+    tm = pack_meta(D(tc), D(rng.integers(0, 40, (T, 5)).astype(np.int32)), D(tv))
+    dm = pack_meta(D(rng.integers(0, 80, M).astype(np.int32)),
+                   D(rng.integers(0, 40, (M, 5)).astype(np.int32)), D(dv))
+    tg = D(rng.standard_normal((T, kd)).astype(np.float32))
+    name = cuda_topk.kernel_name(partition, weights is not None, precision)
+    assert name == f"topk_preselect_zt_{precision}_{variant}"
+    before = cuda_topk.LAUNCH_COUNTS[name]
+    _, _, dead = compare(tg, D(raw), tuple(map(D, aff)), M, k, precision, tgt_meta=tm,
+                         db_meta=dm, partition=partition, ling_weights=weights)
+    assert cuda_topk.LAUNCH_COUNTS[name] == before + 1
+    if partition:
+        assert dead == 32 * (k - k // 2) + 8 * k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["split3cat", "split3"])
+@pytest.mark.parametrize("kind", ["halfphone", "merged_halfphone", "merged_epoch"])
+def test_split_masked_synthesiser_on_card_matches_cpu(cuda_device, kind, precision):
+    """Halfphone and merged voices at a split precision: the whole step on
+    the card, through the split x mask variant the voice needs, gives the CPU
+    path's ids and audio (atol 1e-5): the rank margin and the exact f32
+    rescore absorb the kernel's rounding."""
+    cfg = SnickeryConfig(
+        stream_list=["mag", "real", "imag", "lf0"],
+        datadims={"mag": 60, "real": 45, "imag": 45, "lf0": 1},
+        n_candidates=20, taper_length=50, join_cost_weight=0.7,
+        length_buckets=[128, 256], preselect_precision=precision,
+        target_representation="epoch" if kind == "merged_epoch" else "halfphone")
+    dbs, held, feats, segs = [], [], [], None
+    for v in range(1 if kind == "halfphone" else 2):
+        if kind == "merged_epoch":
+            dbs.append(build_voicedb(cfg, _utterances(40 + v, 12, 202)))
+            feats += [u.features for u in _utterances(50 + v, 2, 150)]
+        else:
+            rng, means = np.random.default_rng(60 + v), phone_means(70 + v)
+            dbs.append(build_voicedb(cfg, make_halfphone_utterances(rng, 30, 40, f"c{v}", means)))
+            held += make_halfphone_utterances(rng, 2, 40, f"h{v}", means)
+    db = dbs[0] if kind == "halfphone" else merge_voicedbs(dbs, names=["a", "b"])
+    voices = None if kind == "halfphone" else ["a", "a", "b", "b"]
+    gpu, cpu = Synthesiser(cfg, db, device=cuda_device), Synthesiser(cfg, db, device="cpu")
+    if held:
+        tgts = [gpu.halfphone_targets_from_features(u.features, u.epochs, u.halfphones)
+                for u in held]
+        feats, segs = [t for t, _ in tgts], [s for _, s in tgts]
+    name = cuda_topk.kernel_name(kind != "halfphone", kind != "merged_epoch", precision)
+    before = cuda_topk.LAUNCH_COUNTS[name]
+    out_g = gpu.synth_batch(feats, voices=voices, segments_list=segs)
+    assert cuda_topk.LAUNCH_COUNTS[name] == before + 1
+    out_c = cpu.synth_batch(feats, voices=voices, segments_list=segs)
+    for i, (g, c) in enumerate(zip(out_g, out_c)):
+        np.testing.assert_array_equal(g["unit_ids"], c["unit_ids"])
+        np.testing.assert_allclose(g["wave"], c["wave"], atol=1e-5)
+        if voices:
+            assert (db.voice_ids[g["unit_ids"]] == gpu._voice_code(voices[i])).all()
 
 
 @pytest.mark.cuda

@@ -188,22 +188,29 @@ def test_split_bf16_rounds_like_jax():
 
 
 def test_split_precision_with_masks_raises():
-    """A split precision with a fused mask is not ported: the wrapper and
-    the kernel-name lookup raise NotImplementedError naming ROADMAP; an
-    unknown precision is a ValueError."""
+    """A split precision composes with the fused masks: the wrapper runs
+    (on the CPU, the twin) and each variant has its own entry point, twelve
+    in all; what still raises is an unknown precision (ValueError) and a
+    fused mask without its metadata rows."""
     rng, raw, aff = _block(4, 1000, 1024, 24, False)
     tg = torch.from_numpy(rng.standard_normal((10, 24)).astype(np.float32))
     meta = torch.zeros((1024, cuda_topk.META_WIDTH), dtype=torch.int32)
+    args = (tg, torch.from_numpy(raw), 8, tuple(map(torch.from_numpy, aff)), 1024)
     for partition, weights in ((True, None), (False, (1.0, 10.0, 0.0, 10.0, 1.0, 100.0))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cuda_topk_preselect(tg, torch.from_numpy(raw), 8,
-                                tuple(map(torch.from_numpy, aff)), 1024,
-                                tgt_meta=meta[:10], db_meta=meta, partition=partition,
-                                ling_weights=weights, precision="split3cat")
+        ids, scores = cuda_topk_preselect(*args, tgt_meta=meta[:10], db_meta=meta,
+                                          partition=partition, ling_weights=weights,
+                                          precision="split3cat")
+        assert ids.shape == scores.shape == (10, 8) and bool(torch.isfinite(scores).all())
+        with pytest.raises(ValueError, match="tgt_meta and db_meta"):
+            cuda_topk_preselect(*args, partition=partition, ling_weights=weights,
+                                precision="split3")
     with pytest.raises(ValueError, match="precision"):
         cuda_topk.kernel_name(False, False, "bf16")
     assert {cuda_topk.kernel_name(False, False, p) for p in SPLITS} == set(
         cuda_topk.SPLIT_KERNELS.values())
+    names = {cuda_topk.kernel_name(p, q, prec) for prec in cuda_topk.PRECISIONS
+             for p in (False, True) for q in (False, True)}
+    assert names == set(cuda_topk.ALL_KERNELS) and len(names) == 12
 
 
 # ----------------------------------------------------- the Synthesiser paths

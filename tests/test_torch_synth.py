@@ -173,13 +173,12 @@ def test_cuda_device_raises_without_cuda(voices, monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    {"preselect_precision": "split3cat", "voice": "halfphone"}, {"mesh_db": 2},
-    {"preselect_precision": "split3", "voice": "merged_epoch"},
+    {"zero_transient": 0}, {"mesh_db": 2}, {"mesh_data": 2},
     {"entry": "resynth_magphase"}])
 def test_unported_modes_raise(voices, override):
     """What the port does not serve yet raises NotImplementedError naming
-    ROADMAP: meshes, a split precision with the quinphone penalties of a
-    halfphone voice or the partition mask of a merged DB, magphase."""
+    ROADMAP: the derived DB operand (``zero_transient: 0``), meshes,
+    magphase."""
     cfg, db, *_ = voices
     override = dict(override)
     kind, entry = override.pop("voice", None), override.pop("entry", None)
@@ -214,7 +213,8 @@ def test_unported_entry_points_raise(voices):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports with jax blocked, and none names it."""
+    """Every module of the port, and chip_smoke.py, imports with jax and the
+    JAX package (snickery_tpu) blocked, and neither ends up loaded."""
     pkg = Path(__file__).resolve().parents[1] / "snickery_tpu_torch"
     modules = sorted("snickery_tpu_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
                      for p in pkg.rglob("*.py") if p.name != "__init__.py")
@@ -222,15 +222,19 @@ def test_port_imports_without_jax():
         assert "import jax" not in p.read_text(), p
     code = (
         "import sys\n"
+        "def blocked(name):\n"
+        "    return (name in ('jax', 'jaxlib', 'snickery_tpu')\n"
+        "            or name.startswith(('jax.', 'jaxlib.', 'snickery_tpu.')))\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name == 'jax' or name.startswith(('jax.', 'jaxlib')):\n"
-        "            raise ImportError('jax is blocked')\n"
+        "        if blocked(name):\n"
+        "            raise ImportError(f'{name} is blocked')\n"
         "sys.meta_path.insert(0, Block())\n"
         "import importlib, snickery_tpu_torch\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "snickery_tpu_torch.Synthesiser\n"
-        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules)\n")
+        "import chip_smoke\n"
+        "assert not any(blocked(m) for m in sys.modules), sorted(m for m in sys.modules if blocked(m))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=pkg.parent)
     assert res.returncode == 0, res.stderr
