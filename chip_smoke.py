@@ -79,7 +79,26 @@ Phases, each timed, any failure ending the run with a non-zero exit:
     --voice v3 --dump-units`` in a subprocess at synth_batch 8 and
     split3cat; its units.npy must equal a direct synth_batch;
 17. the server on the two merged 50,000-unit halfphone voices at split3cat
-    with voices and segments, then one step at split3.
+    with voices and segments, then one step at split3;
+18. the derived operand (config ``zero_transient: 0``): its twelve entry
+    points against their twins at kd 151 and 453, T in {128, 2048, 300} x
+    M in {8192, 65536, 8229}, with duplicated rows, 37 padding rows that
+    must never be selected, starved voices and codes no row carries (this
+    check runs with phases 3, 4, 9 and 13);
+19. config 3 at ``zero_transient: 0``: ``synth_batch`` B = 32 x 2048 at
+    "highest" (k = n_candidates, no margin) and at split3cat (the pre-split
+    operand), each with its stage split (``derive`` included), the kernel
+    against its twin, the held-out utterance against the float64 oracle
+    and agreement with phase 5's batch; one epoch-rate config-4 stream at
+    split3cat (exact totals, streamed vs greedy ids); a B = 8 step at
+    split3;
+20. one ``synth_batch`` step at ``zero_transient: 0`` at each precision on
+    the config-2 voice (identity match, f64 gap), the config-5 voice (no
+    leaks, agreement with phase 7) and the merged 50,000-unit halfphone
+    voices, so that every masked derived entry point runs on a main path;
+21. the server on the config-5 voice at ``zero_transient: 0`` and
+    split3cat: 16 concurrent ``POST /synth``, ids equal to direct calls,
+    no leaks.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after; the kernel it needs must have launched.  Standard output ends
@@ -115,7 +134,9 @@ T_BUCKET = 2048
 HP_UTTS = 625            # config 2: 625 x 80 = 50,000 halfphone units
 MV_EPOCHS = [351] * 93 + [313]   # config 5: 32,768 units a voice, 8 voices
 COMP_UTTS = 60           # composition: 4,800 halfphone units a voice
-KERNEL_SOURCE = "snickery_tpu_torch/csrc/topk_preselect.cu"
+# the entry points' sources (both include csrc/topk_preselect.cuh)
+KERNEL_SOURCES = {True: "snickery_tpu_torch/csrc/topk_preselect.cu",
+                  False: "snickery_tpu_torch/csrc/topk_derived.cu"}
 REPLACES = {
     "topk_preselect_zt": "snickery_tpu/ops/pallas_topk.py:904",
     "topk_preselect_zt_part": "snickery_tpu/ops/pallas_topk.py:904 (+:187-191)",
@@ -130,6 +151,13 @@ REPLACES = {
     "topk_preselect_zt_split3_ling": "snickery_tpu/ops/pallas_topk.py:904 (+:77-93, :156-157, :192-208)",
     "topk_preselect_zt_split3_ling_part": "snickery_tpu/ops/pallas_topk.py:904 (+:77-93, :156-157, :187-208)",
 }
+# the derived-operand form (zero_transient=False, :795-811): the same lines
+# plus the derivation, and split3cat_db (:112-125) for the pre-split operand
+REPLACES.update({
+    name.replace("_zt", "_dv", 1): line.replace(
+        "(+", "(+:795-811, " + (":112-125, " if "split3cat" in name else ""), 1)
+    if "(+" in line else line + " (+:795-811)"
+    for name, line in REPLACES.items()})
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W): FP32
 # outside the tensor cores for "highest", bf16 tensor cores for the splits
 PEAK_FLOPS = {"highest": 67e12, "split3": 989e12, "split3cat": 989e12}
@@ -180,16 +208,21 @@ def synthetic_block(rng, m: int, kd: int, dup: bool):
     return raw, (mean, std, w)
 
 
-def bound_ms(T: int, m_rows: int, kd: int, k: int, precision: str, masked: bool):
+def bound_ms(T: int, m_rows: int, kd: int, k: int, precision: str, masked: bool,
+             row_bytes: float | None = None):
     """(least time in ms, "operations" or "bytes") the card could take for
     one preselect call: 2 T m_rows kd FLOP per product (three bf16 products
     at a split precision) at the peak rate of its type, against the bytes
-    the call must move (targets, the raw block's data and sqn columns, the
-    metadata rows when masked, each read once; the (T, k) scores and ids
-    written once) at HBM bandwidth.  The mask compares are integer work
-    beside the kd products of each score and are not counted."""
+    the call must move (targets; each DB row's data and its sqn, ``row_bytes``
+    a row, by default 4 (kd + 1): the raw block's data and sqn columns or
+    the derived f32 operand and its sqn; the metadata rows when masked; each
+    read once; the (T, k) scores and ids written once) at HBM bandwidth.
+    The mask compares are integer work beside the kd products of each score
+    and are not counted."""
     flops = 2.0 * T * m_rows * kd * (1 if precision == "highest" else 3)
-    nbytes = 4.0 * (T * kd + m_rows * (kd + 1) + 2 * T * k)
+    if row_bytes is None:
+        row_bytes = 4.0 * (kd + 1)
+    nbytes = 4.0 * (T * kd + 2 * T * k) + m_rows * row_bytes
     if masked:
         nbytes += 32.0 * (T + m_rows)
     t_ops, t_bytes = flops / PEAK_FLOPS[precision], nbytes / HBM_BYTES_PER_S
@@ -201,18 +234,23 @@ def matmul_ms(torch, x, rows, precision: str) -> float:
     and DB rows (m, kd), as torch.matmul computes it at the same precision:
     f32 (no TF32) at "highest"; at a split precision bf16 operands with f32
     accumulation, one matmul over the 3 kd pairs (split3cat) or three
-    (split3).  Chunked over the DB so each output stays within 1 GiB.  A
-    yardstick only: no PyTorch call fuses the product with an exact top-k,
-    and the port never calls this."""
+    (split3); bf16 ``rows`` are a pre-split operand (m, 2 kp) whose halves
+    are used as they are.  Chunked over the DB so each output stays within
+    1 GiB.  A yardstick only: no PyTorch call fuses the product with an
+    exact top-k, and the port never calls this."""
     from snickery_tpu_torch.ops.cuda_topk import split_bf16
-    T = x.shape[0]
+    T, kd = x.shape
     step = max(64, (1 << 28) // T)
     if precision == "highest":
         pairs = [(x, rows)]
     else:
         bf = torch.bfloat16
         th, tl = (a.to(bf) for a in split_bf16(x))
-        rh, rl = (a.to(bf) for a in split_bf16(rows.contiguous()))
+        if rows.dtype == bf:
+            kp = rows.shape[1] // 2
+            rh, rl = rows[:, :kd].contiguous(), rows[:, kp:kp + kd].contiguous()
+        else:
+            rh, rl = (a.to(bf) for a in split_bf16(rows.contiguous()))
         if precision == "split3cat":
             pairs = [(torch.cat([th, tl, th], 1), torch.cat([rh, rh, rl], 1))]
         else:
@@ -309,6 +347,52 @@ def split_masked_variants_synthetic(torch) -> dict:
                               f"starved slots missing ({dead})")
                     log(f"{name} vs plain T={T} M={M} kd={kd} k={k} dup=True: max_abs_err "
                         f"{err:.3e}, near-tie id swaps {nbad}, dead slots {dead}")
+    return errs
+
+
+def derived_variants_synthetic(torch) -> dict:
+    """The twelve derived-operand entry points against their twins at kd 151
+    and 453, T in {128, 2048, 300} x M in {8192, 65536, 8229}, with
+    duplicated rows, the last 37 rows padding (n_real < m_rows: never
+    selected), starved voices and codes no row carries; returns {kernel
+    name: max_abs_err}."""
+    from snickery_tpu_torch.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
+    from snickery_tpu_torch.ops.cuda_topk import derive_operand, kernel_name, pack_meta
+    from snickery_tpu_torch.synth import BACKOFF_LING_WEIGHTS
+    dev = torch.device("cuda")
+    errs = {}
+    variants = [(False, None), (True, None),
+                (False, (*QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE)),
+                (True, BACKOFF_LING_WEIGHTS)]
+    for kd in (KD, 3 * KD):
+        for T, M in ((128, 8192), (2048, 65536), (300, 8192 + 37)):
+            rng = np.random.default_rng(11 * kd + T)
+            raw_np, aff_np = synthetic_block(rng, M, kd, True)
+            n_real = M - 37
+            raw = torch.from_numpy(raw_np).to(dev)
+            aff = tuple(torch.from_numpy(a).to(dev) for a in aff_np)
+            tg = torch.from_numpy(rng.standard_normal((T, kd), dtype=np.float32)).to(dev)
+            for precision, k in (("highest", 30), ("split3", 40), ("split3cat", 48)):
+                op, sqn = derive_operand(raw, aff, n_real, M, precision)
+                tc, tx, tv, dc, dx, dv = synthetic_labels(rng, T, M, k)
+                dc[n_real:], dx[n_real:], dv[n_real:] = -1, -1, -1
+                tc, tx, tv, dc, dx, dv = (torch.from_numpy(a).to(dev)
+                                          for a in (tc, tx, tv, dc, dx, dv))
+                meta = dict(tgt_meta=pack_meta(tc, tx, tv), db_meta=pack_meta(dc, dx, dv))
+                for partition, weights in variants:
+                    name = kernel_name(partition, weights is not None, precision, False)
+                    kw = (dict(meta, partition=partition, ling_weights=weights)
+                          if partition or weights else {})
+                    err, nbad, dead = compare(tg, op, None, M, k, precision, sqn=sqn,
+                                              n_real=n_real, **kw)
+                    errs[name] = max(errs.get(name, 0.0), err)
+                    if partition:
+                        check(dead >= 32 * (k - k // 2) + 8 * k,
+                              f"starved slots missing ({dead})")
+                    log(f"{name} vs plain T={T} M={M} (n_real {n_real}) kd={kd} k={k} "
+                        f"dup=True: max_abs_err {err:.3e}, near-tie id swaps {nbad}, "
+                        f"dead slots {dead}")
+                del op, sqn
     return errs
 
 
@@ -442,10 +526,15 @@ class Run:
 
     def kernel_at(self, kernel, synth, tgts, kwargs, T_list, report=True):
         """The kernel against its twin, and both timed, at the main path's
-        shapes (with ``report``, the last of ``T_list`` is the shape whose
-        times, bound and matmul yardstick the kernels line reports)."""
-        from snickery_tpu_torch.ops.cuda_topk import topk_preselect_zt_plain
-        from snickery_tpu_torch.ops.topk import preselect_margin
+        shapes, in the operand form the step's ``zero_transient`` picks (the
+        derived operand is made once, as the step makes it, and its
+        derivation timed); with ``report``, the last of ``T_list`` is the
+        shape whose times, bound and matmul yardstick the kernels line
+        reports."""
+        from snickery_tpu_torch.ops.cuda_topk import (derive_operand,
+                                                      topk_preselect_dv_plain,
+                                                      topk_preselect_zt_plain)
+        from snickery_tpu_torch.ops.topk import preselect_margin, resolve_zero_transient
         from snickery_tpu_torch.synth import fused_masks
         torch, d = self.torch, synth.device_db
         aff = (d.mean_t, d.std_t, d.sqrt_wt)
@@ -453,26 +542,49 @@ class Run:
         tw = ((tgts - d.mean_t) / d.std_t * d.sqrt_wt).reshape(-1, kd).contiguous()
         m_rows = d.cut1.shape[0]
         precision = kwargs["precision"]
-        k = min(kwargs["n_cand"] + preselect_margin(True, precision, zero_transient=True,
+        zt = resolve_zero_transient(kwargs["zero_transient"], precision)
+        k = min(kwargs["n_cand"] + preselect_margin(True, precision, zero_transient=zt,
                                                     override=kwargs["margin"]), m_rows)
         masks = fused_masks(d, kwargs["tgt_codes"], kwargs["tgt_ctx"], kwargs["tgt_vids"],
                             halfphone=kwargs["halfphone"], multivoice=kwargs["multivoice"],
                             ling_weights=kwargs["ling_weights"])
+        want = self.cuda_topk.kernel_name(masks.get("partition", False),
+                                          masks.get("ling_weights") is not None, precision, zt)
+        check(want == kernel, f"the step runs {want}, not {kernel}")
+        if zt:
+            block, block_aff, sqn, row_bytes = d.raw, aff, None, None
+            plain = topk_preselect_zt_plain
+            db_rows = d.raw[:m_rows, :kd]
+        else:
+            derive_ms = time_ms(torch, lambda: derive_operand(d.raw, aff, d.n_real, m_rows,
+                                                              precision), 3)
+            block, sqn = derive_operand(d.raw, aff, d.n_real, m_rows, precision)
+            block_aff, row_bytes, db_rows = None, block.shape[1] * block.element_size() + 4, block
+
+            def plain(x, blk, k, _aff, m_rows, **kw):
+                return topk_preselect_dv_plain(x, blk, sqn, k, m_rows, **kw)
+            log(f"{kernel}: derive_operand M={m_rows} kd={kd} {precision}: {derive_ms:.2f} ms, "
+                f"operand {block.nbytes / 1e6:.1f} MB ({tuple(block.shape)} {block.dtype})")
         for T in T_list:
             x = tw[:T].contiguous()
             m = dict(masks, tgt_meta=masks["tgt_meta"][:T].contiguous()) if masks else {}
-            err, nbad, dead = compare(x, d.raw, aff, m_rows, k, precision, **m)
+            # (with the partition mask, a step past an utterance's end has
+            # voice id -1, as padding rows have, and may pick them)
+            err, nbad, dead = compare(
+                x, block, block_aff, m_rows, k, precision, sqn=sqn,
+                n_real=None if m.get("partition") else int(d.n_real), **m)
             self.errs[kernel] = max(self.errs.get(kernel, 0.0), err)
             ms = time_ms(torch, lambda: self.cuda_topk.cuda_topk_preselect(
-                x, d.raw, k, aff, m_rows, precision=precision, **m), 3)
-            plain_ms = time_ms(torch, lambda: topk_preselect_zt_plain(
-                x, d.raw, k, aff, m_rows, precision=precision, **m), 1)
-            b_ms, b_by = bound_ms(T, m_rows, kd, k, precision, bool(masks))
+                x, block, k, block_aff, m_rows, precision=precision, zero_transient=zt,
+                sqn=sqn, **m), 3)
+            plain_ms = time_ms(torch, lambda: plain(x, block, k, block_aff, m_rows,
+                                                    precision=precision, **m), 1)
+            b_ms, b_by = bound_ms(T, m_rows, kd, k, precision, bool(masks), row_bytes)
             msg = ""
             if report:
                 self.times[kernel] = (ms, plain_ms)
                 self.bounds[kernel] = (b_ms, b_by)
-                self.matmul[kernel] = matmul_ms(torch, x, d.raw[:m_rows, :kd], precision)
+                self.matmul[kernel] = matmul_ms(torch, x, db_rows, precision)
                 msg = f", torch.matmul of the product alone {self.matmul[kernel]:.2f} ms"
             log(f"{kernel} T={T} M={m_rows} kd={kd} k={k}: kernel {ms:.2f} ms, plain "
                 f"{plain_ms:.2f} ms, bound {b_ms:.3f} ms ({b_by}){msg}, max_abs_err "
@@ -642,6 +754,74 @@ def config3_split3cat(run: Run, db, held, short, out_highest):
     config4_checks(run, synth, held[0], ids)
 
 
+def config3_derived(run: Run, db, held, short, out_highest):
+    """Config 3 at ``zero_transient: 0`` (the derived operand): B = 32 x 2048
+    at "highest" (k = n_candidates, no margin) and at split3cat, each with
+    its stage split (derive included), the kernel against its twin, the
+    held-out utterance against the float64 oracle and agreement with the
+    zero-transient "highest" batch; one config-4 stream at split3cat; one
+    B = 8 step at split3."""
+    torch = run.torch
+    from snickery_tpu_torch import Synthesiser
+
+    feats = [u.features for u in held[:32]]
+    ids_h = np.concatenate([r["unit_ids"] for r in out_highest])
+    for precision in ("highest", "split3cat"):
+        kernel = run.cuda_topk.kernel_name(False, False, precision, zero_transient=False)
+        label = f"config-3 zero_transient 0 {precision}"
+        cfg = smoke_config(length_buckets=[64, T_BUCKET], preselect_precision=precision,
+                           zero_transient=0)
+        with Phase(f"{label} Synthesiser(device='cuda')"):
+            synth = Synthesiser(cfg, db=db, device="cuda")
+            torch.cuda.synchronize()
+
+        def drive():
+            with Phase(f"{label} main path: synth_batch B=32 x T={T_BUCKET}"):
+                out = timed_batch(torch, synth, 2, feats)
+                for res in out:
+                    check_result(db, res)
+            return out
+
+        out = run.main_path(label, kernel, drive)
+        raw, adj = tie_adjusted_agreement(
+            db, np.concatenate([r["unit_ids"] for r in out]), ids_h)
+        log(f"{label} vs the zero-transient highest batch over {ids_h.size} units: "
+            f"raw {raw:.5f}, tie-adjusted {adj:.5f}")
+        check(adj >= 0.999, f"{label}: tie-adjusted agreement with highest {adj} < 0.999")
+        tgts, lengths, kwargs = synth.batch_inputs([synth.targets_from_features(f)
+                                                    for f in feats])
+        stage_split(f"{label} B=32", synth, tgts, lengths, kwargs)
+        with Phase(f"{label} kernel vs plain at main-path shapes"):
+            run.kernel_at(kernel, synth, tgts, kwargs, (T_BUCKET, 32 * T_BUCKET))
+        with Phase(f"{label} held-out utterance vs float64 oracle (full DB)"):
+            agree, gap = oracle_check(db, synth, short.features, label)
+            check(agree >= 0.99, f"{label}: oracle agreement {agree} < 0.99")
+            check(gap <= 1e-4, f"{label}: f64 path-cost gap {gap} > 1e-4")
+        if precision == "split3cat":
+            ids = run.main_path("config 4 zero_transient 0", kernel,
+                                lambda: config4(db, synth, held[0], ("epoch-rate",)))
+            config4_checks(run, synth, held[0], ids, kernel)
+        del synth
+        torch.cuda.empty_cache()
+    label = "config-3 zero_transient 0 split3"
+    synth = Synthesiser(smoke_config(length_buckets=[T_BUCKET], preselect_precision="split3",
+                                     zero_transient=0), db=db, device="cuda")
+
+    def drive8():
+        with Phase(f"{label} main path: synth_batch B=8 x T={T_BUCKET}"):
+            return timed_batch(torch, synth, 1, feats[:8])
+
+    kernel = "topk_preselect_dv_split3"
+    out = run.main_path(label, kernel, drive8)
+    raw, adj = tie_adjusted_agreement(db, np.concatenate([r["unit_ids"] for r in out]),
+                                      ids_h[:8 * T_BUCKET])
+    log(f"{label} vs the zero-transient highest batch: raw {raw:.5f}, tie-adjusted {adj:.5f}")
+    check(adj >= 0.999, f"{label}: tie-adjusted agreement with highest {adj} < 0.999")
+    tgts, _, kwargs = synth.batch_inputs([synth.targets_from_features(f) for f in feats[:8]])
+    with Phase(f"{label} kernel vs plain at main-path shape"):
+        run.kernel_at(kernel, synth, tgts, kwargs, (8 * T_BUCKET,))
+
+
 def drive_stream(synth, chunks, **kw):
     """One streaming pass: (per-chunk ms to each yielded piece, wall s,
     the pieces), as ``bench.py::_drive_stream`` times it."""
@@ -659,10 +839,10 @@ def drive_stream(synth, chunks, **kw):
     return np.asarray(times), time.perf_counter() - t_all, pieces
 
 
-def config4(db, synth, utt):
+def config4(db, synth, utt, rates=("fixed-rate", "epoch-rate")):
     """Streaming on the config-3 voice at split3cat: fixed-rate 5 ms frames
-    and epoch-rate units, chunks of STREAM_CHUNK, bucket 64; returns the
-    epoch-rate stream's unit ids."""
+    and (or only) epoch-rate units, chunks of STREAM_CHUNK, bucket 64;
+    returns the last stream's unit ids."""
     from snickery_tpu_torch.features.world import resample_to_fixed
 
     fs, taper = 0.005, synth.cfg.taper_length
@@ -673,7 +853,8 @@ def config4(db, synth, utt):
 
     inputs = {"fixed-rate": (chunked(fixed), dict(fixed_frameshift=fs)),
               "epoch-rate": (chunked(feats), {})}
-    for label, (chunks, kw) in inputs.items():
+    for label in rates:
+        chunks, kw = inputs[label]
         with Phase(f"config-4 main path: synth_streaming, {label}, {len(chunks)} chunks"):
             list(synth.synth_streaming(iter(chunks[:3]), **kw))               # warm-up
             per, wall, pieces = drive_stream(synth, chunks, **kw)
@@ -694,7 +875,7 @@ def config4(db, synth, utt):
     return ids
 
 
-def config4_checks(run: Run, synth, utt, ids):
+def config4_checks(run: Run, synth, utt, ids, kernel="topk_preselect_zt_split3cat"):
     """After the config-4 main path: the epoch-rate stream's ids against
     one-shot greedy, one chunk's device stage split, and the kernel against
     its twin on the last chunk's targets (the streaming shape, T = 64)."""
@@ -721,8 +902,7 @@ def config4_checks(run: Run, synth, utt, ids):
     with Phase("config-4 kernel vs plain at the streaming shape"):
         kw = dict(kwargs, tgt_codes=None, tgt_ctx=None, tgt_vids=None, halfphone=False,
                   ling_weights=None)
-        run.kernel_at("topk_preselect_zt_split3cat", synth, args[1], kw,
-                      (args[1].shape[0],), report=False)
+        run.kernel_at(kernel, synth, args[1], kw, (args[1].shape[0],), report=False)
 
 
 def host_free_gib() -> float:
@@ -1206,38 +1386,97 @@ def server_halfphone(run: Run, label, kernel, db, feats, segs, voices, oracle_ga
         run.kernel_at(kernel, synth, tgts, kwargs, (tgts.shape[0] * 128,))
 
 
-def split3_masked(run: Run, label, kernel, db, cfg_over, feats, out_highest,
-                  voices=None, segs=None):
-    """One synth_batch step at split3 on a masked voice: no leaks, and
-    tie-adjusted agreement with the "highest" step on the same inputs."""
+def masked_step(run: Run, label, kernel, db, cfg_over, feats, out_highest,
+                voices=None, segs=None, precision="split3", zero_transient=-1,
+                oracle_gate=False):
+    """One synth_batch step at ``precision`` (split3 by default; with
+    ``zero_transient=0`` on the derived operand) on a masked voice: no
+    leaks, tie-adjusted agreement with the "highest" step on the same
+    inputs and, with ``oracle_gate`` (a halfphone voice), the identity
+    match and the float64 path-cost gap of the first utterance."""
     torch = run.torch
     from snickery_tpu_torch import Synthesiser
-    synth = Synthesiser(smoke_config(preselect_precision="split3", **cfg_over),
+    synth = Synthesiser(smoke_config(preselect_precision=precision,
+                                     zero_transient=zero_transient, **cfg_over),
                         db=db, device="cuda")
+    if zero_transient == 0:
+        label = f"{label} zero_transient 0"
 
     def drive():
-        with Phase(f"{label} split3 main path: synth_batch B={len(feats)}"):
+        with Phase(f"{label} {precision} main path: synth_batch B={len(feats)}"):
             return timed_batch(torch, synth, 1, feats, voices=voices, segments_list=segs)
 
-    out = run.main_path(f"{label} split3", kernel, drive)
+    out = run.main_path(f"{label} {precision}", kernel, drive)
+    for r in out:
+        check_result(db, r)
     if voices is not None:
         leaks = sum(int((db.voice_ids[r["unit_ids"]] != synth._voice_code(v)).sum())
                     for r, v in zip(out, voices))
-        log(f"{label} split3: cross-voice leaks {leaks}")
-        check(leaks == 0, f"{label} split3: {leaks} units leaked across voices")
+        log(f"{label} {precision}: cross-voice leaks {leaks}")
+        check(leaks == 0, f"{label} {precision}: {leaks} units leaked across voices")
+    if oracle_gate:
+        match = identity_match(synth, db, out, segs)
+        log(f"{label} {precision}: halfphone identity match {match:.4f}")
+        check(match >= 0.95, f"{label} {precision}: identity match {match} < 0.95")
+        halfphone_oracle_gap(db, synth, feats[0], segs[0], out[0]["unit_ids"],
+                             f"{label} {precision}")
     raw, adj = tie_adjusted_agreement(db, np.concatenate([r["unit_ids"] for r in out]),
                                       np.concatenate([r["unit_ids"] for r in out_highest]))
-    log(f"{label}: split3 vs highest over {sum(len(r['unit_ids']) for r in out)} units: "
-        f"raw {raw:.5f}, tie-adjusted {adj:.5f}")
-    check(adj >= 0.999, f"{label}: split3 tie-adjusted agreement {adj} < 0.999")
+    log(f"{label}: {precision} vs highest over {sum(len(r['unit_ids']) for r in out)} "
+        f"units: raw {raw:.5f}, tie-adjusted {adj:.5f}")
+    check(adj >= 0.999, f"{label}: {precision} tie-adjusted agreement {adj} < 0.999")
     if segs is None:
         prepped = [synth.targets_from_features(f) for f in feats]
     else:
         prepped = [(f, len(f)) for f in feats]
     tgts, _, kwargs = synth.batch_inputs(
         prepped, segs, None if voices is None else [synth._voice_code(v) for v in voices])
-    with Phase(f"{label} split3: kernel vs plain at main-path shape"):
+    with Phase(f"{label} {precision}: kernel vs plain at main-path shape"):
         run.kernel_at(kernel, synth, tgts, kwargs, (tgts.shape[0] * tgts.shape[1],))
+
+
+def derived_steps(run: Run, label, db, cfg_over, feats, out_highest, voices=None,
+                  segs=None, oracle_gate=False):
+    """One synth_batch step at ``zero_transient: 0`` at each precision on a
+    masked voice, through the derived variant of its masks (the gates of
+    :func:`masked_step`)."""
+    for precision in ("highest", "split3", "split3cat"):
+        kernel = run.cuda_topk.kernel_name(voices is not None, segs is not None, precision,
+                                           zero_transient=False)
+        masked_step(run, label, kernel, db, cfg_over, feats, out_highest, voices=voices,
+                    segs=segs, precision=precision, zero_transient=0,
+                    oracle_gate=oracle_gate)
+        run.torch.cuda.empty_cache()
+
+
+def server_config5_derived(run: Run, db, feats, voices):
+    """The server on the config-5 voice at ``zero_transient: 0`` and
+    split3cat: 16 concurrent POST /synth; every response 200, no leaks, ids
+    equal to direct calls."""
+    from snickery_tpu_torch import Synthesiser
+
+    label = "server config 5 zero_transient 0"
+    cfg = smoke_config(length_buckets=[64, 256], voice_name="smokemv",
+                       preselect_precision="split3cat", zero_transient=0)
+    with Phase(f"{label}: Synthesiser(split3cat) and warm-up"):
+        synth = Synthesiser(cfg, db=db, device="cuda")
+        httpd, base, thread = start_server(synth, max_batch=16, max_wait_ms=20.0)
+        run.torch.cuda.synchronize()
+    feats, voices = feats[:16], voices[:16]
+    payloads = [synth_payload(f, v) for f, v in zip(feats, voices)]
+
+    def drive():
+        with Phase(f"{label} main path: {len(payloads)} concurrent POST /synth"):
+            return post_all(base + "/synth", payloads)
+
+    try:
+        responses, wall = run.main_path(label, "topk_preselect_dv_split3cat_part", drive)
+        log_stats(label, base, httpd, len(payloads), wall)
+    finally:
+        stop_server(httpd, thread)
+    ids = served_ids(label, responses, db, synth, voices)
+    direct = [synth.synth_from_features(f, voice=v)["unit_ids"] for f, v in zip(feats, voices)]
+    same_as_direct(label, ids, direct)
 
 
 def cli_phase(run: Run, db, synth5, feats):
@@ -1314,9 +1553,14 @@ def main() -> int:
     with Phase("split precisions with fused masks vs plain, synthetic"):
         for name, err in split_masked_variants_synthetic(torch).items():
             run.errs[name] = max(run.errs.get(name, 0.0), err)
+    with Phase("derived operand (zero_transient 0) variants vs plain, synthetic"):
+        for name, err in derived_variants_synthetic(torch).items():
+            run.errs[name] = max(run.errs.get(name, 0.0), err)
     db, held, short, out32 = config3(run)
     torch.cuda.empty_cache()
     config3_split3cat(run, db, held, short, out32)
+    torch.cuda.empty_cache()
+    config3_derived(run, db, held, short, out32)
     torch.cuda.empty_cache()
     capacity(run, db, held)
     del db
@@ -1325,13 +1569,16 @@ def main() -> int:
     db, feats, segs, out = config2(run)
     server_halfphone(run, "server config 2", "topk_preselect_zt_split3cat_ling", db,
                      feats, segs, None, True)
-    split3_masked(run, "config 2", "topk_preselect_zt_split3_ling", db, hp_over, feats,
-                  out, segs=segs)
+    masked_step(run, "config 2", "topk_preselect_zt_split3_ling", db, hp_over, feats,
+                out, segs=segs)
+    derived_steps(run, "config 2", db, hp_over, feats, out, segs=segs, oracle_gate=True)
     torch.cuda.empty_cache()
     db, feats, voices, out, held = config5(run)
     synth5 = server_config5(run, db, feats, voices, out, held)
-    split3_masked(run, "config 5", "topk_preselect_zt_split3_part", db,
-                  dict(length_buckets=[256]), feats, out, voices=voices)
+    masked_step(run, "config 5", "topk_preselect_zt_split3_part", db,
+                dict(length_buckets=[256]), feats, out, voices=voices)
+    derived_steps(run, "config 5", db, dict(length_buckets=[256]), feats, out, voices=voices)
+    server_config5_derived(run, db, feats, voices)
     cli_phase(run, db, synth5, feats)
     del synth5
     torch.cuda.empty_cache()
@@ -1340,14 +1587,15 @@ def main() -> int:
     db, feats, segs, voices, out = composition(run, HP_UTTS)
     server_halfphone(run, "server composition", "topk_preselect_zt_split3cat_ling_part",
                      db, feats, segs, voices, False)
-    split3_masked(run, "composition", "topk_preselect_zt_split3_ling_part", db, hp_over,
-                  feats, out, voices=voices, segs=segs)
+    masked_step(run, "composition", "topk_preselect_zt_split3_ling_part", db, hp_over,
+                feats, out, voices=voices, segs=segs)
+    derived_steps(run, "composition", db, hp_over, feats, out, voices=voices, segs=segs)
     del db
     torch.cuda.empty_cache()
 
     log(f"chip_smoke.py: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        "name": name, "route": "cuda", "source": KERNEL_SOURCES["_zt" in name],
         "replaces": REPLACES[name], "launches": run.launches[name],
         "max_abs_err": run.errs[name], "ms": run.times[name][0],
         "plain_ms": run.times[name][1], "bound_ms": run.bounds[name][0],

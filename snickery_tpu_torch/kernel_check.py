@@ -1,7 +1,9 @@
 """Checks of the preselect kernel, shared by ``chip_smoke.py`` and the card
 tests (``tests/test_torch_cuda_kernel.py``).
 
-- :func:`compare`: the kernel against its plain twin on the same tensors.
+- :func:`compare`: the kernel against its plain twin on the same tensors,
+  in either operand form (the raw block and its affine, or with ``sqn``
+  the derived operand of ``cuda_topk.derive_operand``).
   At a split precision the tolerance on a score grows with the product's
   magnitude (:func:`split_slack`): the tensor cores accumulate in f32 but
   not as IEEE sums (partial sums are aligned and cut, not rounded), so the
@@ -27,7 +29,9 @@ import torch
 
 from snickery_tpu_torch.const import ID_RANK_PENALTY
 from snickery_tpu_torch.ops.cuda_topk import (cuda_topk_preselect, penalty_constants,
-                                              split_scores64, topk_preselect_zt_plain)
+                                              presplit_halves, split_cross64,
+                                              split_scores64, topk_preselect_dv_plain,
+                                              topk_preselect_zt_plain)
 
 SCORE_ATOL = 1e-3        # |kernel - plain| on scores of ~1e2: f32 sums of
                          # kd products taken in another order
@@ -42,19 +46,36 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def scores64(raw, aff, targets, ids, masks, precision="highest"):
+def _derived_rows(operand, targets, ids):
+    """The DB rows ``ids`` (n, k) of a derived operand as f32, (n, k, kd),
+    or as their (hi, lo) halves if it is pre-split."""
+    rows = operand[ids]
+    if rows.dtype == torch.bfloat16:
+        return presplit_halves(rows, targets.shape[1])
+    return rows
+
+
+def scores64(raw, aff, targets, ids, masks, precision="highest", sqn=None):
     """Float64 ranking scores of the rows ``ids`` (n, k) for the targets
     (n, kd), penalties and partition included.  At a split precision the
     score both sides round: the float64 sum of the three bf16 products of
-    the f32-prescaled targets and the rows."""
+    the f32-prescaled targets and the rows.  With ``sqn``, ``raw`` is a
+    derived operand and ``targets`` multiply it as they are."""
     kd = targets.shape[1]
-    rows = raw[ids]
-    if precision == "highest":
+    if sqn is not None:
+        rows = _derived_rows(raw, targets, ids)
+        if precision == "highest":
+            cross = torch.einsum("bkc,bc->bk", rows.double(), targets.double())
+        else:
+            cross = split_cross64(targets, rows)
+        s = sqn[ids].double() - 2.0 * cross
+    elif precision == "highest":
+        rows = raw[ids]
         mean, std, w = (a.double() for a in aff)
         s = rows[..., kd].double() - 2.0 * torch.einsum(
             "bkc,bc->bk", rows[..., :kd].double(), targets.double() * (w / std))
     else:
-        s = split_scores64(targets, rows, aff)
+        s = split_scores64(targets, raw[ids], aff)
     if masks:
         tm, dm = masks["tgt_meta"][:, None, :], masks["db_meta"][ids]
         if masks["partition"]:
@@ -66,23 +87,34 @@ def scores64(raw, aff, targets, ids, masks, precision="highest"):
     return s
 
 
-def split_slack(targets, raw, aff, ids, precision) -> torch.Tensor:
+def split_slack(targets, raw, aff, ids, precision, sqn=None) -> torch.Tensor:
     """(n, k) float64 bound of a split kernel's accumulation error on the
     scores of rows ``ids`` (n, k) for targets (n, kd), 0 at "highest":
     one f32 ulp of the running sum for each of the ``ceil(3 kd / 16)`` mma
     steps, the running sum bounded by ``sum_c |t2_c| |u_c|``, times the 2
-    of ``- 2 * cross``."""
+    of ``- 2 * cross`` (``sqn`` given: a derived operand, as in
+    :func:`scores64`)."""
     if precision == "highest":
         return torch.zeros(ids.shape, dtype=torch.float64, device=ids.device)
     kd = targets.shape[1]
-    mean, std, w = aff
-    t2 = (targets * (w / std)[None, :]).double().abs()
-    mag = torch.einsum("nkc,nc->nk", raw[ids][..., :kd].double().abs(), t2)
+    if sqn is not None:
+        rows = _derived_rows(raw, targets, ids)
+        u = rows[0] + rows[1] if isinstance(rows, tuple) else rows
+        t2 = targets.double().abs()
+    else:
+        mean, std, w = aff
+        u = raw[ids][..., :kd]
+        t2 = (targets * (w / std)[None, :]).double().abs()
+    mag = torch.einsum("nkc,nc->nk", u.double().abs(), t2)
     return -(-3 * kd // MMA_DEPTH) * F32_EPS * 2.0 * mag
 
 
-def compare(targets, raw, aff, m_rows, k, precision="highest", **masks):
-    """Kernel vs plain twin on the same card tensors.  Per row: scores
+def compare(targets, raw, aff, m_rows, k, precision="highest", sqn=None, n_real=None,
+            **masks):
+    """Kernel vs plain twin on the same card tensors, in the zero-transient
+    form (``raw`` the raw block, ``aff`` its affine) or, with ``sqn``, the
+    derived one (``raw`` the operand, ``aff`` None); with ``n_real``, no
+    live slot of the kernel may hold a padding row.  Per row: scores
     ascending; the same number of dead slots, each (+inf, 0); id sets
     equal, except where the differing ids are f32 near-ties of the k-th
     score (checked in float64, penalties included, on the three bf16
@@ -91,12 +123,19 @@ def compare(targets, raw, aff, m_rows, k, precision="highest", **masks):
     and :func:`split_slack`) plus one f32 ulp of the score (penalised
     scores sit near 2^24, ulp 2).
     Returns (max_abs_err, rows_with_differing_ids, dead slots)."""
-    ik, vk = cuda_topk_preselect(targets, raw, k, aff, m_rows, precision=precision, **masks)
-    ip, vp = topk_preselect_zt_plain(targets, raw, k, aff, m_rows, precision=precision,
-                                     **masks)
+    ik, vk = cuda_topk_preselect(targets, raw, k, aff, m_rows, precision=precision,
+                                 zero_transient=sqn is None, sqn=sqn, **masks)
+    if sqn is None:
+        ip, vp = topk_preselect_zt_plain(targets, raw, k, aff, m_rows,
+                                         precision=precision, **masks)
+    else:
+        ip, vp = topk_preselect_dv_plain(targets, raw, sqn, k, m_rows,
+                                         precision=precision, **masks)
     if vk.is_cuda:
         torch.cuda.synchronize()
     check(bool((ik >= 0).all() and (ik < m_rows).all()), "kernel ids in range")
+    if n_real is not None:
+        check(bool((ik[torch.isfinite(vk)] < n_real).all()), "a padding row was selected")
     check(not bool(torch.isnan(vk).any() or (vk == -float("inf")).any()),
           "kernel scores are finite or +inf")
     check(bool((vk[:, 1:] >= vk[:, :-1]).all()), "kernel scores ascending")
@@ -110,7 +149,7 @@ def compare(targets, raw, aff, m_rows, k, precision="highest", **masks):
     live = same[:, None] & torch.isfinite(vp_s)
     diff = (vk_s - vp_s).abs()[live]
     err = float(diff.max()) if diff.numel() else 0.0
-    slack = split_slack(targets, raw, aff, ip_s, precision)
+    slack = split_slack(targets, raw, aff, ip_s, precision, sqn)
     allowed = torch.clamp(slack[live], min=SCORE_ATOL) + F32_EPS * vp_s.abs()[live]
     check(bool((diff <= allowed).all()),
           f"score error {err} beyond max({SCORE_ATOL}, accumulation bound) + 1 ulp")
@@ -121,7 +160,7 @@ def compare(targets, raw, aff, m_rows, k, precision="highest", **masks):
             sub = dict(masks, tgt_meta=masks["tgt_meta"][bad])
 
         def worst(ids):
-            s = scores64(raw, aff, targets[bad], ids[bad], sub, precision)
+            s = scores64(raw, aff, targets[bad], ids[bad], sub, precision, sqn)
             return torch.where(torch.isinf(s), -float("inf"), s).max(1).values
 
         worst_k, worst_p = worst(ik_s), worst(ip_s)

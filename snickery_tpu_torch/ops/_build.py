@@ -1,16 +1,19 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every ``csrc/*.cu`` file has a plain C interface.  At first use they are
-compiled together into one shared library for ``sm_90a``::
+Every ``csrc/*.cu`` file has a plain C interface (the kernels they share are
+in ``csrc/*.cuh``).  At first use each source is compiled on its own, all of
+them at once, for ``sm_90a``, and the objects are linked into one shared
+library::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/snickery_tpu_torch_kernels/<name>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c \
+         -Xcompiler -fPIC -o <name>.<source>.o csrc/<source>.cu   # each, in parallel
+    nvcc -shared -o build/snickery_tpu_torch_kernels/<name>.so <name>.*.o
 
-The library's file name carries a hash of the sources and flags, so a build
-from other sources is never loaded.  Only the sources in the package are
-built; nothing is fetched.  The library is built and loaded once per
-process, under a lock: a server's batcher thread and its streaming handlers
-may reach the kernels first at the same time.
+The library's file name carries a hash of the sources, headers and flags,
+so a build from other sources is never loaded.  Only the sources in the
+package are built; nothing is fetched.  The library is built and loaded
+once per process, under a lock: a server's batcher thread and its
+streaming handlers may reach the kernels first at the same time.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "snickery_tpu_torch_kernels"
 _LOCK = threading.Lock()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclass(frozen=True)
@@ -66,7 +69,7 @@ def _kernel_library() -> KernelLibrary:
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / f"libsnickery_tpu_torch_{h.hexdigest()[:16]}.so"
@@ -74,12 +77,25 @@ def _kernel_library() -> KernelLibrary:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        objs = [out.with_suffix(f".{src.stem}.{os.getpid()}.o") for src in sources]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(f"== {src.name}\n{text}" for src, text in zip(sources, logs))
+        failed = [src.name for src, p in zip(sources, procs) if p.returncode != 0]
+        if not failed:
+            res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                                 capture_output=True, text=True)
+            log += res.stdout + res.stderr
+            failed = ["link"] if res.returncode != 0 else []
         seconds = time.perf_counter() - t0
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
         os.replace(tmp, out)
     return KernelLibrary(ctypes.CDLL(str(out)), out, seconds, log)

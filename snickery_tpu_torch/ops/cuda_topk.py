@@ -1,12 +1,16 @@
-"""Fused distance + top-k preselect over the resident raw unit block.
+"""Fused distance + top-k preselect over the unit DB.
 
 Counterpart of ``snickery_tpu/ops/pallas_topk.py::pallas_topk_preselect``
-in the forms the synthesis paths run (zero_transient=True,
-``select="stream"``): precision "highest" and the bf16-split precisions
-"split3" and "split3cat", each with or without the fused voice partition
-mask and the fused quinphone penalties (twelve entry points).  The CUDA C++
-kernel lives in ``csrc/topk_preselect.cu``; its plain PyTorch twin
-:func:`topk_preselect_zt_plain` computes the same thing.
+in the forms the synthesis paths run (``select="stream"``), in both operand
+forms: zero_transient=True (the resident raw block) and False (the derived
+operand, config ``zero_transient: 0``); each at precision "highest" and the
+bf16-split precisions "split3" and "split3cat", each with or without the
+fused voice partition mask and the fused quinphone penalties (24 entry
+points).  The CUDA C++ kernels live in ``csrc/topk_preselect.cuh`` and are
+exported by ``csrc/topk_preselect.cu`` (zero-transient) and
+``csrc/topk_derived.cu`` (derived); their plain PyTorch twins
+:func:`topk_preselect_zt_plain` and :func:`topk_preselect_dv_plain` compute
+the same things.
 
 Precisions (``pallas_topk._split3_dot``, ``_bf16_split``): "highest" forms
 ``u.t2`` in f32; "split3" and "split3cat" split both operands into bf16
@@ -25,6 +29,16 @@ prescaled targets ``t2 = t_w * (sqrt_w / std)``; the per-target constant
 returned scores.  Rows ``[m_rows, q)`` (halo and jr-exception tail) are never
 scanned, and padding rows carry the 1e6 never-wins sentinel norm.
 
+Derived algebra (the JAX wrapper's zero_transient=False branch, :795-811):
+:func:`derive_operand` normalises and weights the block's rows once per
+step, padding rows (from ``n_real``) pinned to ``1e6 * sqrt_w``, and sums
+their squares into a separate (m_rows,) ``sqn``; the kernel ranks the
+normalised, weighted targets themselves by ``sqn - 2 * u.t`` and adds
+nothing back.  At "highest" and "split3" the operand is (m_rows, kd) f32;
+at "split3cat" it is pre-split into bf16 ``[hi | lo]`` rows, each half
+zero-padded to ``kp = kd`` rounded up to :data:`SPLIT_KC` (the port's
+layout of the JAX ``split3cat_db``), so that its rows are 16-byte aligned.
+
 Fused masks (Pallas ``_compute_scores`` order, so that twin and kernel agree
 bit for bit): each score ``s = sqn - 2 * u.t2`` becomes +inf where the
 target's and the row's voice ids differ (``partition``), then gains
@@ -35,7 +49,7 @@ sides describe themselves with one int32 row of :data:`META_WIDTH` columns,
 score reaches (a voice with fewer than k rows) reads (+inf, index 0), the
 Pallas contract.
 
-Cost on Hopper: at the config-3 batch shape (65,536 target rows x 1,048,576
+Cost on Hopper (either form): at the config-3 batch shape (65,536 target rows x 1,048,576
 units x kd = 151) one "highest" call is about 2.1e13 FLOP, done as FP32 FMAs
 on the CUDA cores, so the kernel is bound by FP32 FMA throughput; the DB
 block (about 640 MB) is read once per group of target tiles resident
@@ -45,7 +59,7 @@ selection bound them instead.  The fused masks add 8 integer compares per
 score against metadata staged in shared memory beside the tile, small
 beside the kd FMAs behind each score.
 
-:func:`cuda_topk_preselect` dispatches on ``raw_block.device``: a CUDA
+:func:`cuda_topk_preselect` dispatches on the DB tensor's device: a CUDA
 tensor goes through the kernel, a CPU tensor through the plain twin, and
 nothing falls back from one to the other.
 """
@@ -76,6 +90,7 @@ SPLIT_KERNELS = {"split3": "topk_preselect_zt_split3",
                  "split3cat": "topk_preselect_zt_split3cat"}
 _MASK_SUFFIX = {(False, False): "", (True, False): "_part", (False, True): "_ling",
                 (True, True): "_ling_part"}
+SPLIT_KC = 32              # the kernel's KC: a pre-split half is padded to a multiple
 # launches of each hand-written kernel by its wrapper, for run reports
 # (updated under _LOCK: a server launches from several threads)
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
@@ -84,18 +99,29 @@ MAX_K = 64                 # list slots the kernel keeps per target
 _TARGET_CTAS_PER_SM = 4    # two resident CTAs per SM, two waves
 
 
-def kernel_name(partition: bool, linguistic: bool, precision: str = "highest") -> str:
-    """The kernel entry point (without its ``snk_`` prefix) of a variant."""
+def kernel_name(partition: bool, linguistic: bool, precision: str = "highest",
+                zero_transient: bool = True) -> str:
+    """The kernel entry point (without its ``snk_`` prefix) of a variant:
+    ``topk_preselect_zt...`` reads the raw block, ``topk_preselect_dv...``
+    the derived operand."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; have {PRECISIONS}")
     if precision == "highest":
-        return KERNELS[bool(partition), bool(linguistic)]
-    return SPLIT_KERNELS[precision] + _MASK_SUFFIX[bool(partition), bool(linguistic)]
+        name = KERNELS[bool(partition), bool(linguistic)]
+    else:
+        name = SPLIT_KERNELS[precision] + _MASK_SUFFIX[bool(partition), bool(linguistic)]
+    return name if zero_transient else name.replace("_zt", "_dv", 1)
 
 
-# every entry point, in (precision, partition, linguistic) order
-ALL_KERNELS = tuple(kernel_name(p, ling, prec) for prec in PRECISIONS
-                    for p in (False, True) for ling in (False, True))
+# every entry point, in (form, precision, partition, linguistic) order
+ALL_KERNELS = tuple(kernel_name(p, ling, prec, zt) for zt in (True, False)
+                    for prec in PRECISIONS for p in (False, True) for ling in (False, True))
+
+
+def presplit_width(kd: int) -> int:
+    """bf16 columns of a pre-split operand row: ``[hi | lo]``, each half
+    ``kd`` rounded up to :data:`SPLIT_KC`."""
+    return 2 * (-(-kd // SPLIT_KC) * SPLIT_KC)
 
 
 def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -106,27 +132,42 @@ def split_bf16(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
 
 
+def split_cross64(t2: torch.Tensor, rows) -> torch.Tensor:
+    """(T, n) float64 ``hh + hl + lh`` of targets (T, kd) and DB rows
+    (T, n, kd) f32, or their bf16 (hi, lo) halves as f32 (a pre-split
+    operand): the three bf16 products summed exactly."""
+    th, tl = (x.double() for x in split_bf16(t2))
+    halves = rows if isinstance(rows, tuple) else split_bf16(rows.contiguous())
+    rh, rl = (x.double() for x in halves)
+    return sum(torch.einsum("tnc,tc->tn", r, t) for r, t in ((rh, th), (rh, tl), (rl, th)))
+
+
 def split_scores64(targets: torch.Tensor, rows: torch.Tensor, db_affine) -> torch.Tensor:
     """(T, n) float64 ranking scores ``sqn - 2 * (hh + hl + lh)``, ``comp``
     left out, of raw-block rows (T, n, kd + 2) for targets (T, kd): the
     three bf16 products of the f32-prescaled targets and the rows, summed
     exactly, the value kernel and twin both round at a split precision."""
     kd = targets.shape[1]
-    th, tl = (x.double() for x in split_bf16(_prescale(targets, db_affine)[0]))
-    rh, rl = (x.double() for x in split_bf16(rows[..., :kd].contiguous()))
-    cross = sum(torch.einsum("tnc,tc->tn", r, t) for r, t in ((rh, th), (rh, tl), (rl, th)))
+    cross = split_cross64(_prescale(targets, db_affine)[0], rows[..., :kd])
     return rows[..., kd].double() - 2.0 * cross
 
 
-def cross_products(t2: torch.Tensor, rows: torch.Tensor, precision: str) -> torch.Tensor:
-    """(T, n) dot products of prescaled targets (T, kd) with DB rows (n, kd)
-    at ``precision``: f32 matmul, or the bf16-split sums (the split halves
+def presplit_halves(operand: torch.Tensor, kd: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (hi, lo) halves, as f32, of pre-split operand rows (..., 2 kp)."""
+    kp = operand.shape[-1] // 2
+    return operand[..., :kd].float(), operand[..., kp:kp + kd].float()
+
+
+def cross_products(t2: torch.Tensor, rows, precision: str) -> torch.Tensor:
+    """(T, n) dot products of targets (T, kd) with DB rows (n, kd) at
+    ``precision``: f32 matmul, or the bf16-split sums (the split halves
     are cast back to f32 before the matmuls, so every product is exact and
-    only the f32 summation order is the matmul's)."""
+    only the f32 summation order is the matmul's).  At a split precision
+    ``rows`` may be given already split, as (hi, lo) f32 halves."""
     if precision == "highest":
         return t2 @ rows.T
     th, tl = split_bf16(t2)
-    rh, rl = split_bf16(rows)
+    rh, rl = rows if isinstance(rows, tuple) else split_bf16(rows)
     if precision == "split3":
         return (th @ rh.T + tl @ rh.T) + th @ rl.T
     return torch.cat([th, tl, th], 1) @ torch.cat([rh, rh, rl], 1).T
@@ -156,41 +197,57 @@ def _prescale(targets, db_affine):
     return t2, comp
 
 
-def _check(targets, raw_block, k, db_affine, m_rows, tgt_meta, db_meta, masked):
-    """Argument checks shared by the kernel wrapper and the twin."""
-    if targets.dtype != torch.float32 or raw_block.dtype != torch.float32:
-        raise TypeError("targets and raw_block must be float32")
-    if targets.ndim != 2 or raw_block.ndim != 2:
-        raise ValueError("targets must be (T, kd) and raw_block (q, kd + 2)")
+def _check(targets, block, k, m_rows, tgt_meta, db_meta, masked, *, db_affine=None,
+           sqn=None, precision="highest"):
+    """Argument checks shared by the kernel wrapper and the twins: the
+    zero-transient form reads the raw block with ``db_affine``, the derived
+    form (``sqn`` given) the operand of :func:`derive_operand`."""
+    derived = sqn is not None
+    name = "operand" if derived else "raw_block"
+    want = torch.bfloat16 if derived and precision == "split3cat" else torch.float32
+    if targets.dtype != torch.float32 or block.dtype != want:
+        raise TypeError(f"targets must be float32 and {name} {want}")
+    if targets.ndim != 2 or block.ndim != 2:
+        raise ValueError(f"targets must be (T, kd) and {name} 2-D")
     T, kd = targets.shape
-    if raw_block.shape[1] != kd + 2:
-        raise ValueError(
-            f"raw_block width {raw_block.shape[1]} != kd + 2 = {kd + 2} "
-            "([data | sqn | ptr], build_raw_blocks(affine=...))")
-    if len(db_affine) != 3 or any(a.shape != (kd,) or a.dtype != torch.float32
-                                  for a in db_affine):
-        raise ValueError("db_affine must be (mean, std, sqrt_w), each (kd,) f32")
-    if not 1 <= m_rows <= raw_block.shape[0]:
-        raise ValueError(f"m_rows={m_rows} outside [1, {raw_block.shape[0]}]")
+    if derived:
+        width = presplit_width(kd) if want == torch.bfloat16 else kd
+        if block.shape[1] != width:
+            raise ValueError(f"operand width {block.shape[1]} != {width} "
+                             f"(derive_operand at precision {precision!r})")
+        if (sqn.dtype != torch.float32 or sqn.ndim != 1 or sqn.shape[0] < m_rows
+                or not sqn.is_contiguous()):
+            raise ValueError(f"sqn must be contiguous float32 (>= {m_rows},)")
+        tensors = [targets, block, sqn]
+    else:
+        if block.shape[1] != kd + 2:
+            raise ValueError(
+                f"raw_block width {block.shape[1]} != kd + 2 = {kd + 2} "
+                "([data | sqn | ptr], build_raw_blocks(affine=...))")
+        if db_affine is None or len(db_affine) != 3 or any(
+                a.shape != (kd,) or a.dtype != torch.float32 for a in db_affine):
+            raise ValueError("db_affine must be (mean, std, sqrt_w), each (kd,) f32")
+        tensors = [targets, block, *db_affine]
+    if not 1 <= m_rows <= block.shape[0]:
+        raise ValueError(f"m_rows={m_rows} outside [1, {block.shape[0]}]")
     if not 1 <= k <= min(MAX_K, m_rows):
         raise ValueError(f"k={k} must lie in [1, min({MAX_K}, m_rows)]")
     if T < 1:
         raise ValueError("no target rows")
-    tensors = [targets, raw_block, *db_affine]
     if masked:
         if tgt_meta is None or db_meta is None:
             raise ValueError("partition / linguistic need tgt_meta and db_meta")
-        for name, m, rows in (("tgt_meta", tgt_meta, T), ("db_meta", db_meta, m_rows)):
+        for what, m, rows in (("tgt_meta", tgt_meta, T), ("db_meta", db_meta, m_rows)):
             if (m.dtype != torch.int32 or m.ndim != 2 or m.shape[1] != META_WIDTH
                     or m.shape[0] < rows or not m.is_contiguous()):
-                raise ValueError(f"{name} must be contiguous int32 (>= {rows}, "
+                raise ValueError(f"{what} must be contiguous int32 (>= {rows}, "
                                  f"{META_WIDTH}) (pack_meta)")
         tensors += [tgt_meta, db_meta]
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {devices}")
-    if not (targets.is_contiguous() and raw_block.is_contiguous()):
-        raise ValueError("targets and raw_block must be contiguous")
+    if not (targets.is_contiguous() and block.is_contiguous()):
+        raise ValueError(f"targets and {name} must be contiguous")
 
 
 def _apply_masks(scores, tm, dm, partition, pens):
@@ -210,14 +267,44 @@ def _apply_masks(scores, tm, dm, partition, pens):
     return scores
 
 
+def _plain_select(T, k, m_rows, scores_of, tgt_meta, db_meta, partition, ling_weights,
+                  t_block, chunk):
+    """Exact (score, index) top-k over DB rows [0, m_rows), the chunk loop of
+    both twins: ``scores_of(t0, t1, lo, hi)`` gives the (t1 - t0, hi - lo)
+    ranking scores of targets [t0, t1) against rows [lo, hi); the fused
+    masks go on in the kernel's order; the lowest index wins ties and a slot
+    with no finite score reads (+inf, 0).  Returns (indices (T, k) int32,
+    scores (T, k) f32), ascending."""
+    masked = partition or ling_weights is not None
+    pens = None if ling_weights is None else penalty_constants(ling_weights)
+    out_i, out_v = [], []
+    for t0 in range(0, T, t_block):
+        t1 = min(t0 + t_block, T)
+        vals, cols = [], []
+        for lo in range(0, m_rows, chunk):
+            hi = min(lo + chunk, m_rows)
+            scores = scores_of(t0, t1, lo, hi)
+            if masked:
+                scores = _apply_masks(scores, tgt_meta[t0:t1], db_meta[lo:hi],
+                                      partition, pens)
+            v, c = smallest_k(scores, min(k, hi - lo),
+                              torch.arange(lo, hi, device=scores.device))
+            vals.append(v)
+            cols.append(c)
+        v, c = smallest_k(torch.cat(vals, 1), k, torch.cat(cols, 1))
+        out_i.append(torch.where(torch.isinf(v), 0, c).to(torch.int32))
+        out_v.append(v)
+    return torch.cat(out_i), torch.cat(out_v)
+
+
 def topk_preselect_zt_plain(targets, raw_block, k, db_affine, m_rows, *,
                             tgt_meta=None, db_meta=None, partition=False,
                             ling_weights=None, precision: str = "highest",
                             t_block: int = 4096, chunk: int = 65536):
-    """Plain PyTorch twin of the kernel: the same algebra in chunked
-    matmuls (:func:`cross_products` at ``precision``), the fused masks in
-    the kernel's order, and exact (score, index) selection (lowest index
-    wins ties; a slot with no finite score reads (+inf, 0)).
+    """Plain PyTorch twin of the zero-transient kernel: the same algebra in
+    chunked matmuls (:func:`cross_products` at ``precision``), the fused
+    masks in the kernel's order, and exact (score, index) selection (lowest
+    index wins ties; a slot with no finite score reads (+inf, 0)).
     ``ling_weights`` (w0..w4, scale) turns the quinphone penalties on,
     ``partition`` the voice mask; both read the (rows, META_WIDTH)
     ``tgt_meta`` / ``db_meta`` of :func:`pack_meta`.
@@ -225,31 +312,79 @@ def topk_preselect_zt_plain(targets, raw_block, k, db_affine, m_rows, *,
     Returns (indices (T, k) int32, scores (T, k) f32), ascending."""
     masked = partition or ling_weights is not None
     kernel_name(partition, ling_weights is not None, precision)
-    _check(targets, raw_block, k, db_affine, m_rows, tgt_meta, db_meta, masked)
-    pens = None if ling_weights is None else penalty_constants(ling_weights)
+    _check(targets, raw_block, k, m_rows, tgt_meta, db_meta, masked, db_affine=db_affine)
     kd = targets.shape[1]
     t2, comp = _prescale(targets, db_affine)
-    out_i, out_v = [], []
-    for t0 in range(0, t2.shape[0], t_block):
-        tb = t2[t0:t0 + t_block]
-        vals, cols = [], []
-        for lo in range(0, m_rows, chunk):
-            hi = min(lo + chunk, m_rows)
-            rows = raw_block[lo:hi]
-            scores = rows[:, kd][None, :] - 2.0 * cross_products(tb, rows[:, :kd],
-                                                                  precision)
-            if masked:
-                scores = _apply_masks(scores, tgt_meta[t0:t0 + t_block],
-                                      db_meta[lo:hi], partition, pens)
-            v, c = smallest_k(scores, min(k, hi - lo),
-                              torch.arange(lo, hi, device=rows.device))
-            vals.append(v)
-            cols.append(c)
-        v, c = smallest_k(torch.cat(vals, 1), k, torch.cat(cols, 1))
-        c = torch.where(torch.isinf(v), 0, c)
-        out_i.append(c.to(torch.int32))
-        out_v.append(v + comp[t0:t0 + t_block, None])
-    return torch.cat(out_i), torch.cat(out_v)
+
+    def scores_of(t0, t1, lo, hi):
+        rows = raw_block[lo:hi]
+        return rows[:, kd][None, :] - 2.0 * cross_products(t2[t0:t1], rows[:, :kd],
+                                                            precision)
+
+    idx, vals = _plain_select(targets.shape[0], k, m_rows, scores_of, tgt_meta, db_meta,
+                              partition, ling_weights, t_block, chunk)
+    return idx, vals + comp[:, None]
+
+
+def derive_operand(raw_block, db_affine, n_real, m_rows: int, precision: str = "highest"):
+    """The derived DB operand of one step and its squared row norms
+    (``pallas_topk.py:795-811``; ``split3cat_db`` :112-125 in the port's
+    layout).  Rows [0, m_rows) of the raw block are normalised and weighted
+    as :func:`~snickery_tpu_torch.voicedb.device_layout.affine_rows` does
+    it, ``((x - mean) / std) * sqrt_w``, and rows at or past ``n_real`` (an
+    int or a 0-dim tensor) are pinned to ``1e6 * sqrt_w``; ``sqn`` (m_rows,)
+    f32 sums their squares.  At "highest" and "split3" the operand is that
+    (m_rows, kd) f32 array.  At "split3cat" it is (m_rows,
+    :func:`presplit_width`) bf16 rows ``[hi | lo]``, ``hi = bf16(x)`` and
+    ``lo = bf16(x - hi)`` (:func:`split_bf16`), each half zero past kd.
+
+    Plain PyTorch, as the JAX wrapper derives it inside its jit each call:
+    the elementwise passes write one array in place, and at "split3cat" the
+    f32 array is turned into the residual in place and freed on return.
+    Returns (operand, sqn)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; have {PRECISIONS}")
+    mean, std, w = db_affine
+    kd = mean.shape[0]
+    dbn = raw_block[:m_rows, :kd].sub(mean).div_(std).mul_(w)
+    valid = torch.arange(m_rows, device=dbn.device) < n_real
+    torch.where(valid[:, None], dbn, 1e6 * w, out=dbn)
+    sqn = torch.sum(dbn * dbn, dim=-1)
+    if precision != "split3cat":
+        return dbn, sqn
+    kp = presplit_width(kd) // 2
+    operand = torch.zeros((m_rows, 2 * kp), dtype=torch.bfloat16, device=dbn.device)
+    operand[:, :kd] = dbn                       # hi, rounded to nearest even
+    dbn -= operand[:, :kd]                      # x - hi, exact in f32
+    operand[:, kp:kp + kd] = dbn                # lo
+    return operand, sqn
+
+
+def topk_preselect_dv_plain(targets, operand, sqn, k, m_rows, *, tgt_meta=None,
+                            db_meta=None, partition=False, ling_weights=None,
+                            precision: str = "highest", t_block: int = 4096,
+                            chunk: int = 65536):
+    """Plain PyTorch twin of the derived-operand kernel: ``sqn - 2 * u.t``
+    of the normalised, weighted targets against the operand of
+    :func:`derive_operand` at ``precision`` (its pre-split halves at
+    "split3cat"), in the chunk loop of :func:`topk_preselect_zt_plain`
+    with the same masks and selection, nothing added back.
+
+    Returns (indices (T, k) int32, scores (T, k) f32), ascending."""
+    masked = partition or ling_weights is not None
+    kernel_name(partition, ling_weights is not None, precision, zero_transient=False)
+    _check(targets, operand, k, m_rows, tgt_meta, db_meta, masked, sqn=sqn,
+           precision=precision)
+    kd = targets.shape[1]
+
+    def scores_of(t0, t1, lo, hi):
+        rows = operand[lo:hi]
+        if precision == "split3cat":
+            rows = presplit_halves(rows, kd)
+        return sqn[lo:hi][None, :] - 2.0 * cross_products(targets[t0:t1], rows, precision)
+
+    return _plain_select(targets.shape[0], k, m_rows, scores_of, tgt_meta, db_meta,
+                         partition, ling_weights, t_block, chunk)
 
 
 def _kernel():
@@ -290,13 +425,19 @@ def split_plan(T: int, m_rows: int, n_sm: int, tile_rows: int,
 
 def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
                         tgt_meta=None, db_meta=None, partition=False,
-                        ling_weights=None, precision: str = "highest"):
-    """Top-k DB rows per target, zero-transient form: exact at precision
-    "highest", ranked by the bf16-split products at "split3" / "split3cat".
+                        ling_weights=None, precision: str = "highest",
+                        zero_transient: bool = True, sqn=None):
+    """Top-k DB rows per target: exact at precision "highest", ranked by the
+    bf16-split products at "split3" / "split3cat".
 
+    Zero-transient form (the default):
     ``targets`` (T, kd) f32: normalised, weighted target rows.
     ``raw_block`` (q, kd + 2) f32: the resident ``[data | sqn | ptr]`` block.
     ``db_affine`` = (mean, std, sqrt_w), each (kd,) f32.
+    Derived form (``zero_transient=False``, config ``zero_transient: 0``):
+    ``raw_block`` is the operand :func:`derive_operand` made at
+    ``precision``, ``sqn`` its (>= m_rows,) squared row norms and
+    ``db_affine`` None.
     ``m_rows``: DB rows to scan (rows beyond are halo / exception tail).
     ``partition``: restrict each target to the rows of its voice id;
     ``ling_weights`` (w0..w4, scale): add the quinphone penalties; either
@@ -306,27 +447,41 @@ def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
     (score, index) pairs, scores = squared distance (plus penalties) minus
     ||t||^2, (+inf, 0) in a slot no row reaches.  On a CUDA device the
     hand-written kernel of the variant runs (ascending order); on the CPU
-    the plain twin."""
+    the plain twin of the form."""
     kw = dict(tgt_meta=tgt_meta, db_meta=db_meta, partition=partition,
               ling_weights=ling_weights, precision=precision)
+    if zero_transient != (sqn is None):
+        raise ValueError("sqn goes with zero_transient=False (the derived operand), "
+                         "and only with it")
+    if not zero_transient and db_affine is not None:
+        raise ValueError("the derived operand is normalised already: db_affine "
+                         "must be None")
     if raw_block.device.type == "cpu":
-        return topk_preselect_zt_plain(targets, raw_block, k, db_affine, m_rows, **kw)
+        if zero_transient:
+            return topk_preselect_zt_plain(targets, raw_block, k, db_affine, m_rows, **kw)
+        return topk_preselect_dv_plain(targets, raw_block, sqn, k, m_rows, **kw)
     if raw_block.device.type != "cuda":
         raise ValueError(f"unsupported device {raw_block.device}")
     linguistic = ling_weights is not None
     masked = partition or linguistic
-    name = kernel_name(partition, linguistic, precision)
-    _check(targets, raw_block, k, db_affine, m_rows, tgt_meta, db_meta, masked)
+    name = kernel_name(partition, linguistic, precision, zero_transient)
+    _check(targets, raw_block, k, m_rows, tgt_meta, db_meta, masked, db_affine=db_affine,
+           sqn=sqn, precision=precision)
     lib = _kernel()
     T, kd = targets.shape
     if lib.snk_topk_partial_smem(kd, k, int(masked), PRECISIONS.index(precision)) > 227 * 1024:
         raise ValueError(f"kd={kd} needs more shared memory than a block has")
+    if raw_block.dtype == torch.bfloat16 and raw_block.data_ptr() % 16:
+        raise ValueError("the pre-split operand must start on a 16-byte boundary")
     dev = raw_block.device
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     splits, rows = split_plan(T, m_rows, n_sm, lib.snk_topk_tile_rows(),
                               lib.snk_topk_db_tile_rows())
-    t2, comp = _prescale(targets, db_affine)
-    t2 = t2.contiguous()
+    if zero_transient:
+        t2, third = _prescale(targets, db_affine)      # third: comp
+        t2 = t2.contiguous()
+    else:
+        t2, third = targets, sqn
     pens = penalty_constants(ling_weights) if linguistic else (0.0,) * 5
     part_v = torch.empty((T, splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((T, splits, k), dtype=torch.int32, device=dev)
@@ -334,7 +489,7 @@ def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
     out_i = torch.empty((T, k), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = getattr(lib, "snk_" + name)(
-        t2.data_ptr(), raw_block.data_ptr(), comp.data_ptr(),
+        t2.data_ptr(), raw_block.data_ptr(), third.data_ptr(),
         tgt_meta.data_ptr() if masked else None,
         db_meta.data_ptr() if masked else None, *pens,
         part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),

@@ -1,6 +1,9 @@
 """Top-k preselect helpers in PyTorch (counterpart of ``snickery_tpu.ops.topk``).
 
 - :func:`preselect_margin`: the rank-margin policy, unchanged.
+- :func:`zero_transient_default`, :func:`resolve_zero_transient`: the
+  operand-form policy and the config key ``zero_transient`` resolved as the
+  JAX steps resolve it.
 - :func:`order_topk_positions`: canonical (value, id) candidate order, an
   exact port of the JAX function.
 - :func:`smallest_k`: exact k smallest (value, column) pairs per row, the
@@ -41,6 +44,24 @@ def preselect_margin(use_kernel: bool, mm_precision: str,
             return PRESELECT_MARGIN_SPLIT3CAT
         return PRESELECT_MARGIN
     return 0
+
+
+def zero_transient_default(use_kernel: bool, mm_precision: str) -> bool:
+    """The JAX package's operand-form policy
+    (``snickery_tpu.ops.topk.zero_transient_default``): wherever the kernel
+    runs, at every precision, it reads the resident raw block (the
+    zero-transient form) rather than a per-step derived operand."""
+    return use_kernel
+
+
+def resolve_zero_transient(zero_transient: int, mm_precision: str,
+                           use_kernel: bool = True) -> bool:
+    """Config ``zero_transient`` (-1 = the policy, 0 = the derived operand,
+    1 = the raw block) resolved as ``snickery_tpu.synth`` resolves it in its
+    steps (``synth.py:165-166``); the port always runs its kernel."""
+    if zero_transient < 0:
+        return zero_transient_default(use_kernel, mm_precision)
+    return bool(use_kernel and zero_transient)
 
 
 def _sortable_key(vals: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:

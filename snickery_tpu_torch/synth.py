@@ -4,10 +4,11 @@ Counterpart of ``snickery_tpu.synth`` for epoch-unit voices (BASELINE
 config #3), halfphone voices (#2), merged multi-voice DBs (#5), merged
 halfphone voices and streaming synthesis (#4): normalise and weight the
 targets, preselect the top k + margin over the whole DB with the
-hand-written kernel (zero-transient form, exact at precision "highest" or
-ranked by bf16-split products at "split3" / "split3cat", at each precision
-with the quinphone penalties fused for halfphone voices and the voice
-partition mask for merged DBs),
+hand-written kernel (reading the resident raw block, or with config
+``zero_transient: 0`` an operand derived from it each step; exact at
+precision "highest" or ranked by bf16-split products at "split3" /
+"split3cat", at each precision with the quinphone penalties fused for
+halfphone voices and the voice partition mask for merged DBs),
 rescore the candidates in exact f32 and keep the top k in canonical
 (score, unit id) order (halfphone voices rank by the exact squared distance
 plus penalties and mask identity fallbacks in the lattice), gather join
@@ -20,9 +21,8 @@ The device is an explicit argument.  ``device="cuda"`` runs the CUDA kernel
 and raises where CUDA is absent; ``device="cpu"`` runs the kernel's plain
 PyTorch twin.  Nothing falls back from one to the other.
 
-Not ported yet (each raises NotImplementedError; see ROADMAP.md): the
-derived DB operand (config ``zero_transient: 0``), multi-device meshes and
-magphase resynthesis.
+Not ported yet (each raises NotImplementedError; see ROADMAP.md):
+multi-device meshes and magphase resynthesis.
 """
 
 from __future__ import annotations
@@ -39,11 +39,13 @@ from snickery_tpu_torch import utils
 from snickery_tpu_torch.config import SnickeryConfig
 from snickery_tpu_torch.voicedb.db import VoiceDB
 from snickery_tpu_torch.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
-from snickery_tpu_torch.ops.cuda_topk import PRECISIONS, cuda_topk_preselect, pack_meta
+from snickery_tpu_torch.ops.cuda_topk import (PRECISIONS, cuda_topk_preselect,
+                                              derive_operand, pack_meta)
 from snickery_tpu_torch.ops.ola import host_overlap_add, overlap_add_units
 from snickery_tpu_torch.ops.topk import (halfphone_exact_rank,
                                          halfphone_lattice_mask,
-                                         order_topk_positions, preselect_margin)
+                                         order_topk_positions, preselect_margin,
+                                         resolve_zero_transient)
 from snickery_tpu_torch.ops.viterbi import (greedy_decode, greedy_decode_stream,
                                             viterbi_decode)
 from snickery_tpu_torch.voicedb.device_layout import (affine_rows,
@@ -124,11 +126,15 @@ def _stage_fn(stage_timer, device):
 
 def _candidates(db: DeviceDB, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, *,
                 n_cand: int, margin: int, halfphone: bool, multivoice: bool,
-                ling_weights: tuple | None, precision: str, stage):
+                ling_weights: tuple | None, precision: str, zero_transient: int,
+                stage):
     """Normalise and weight the (B, T, kd) targets, preselect k + margin with
     the kernel at ``precision``, rescore in exact f32 and keep ``n_cand``.
-    Returns (live (B, T), candidate ids (B*T, n), target costs (B*T, n),
-    join-left and join-right contexts (B*T, n, dj))."""
+    ``zero_transient`` (config key: -1 auto, 0, 1) picks the kernel's
+    operand: the resident raw block, or (0) the operand derived from it for
+    this step (stage "derive"), with the margin of that form (none at
+    "highest").  Returns (live (B, T), candidate ids (B*T, n), target costs
+    (B*T, n), join-left and join-right contexts (B*T, n, dj))."""
     B, T, kd = targets.shape
     dev = targets.device
     m_pad = db.cut1.shape[0]
@@ -144,13 +150,23 @@ def _candidates(db: DeviceDB, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, *,
                         multivoice=multivoice, ling_weights=ling_weights)
     ling = ((tgt_codes.reshape(B * T), tgt_ctx.reshape(B * T, 5), ling_weights)
             if halfphone else None)
+    aff = (db.mean_t, db.std_t, db.sqrt_wt)
+    zt = resolve_zero_transient(zero_transient, precision)
     k_sel = min(n_cand + preselect_margin(True, precision, halfphone,
-                                          zero_transient=True, override=margin),
+                                          zero_transient=zt, override=margin),
                 m_pad)
-    with stage("preselect"):
-        idx, scores = cuda_topk_preselect(tw, db.raw, k_sel,
-                                          (db.mean_t, db.std_t, db.sqrt_wt), m_pad,
-                                          precision=precision, **masks)
+    if zt:
+        with stage("preselect"):
+            idx, scores = cuda_topk_preselect(tw, db.raw, k_sel, aff, m_pad,
+                                              precision=precision, **masks)
+    else:
+        with stage("derive"):
+            operand, sqn = derive_operand(db.raw, aff, db.n_real, m_pad, precision)
+        with stage("preselect"):
+            idx, scores = cuda_topk_preselect(tw, operand, k_sel, None, m_pad,
+                                              precision=precision, zero_transient=False,
+                                              sqn=sqn, **masks)
+        del operand, sqn
     with stage("rescore"):
         cand_idx, target_costs, jl, jr = _rescore(db, tw, idx.long(), scores,
                                                   live, n_cand, ling)
@@ -182,7 +198,8 @@ def synth_pipeline_step(db: DeviceDB, targets: torch.Tensor,
                         squared_joins: bool = False, margin: int = -1,
                         halfphone: bool = False, multivoice: bool = False,
                         ling_weights: tuple | None = None,
-                        precision: str = "highest", do_ola: bool = True,
+                        precision: str = "highest", zero_transient: int = -1,
+                        do_ola: bool = True,
                         stage_timer: utils.StageTimer | None = None):
     """Select, decode and concatenate B utterances in one step.
 
@@ -197,13 +214,16 @@ def synth_pipeline_step(db: DeviceDB, targets: torch.Tensor,
     to the DB rows whose voice id equals ``tgt_vids`` (B, T).  Either mode
     takes all three target arrays (``Synthesiser.batch_inputs``).
     ``precision``: the kernel's ranking precision (the rank margin follows
-    it).  ``do_ola=False``: the audio stays on the host (see
-    :func:`_concatenate`).  Returns (unit_ids (B, T), total costs (B,),
-    audio (B, out_len), total samples (B,)).
+    it); ``zero_transient``: the config key (-1 auto, 0 the derived
+    operand, 1 the raw block; see :func:`_candidates`).  ``do_ola=False``:
+    the audio stays on the host (see :func:`_concatenate`).  Returns
+    (unit_ids (B, T), total costs (B,), audio (B, out_len), total samples
+    (B,)).
 
-    ``stage_timer``: when given, each stage (preselect, rescore, decode,
-    ola) is timed into it, the device synchronised at every stage edge; for
-    measurement runs only, since the synchronisations serialise the step.
+    ``stage_timer``: when given, each stage (derive, with ``zero_transient:
+    0``; preselect, rescore, decode, ola) is timed into it, the device
+    synchronised at every stage edge; for measurement runs only, since the
+    synchronisations serialise the step.
     """
     stage = _stage_fn(stage_timer, targets.device)
     B, T, _ = targets.shape
@@ -211,7 +231,8 @@ def synth_pipeline_step(db: DeviceDB, targets: torch.Tensor,
     live, cand_idx, target_costs, jl, jr = _candidates(
         db, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, n_cand=n_cand,
         margin=margin, halfphone=halfphone, multivoice=multivoice,
-        ling_weights=ling_weights, precision=precision, stage=stage)
+        ling_weights=ling_weights, precision=precision,
+        zero_transient=zero_transient, stage=stage)
     n = cand_idx.shape[1]
     decode = greedy_decode if greedy else viterbi_decode
     kw = {} if greedy else {"search_epsilon": eps}
@@ -233,7 +254,8 @@ def streaming_step(db: DeviceDB, targets: torch.Tensor, n_live: int,
                    jcw_rest: float, *, n_cand: int, max_frag: int, out_len: int,
                    taper: int, squared_joins: bool = False, margin: int = -1,
                    multivoice: bool = False, precision: str = "highest",
-                   do_ola: bool = True, stage_timer: utils.StageTimer | None = None):
+                   zero_transient: int = -1, do_ola: bool = True,
+                   stage_timer: utils.StageTimer | None = None):
     """One streaming chunk: preselect, rescore, greedy decode from an
     incoming join context, and the chunk's OLA (counterpart of
     ``snickery_tpu.synth._streaming_step``).
@@ -243,7 +265,9 @@ def streaming_step(db: DeviceDB, targets: torch.Tensor, n_live: int,
     ``voice_id`` restricts the preselect to one voice of a merged DB
     (``multivoice``); ``init_ctx`` (dj,) is the join context carried from
     the previous chunk, weighted by ``jcw_first`` at the chunk's first step
-    (0 at the stream's start) and by ``jcw_rest`` after it.  The audio
+    (0 at the stream's start) and by ``jcw_rest`` after it;
+    ``zero_transient`` picks the kernel's operand as in
+    :func:`synth_pipeline_step`.  The audio
     covers the chunk's units including both tapers; the caller crossfades
     consecutive chunks by summing the trailing ``2 * taper`` samples into
     the next chunk's head.  Returns (unit ids (T,), outgoing context (dj,),
@@ -260,7 +284,8 @@ def streaming_step(db: DeviceDB, targets: torch.Tensor, n_live: int,
         db, targets.reshape(1, T, kd), lengths, codes,
         torch.zeros((1, T, 5), dtype=torch.int32, device=dev), vids,
         n_cand=n_cand, margin=margin, halfphone=False, multivoice=multivoice,
-        ling_weights=None, precision=precision, stage=stage)
+        ling_weights=None, precision=precision, zero_transient=zero_transient,
+        stage=stage)
     n = cand_idx.shape[1]
     with stage("greedy"):
         path, ctx = greedy_decode_stream(target_costs, jl.reshape(T, n, dj),
@@ -368,17 +393,10 @@ class Synthesiser:
             self._prepare_device_db()
 
     def _check_supported(self) -> None:
-        """Refuse what the port does not serve yet: meshes, and the derived
-        DB operand that ``zero_transient: 0`` asks the JAX package for (the
-        port's kernel always reads the resident raw block)."""
+        """Refuse what the port does not serve yet: meshes."""
         cfg = self.cfg
         if max(1, cfg.mesh_data) * max(1, cfg.mesh_db) > 1:
             raise NotImplementedError(f"multi-device meshes: {_TODO}")
-        if cfg.zero_transient == 0:
-            raise NotImplementedError(
-                "zero_transient: 0 (the derived DB operand with a separate sqn): "
-                "not ported to snickery_tpu_torch yet (see ROADMAP.md queue 2 "
-                "item 4.5); the port runs the zero-transient kernel (-1 or 1)")
         if cfg.preselect_precision not in PRECISIONS:
             raise ValueError(f"preselect_precision={cfg.preselect_precision!r}; "
                              f"have {PRECISIONS}")
@@ -598,7 +616,8 @@ class Synthesiser:
             margin=cfg.preselect_margin,
             halfphone=self._use_ling(), multivoice=self.is_multivoice,
             ling_weights=self._ling_weights(),
-            precision=cfg.preselect_precision, do_ola=cfg.preload_all_waves)
+            precision=cfg.preselect_precision, zero_transient=cfg.zero_transient,
+            do_ola=cfg.preload_all_waves)
         return (torch.from_numpy(tgts).to(dev), torch.from_numpy(lengths).to(dev),
                 kwargs)
 
@@ -780,6 +799,7 @@ class Synthesiser:
                           squared_joins=cfg.join_cost_type == "squared",
                           margin=cfg.preselect_margin, multivoice=self.is_multivoice,
                           precision=cfg.preselect_precision,
+                          zero_transient=cfg.zero_transient,
                           do_ola=cfg.preload_all_waves)
             stages["prep_ms"].append((time.perf_counter() - t_prep) * 1e3)
             t_disp = time.perf_counter()

@@ -1,7 +1,8 @@
 """The port on a CUDA card: the preselect kernel (its masked variants, its
-split-precision variants and the two composed) against its plain twin, and
-the synthesiser on the card against the same synthesiser on the CPU, for
-epoch, halfphone and merged voices, at the split precisions, and streaming.
+split-precision variants and the two composed, in both operand forms)
+against its plain twin, and the synthesiser on the card against the same
+synthesiser on the CPU, for epoch, halfphone and merged voices, at the
+split precisions, on the derived operand, and streaming.
 
 Marked ``cuda``; each test skips where no card is visible.  This file
 imports no jax, so it also runs on a GPU host without jax, where the
@@ -21,7 +22,7 @@ from snickery_tpu_torch.voicedb.device_layout import build_raw_blocks
 from snickery_tpu_torch.voicedb.multivoice import merge_voicedbs
 from snickery_tpu_torch.kernel_check import PROBE_RTOL, compare, split_probe_error
 from snickery_tpu_torch.ops import cuda_topk
-from snickery_tpu_torch.ops.cuda_topk import (cuda_topk_preselect, pack_meta,
+from snickery_tpu_torch.ops.cuda_topk import (cuda_topk_preselect, derive_operand, pack_meta,
                                               topk_preselect_zt_plain)
 from snickery_tpu_torch.synth import BACKOFF_LING_WEIGHTS, Synthesiser
 from snickery_tpu_torch.synthetic_voices import make_halfphone_utterances, phone_means
@@ -347,6 +348,96 @@ def test_streaming_on_card_matches_cpu(cuda_device, precision):
         (audio_g, ids_g), (audio_c, ids_c) = runs
         assert len(ids_g) == len(ids_c) == len(chunks)
         for g, c in zip(ids_g, ids_c):
+            np.testing.assert_array_equal(g, c)
+        for g, c in zip(audio_g, audio_c):
+            np.testing.assert_allclose(g, c, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["none", *sorted(VARIANTS)])
+@pytest.mark.parametrize("precision,k", [("highest", 30), ("split3", 40), ("split3cat", 48)])
+def test_derived_kernel_matches_plain(cuda_device, variant, precision, k):
+    """The twelve derived-operand entry points against their twin on the
+    same card tensors (the rule of kernel_check.compare), at kd 151 (T=300 x
+    M=8229) and kd 453 (2048 x 65536; the pre-split split3cat operand has
+    1,920-byte rows there), with duplicated rows, the last 37 rows padding
+    (never selected), a voice of k // 2 rows (starved slots (+inf, 0)), a
+    voice of none and a code no row carries."""
+    partition, weights = VARIANTS.get(variant, (False, None))
+    name = cuda_topk.kernel_name(partition, weights is not None, precision, False)
+    assert name.startswith("topk_preselect_dv")
+    for T, M, kd in ((300, 8229, KD), (2048, 65536, 3 * KD)):
+        rng, raw, aff = _block(T + M + kd + k, M, True, kd)
+        n_real = M - 37
+        D = lambda a: torch.from_numpy(a).to(cuda_device)
+        op, sqn = derive_operand(D(raw), tuple(map(D, aff)), n_real, M, precision)
+        if precision == "split3cat":
+            assert op.dtype == torch.bfloat16 and (op.shape[1] * 2) % 16 == 0
+        kw = {}
+        if variant != "none":
+            tc = rng.integers(0, 80, T).astype(np.int32)
+            tc[:16] = 80
+            tv = rng.integers(0, 7, T).astype(np.int32)
+            tv[16:48], tv[48:56] = 7, 9
+            dc = rng.integers(0, 80, M).astype(np.int32)
+            dx = rng.integers(0, 40, (M, 5)).astype(np.int32)
+            dv = rng.integers(0, 7, M).astype(np.int32)
+            dv[rng.choice(n_real, k // 2, replace=False)] = 7
+            dc[n_real:], dx[n_real:], dv[n_real:] = -1, -1, -1
+            kw = dict(tgt_meta=pack_meta(D(tc), D(rng.integers(0, 40, (T, 5)).astype(np.int32)),
+                                         D(tv)),
+                      db_meta=pack_meta(D(dc), D(dx), D(dv)), partition=partition,
+                      ling_weights=weights)
+        tg = D(rng.standard_normal((T, kd)).astype(np.float32))
+        before = cuda_topk.LAUNCH_COUNTS[name]
+        _, _, dead = compare(tg, op, None, M, k, precision, sqn=sqn, n_real=n_real, **kw)
+        assert cuda_topk.LAUNCH_COUNTS[name] == before + 1
+        if partition:
+            assert dead == 32 * (k - k // 2) + 8 * k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,kd", [("highest", 1200), ("split3cat", 3000)])
+def test_derived_kernel_refuses_a_shape_without_room(cuda_device, precision, kd):
+    """A kd whose pass 1 needs more than a block's 227 KB of shared memory
+    (partial_smem) is refused before any launch."""
+    rng, raw, aff = _block(kd, 256, False, kd)
+    D = lambda a: torch.from_numpy(a).to(cuda_device)
+    op, sqn = derive_operand(D(raw), tuple(map(D, aff)), 256, 256, precision)
+    tg = D(rng.standard_normal((64, kd)).astype(np.float32))
+    before = dict(cuda_topk.LAUNCH_COUNTS)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_topk_preselect(tg, op, 8, None, 256, precision=precision, zero_transient=False,
+                            sqn=sqn)
+    assert dict(cuda_topk.LAUNCH_COUNTS) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "split3", "split3cat"])
+def test_derived_synthesiser_on_card_matches_cpu(cuda_device, precision):
+    """Config 3 at zero_transient 0: the whole step on the card (the
+    operand derived on the card, the derived kernel, rescore, Viterbi, OLA)
+    gives the CPU path's unit ids and audio (atol 1e-5), and so does a
+    stream at split3cat; only the derived entry point launches."""
+    cfg = _epoch_config(preselect_precision=precision, zero_transient=0)
+    db = build_voicedb(cfg, _utterances(1, 40, 202))
+    held = [u.features for u in _utterances(2, 3, 258)]
+    gpu, cpu = Synthesiser(cfg, db, device=cuda_device), Synthesiser(cfg, db, device="cpu")
+    name = cuda_topk.kernel_name(False, False, precision, zero_transient=False)
+    before = dict(cuda_topk.LAUNCH_COUNTS)
+    out_g = gpu.synth_batch(held)
+    after = dict(cuda_topk.LAUNCH_COUNTS)
+    assert {n: after[n] - before.get(n, 0) for n in after if after[n] != before.get(n, 0)} == {
+        name: 1}
+    for g, c in zip(out_g, cpu.synth_batch(held)):
+        np.testing.assert_array_equal(g["unit_ids"], c["unit_ids"])
+        np.testing.assert_allclose(g["wave"], c["wave"], atol=1e-5)
+    if precision == "split3cat":
+        feats = held[0][1:-1]
+        chunks = [feats[i:i + 32] for i in range(0, len(feats), 32)]
+        audio_g = list(gpu.synth_streaming(iter(chunks)))
+        audio_c = list(cpu.synth_streaming(iter(chunks)))
+        for g, c in zip(gpu.last_stream_unit_ids, cpu.last_stream_unit_ids):
             np.testing.assert_array_equal(g, c)
         for g, c in zip(audio_g, audio_c):
             np.testing.assert_allclose(g, c, atol=1e-5)

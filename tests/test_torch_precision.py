@@ -190,8 +190,8 @@ def test_split_bf16_rounds_like_jax():
 def test_split_precision_with_masks_raises():
     """A split precision composes with the fused masks: the wrapper runs
     (on the CPU, the twin) and each variant has its own entry point, twelve
-    in all; what still raises is an unknown precision (ValueError) and a
-    fused mask without its metadata rows."""
+    in each operand form; what still raises is an unknown precision
+    (ValueError) and a fused mask without its metadata rows."""
     rng, raw, aff = _block(4, 1000, 1024, 24, False)
     tg = torch.from_numpy(rng.standard_normal((10, 24)).astype(np.float32))
     meta = torch.zeros((1024, cuda_topk.META_WIDTH), dtype=torch.int32)
@@ -210,7 +210,7 @@ def test_split_precision_with_masks_raises():
         cuda_topk.SPLIT_KERNELS.values())
     names = {cuda_topk.kernel_name(p, q, prec) for prec in cuda_topk.PRECISIONS
              for p in (False, True) for q in (False, True)}
-    assert names == set(cuda_topk.ALL_KERNELS) and len(names) == 12
+    assert names == set(cuda_topk.ALL_KERNELS[:12]) and len(names) == 12
 
 
 # ----------------------------------------------------- the Synthesiser paths

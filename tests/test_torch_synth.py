@@ -173,12 +173,10 @@ def test_cuda_device_raises_without_cuda(voices, monkeypatch):
 
 
 @pytest.mark.parametrize("override", [
-    {"zero_transient": 0}, {"mesh_db": 2}, {"mesh_data": 2},
-    {"entry": "resynth_magphase"}])
+    {"mesh_db": 2}, {"mesh_data": 2}, {"entry": "resynth_magphase"}])
 def test_unported_modes_raise(voices, override):
     """What the port does not serve yet raises NotImplementedError naming
-    ROADMAP: the derived DB operand (``zero_transient: 0``), meshes,
-    magphase."""
+    ROADMAP: meshes, magphase."""
     cfg, db, *_ = voices
     override = dict(override)
     kind, entry = override.pop("voice", None), override.pop("entry", None)
