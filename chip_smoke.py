@@ -465,6 +465,123 @@ def precision_variants_synthetic(torch) -> dict:
     return errs
 
 
+def select_case(torch, seed: int, T: int, M: int, kd: int, pileup: int):
+    """Card tensors of one selection-variant case: a raw block of M - 37
+    real rows (the last 37 padding) with duplicated rows and, with
+    ``pileup``, a run of that many near-duplicates in the block of row 512
+    under the first 16 targets; targets; labels with starved voices.
+    Returns (targets, raw, aff, n_real, labels as numpy)."""
+    from snickery_tpu_torch.kernel_check import pileup_block
+    from snickery_tpu_torch.voicedb.device_layout import build_raw_blocks
+    rng = np.random.default_rng(seed)
+    n_real = M - 37
+    feats = rng.standard_normal((n_real, kd), dtype=np.float32)
+    feats[100:140] = feats[50]
+    aff = ((0.1 * rng.standard_normal(kd)).astype(np.float32),
+           rng.uniform(0.5, 2.0, kd).astype(np.float32),
+           rng.uniform(0.2, 1.0, kd).astype(np.float32))
+    tg = rng.standard_normal((T, kd), dtype=np.float32)
+    if pileup:
+        pileup_block(feats, tg, aff, start=512, run=pileup, n_targets=16, seed=seed)
+    jr = np.zeros_like(feats)
+    jr[:-1] = feats[1:]
+    raw, _, _ = build_raw_blocks(feats, jr, M, affine=aff)
+    dev = torch.device("cuda")
+    return (torch.from_numpy(tg).to(dev), torch.from_numpy(raw).to(dev),
+            tuple(torch.from_numpy(a).to(dev) for a in aff), n_real, rng)
+
+
+def select_variants_synthetic(torch) -> dict:
+    """The four selection variants x both operand forms x three precisions
+    x four masks against their twins (kd 151 at T=300 x M=8229, kd 453 at
+    T=128 x M=8192; duplicated rows, 37 padding rows, starved voices, one
+    pile-up block): the rule of kernel_check.compare at the selection; at
+    "highest" ids, scores and flags equal the twin's exactly; "phase" equals
+    the stream kernel bit for bit; columns that "packed3diag" leaves
+    unflagged equal "packed"; "packed3" once with a pile-up (the fallback
+    must launch the stream kernel and return its result) and once without
+    (it must not).  Returns {entry point: max_abs_err}."""
+    from snickery_tpu_torch.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
+    from snickery_tpu_torch.ops import cuda_topk
+    from snickery_tpu_torch.ops.cuda_topk import (cuda_topk_preselect, derive_operand,
+                                                  kernel_name, pack_meta)
+    from snickery_tpu_torch.synth import BACKOFF_LING_WEIGHTS
+    errs = {}
+    variants = [(False, None), (True, None),
+                (False, (*QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE)),
+                (True, BACKOFF_LING_WEIGHTS)]
+    dev = torch.device("cuda")
+    for kd, T, M in ((KD, 300, 8192 + 37), (3 * KD, 128, 8192)):
+        tg, raw, aff, n_real, rng = select_case(torch, 13 * kd + T, T, M, kd, 10)
+        for precision, k in (("highest", 30), ("split3", 40), ("split3cat", 48)):
+            tc, tx, tv, dc, dx, dv = synthetic_labels(rng, T, M, k)
+            dc[n_real:], dx[n_real:], dv[n_real:] = -1, -1, -1
+            tc, tx, tv, dc, dx, dv = (torch.from_numpy(a).to(dev)
+                                      for a in (tc, tx, tv, dc, dx, dv))
+            meta = dict(tgt_meta=pack_meta(tc, tx, tv), db_meta=pack_meta(dc, dx, dv))
+            for zt in (True, False):
+                if zt:
+                    form = dict(raw_block=raw, db_affine=aff)
+                    cmp_args, cmp_kw = (tg, raw, aff, M, k, precision), {}
+                else:
+                    op, sqn = derive_operand(raw, aff, n_real, M, precision)
+                    form = dict(raw_block=op, db_affine=None, zero_transient=False, sqn=sqn)
+                    cmp_args, cmp_kw = (tg, op, None, M, k, precision), dict(sqn=sqn)
+                for partition, weights in variants:
+                    kw = (dict(meta, partition=partition, ling_weights=weights)
+                          if partition or weights else {})
+
+                    def kernel(select):
+                        return cuda_topk_preselect(tg, k=k, m_rows=M, precision=precision,
+                                                   select=select, **form, **kw)
+
+                    i_s, v_s = kernel("stream")
+                    i_p, v_p = kernel("packed")
+                    for select in ("phase", "packed", "packed3", "packed3diag"):
+                        name = kernel_name(partition, weights is not None, precision, zt,
+                                           select)
+                        err, nbad, dead = compare(
+                            *cmp_args, n_real=None if partition else n_real, select=select,
+                            **cmp_kw, **kw)
+                        errs[name] = max(errs.get(name, 0.0), err)
+                        if precision == "highest":
+                            check(err == 0.0 and nbad == 0,
+                                  f"{name} ({select}): not equal to its twin at highest")
+                        log(f"{name} ({select}) vs plain T={T} M={M} kd={kd} k={k}: "
+                            f"max_abs_err {err:.3e}, near-tie id swaps {nbad}, dead slots "
+                            f"{dead}")
+                    i_f, v_f = kernel("phase")
+                    check(torch.equal(i_f, i_s) and torch.equal(v_f, v_s),
+                          f"phase differs from stream ({precision}, zt {zt})")
+                    i_d, v_d, flags = kernel("packed3diag")
+                    clear = flags == 0
+                    check(torch.equal(i_d[clear], i_p[clear])
+                          and torch.equal(v_d[clear], v_p[clear]),
+                          "an unflagged packed3diag column differs from packed")
+                    if not kw:
+                        check(bool(flags[:16].all()),
+                              "the pile-up targets must raise the flag")
+                    i_3, v_3 = kernel("packed3")
+                    want = (i_s, v_s) if bool(flags.any()) else (i_p, v_p)
+                    check(torch.equal(i_3, want[0]) and torch.equal(v_3, want[1]),
+                          "packed3 must return the stream result where a flag is set, "
+                          "else the packed one")
+    # the fallback, seen in the launch counts: taken with a pile-up, not without
+    for pileup, T, M, k in ((10, 128, 65536 + 37, 8), (0, 128, 65536 + 37, 8)):
+        tg, raw, aff, n_real, _ = select_case(torch, 77, T, M, KD, pileup)
+        cuda_topk.LAUNCH_COUNTS.clear()
+        i_3, v_3 = cuda_topk_preselect(tg, raw, k, aff, M, select="packed3")
+        got = dict(cuda_topk.LAUNCH_COUNTS)
+        log(f"packed3 T={T} M={M} k={k} pile-up {pileup}: launches {got}")
+        check(got == ({"topk_preselect_zt_packed3": 1, "topk_preselect_zt": 1} if pileup
+                      else {"topk_preselect_zt_packed3": 1}),
+              f"packed3 fallback {'not ' if pileup else ''}taken: {got}")
+        other = cuda_topk_preselect(tg, raw, k, aff, M, select="stream" if pileup else "packed")
+        check(torch.equal(i_3, other[0]) and torch.equal(v_3, other[1]),
+              "packed3 must equal stream after a fallback and packed without")
+    return errs
+
+
 # -------------------------------------------------------------- voice checks
 def natural_rate(db, ids) -> float:
     return float((np.diff(db.unit_pos[ids]) == 1).mean())

@@ -11,6 +11,13 @@ tests (``tests/test_torch_cuda_kernel.py``).
   and a step adds 16 products.  On correlated rows (halfphone targets and
   their own units, all products of one sign) that reaches ~5e-3 on scores
   of ~1e3 at kd 453, where independent rows stay under 5e-4.
+  With ``select`` the same call compares a selection form: "phase" by the
+  rules of "stream"; the packed forms with :func:`packed_slack` added, 127
+  ulp of the ranked score (their keys drop 7 bits of it), and for
+  "packed3diag" the overflow flags too.
+- :func:`pileup_block`: a run of near-duplicate rows inside one 128-row
+  block, and targets that sit on them: more than three rows of one block
+  in a target's top-k, the case that makes "packed3" raise its flag.
 - :func:`split_probe_error`: the kernel at a split precision against the
   float64 sum of its three bf16 products, on operands where the products
   the split drops (lo * lo) are 2.7e-6 to 2.5e-5 of each dot product: a
@@ -28,9 +35,10 @@ import numpy as np
 import torch
 
 from snickery_tpu_torch.const import ID_RANK_PENALTY
-from snickery_tpu_torch.ops.cuda_topk import (cuda_topk_preselect, penalty_constants,
-                                              presplit_halves, split_cross64,
-                                              split_scores64, topk_preselect_dv_plain,
+from snickery_tpu_torch.ops.cuda_topk import (BLOCK_ROWS, _prescale, cuda_topk_preselect,
+                                              penalty_constants, presplit_halves,
+                                              split_cross64, split_scores64,
+                                              topk_preselect_dv_plain,
                                               topk_preselect_zt_plain)
 
 SCORE_ATOL = 1e-3        # |kernel - plain| on scores of ~1e2: f32 sums of
@@ -39,6 +47,9 @@ TIE_RTOL = 1e-5          # a differing id must be an f32 near-tie of the k-th
 F32_EPS = float(np.finfo(np.float32).eps)
 MMA_DEPTH = 16           # bf16 products an mma.sync m16n8k16 step adds
 PROBE_RTOL = 1e-6        # split probe: |score - f64 score| / (2 sum |t| |u|)
+PACKED_ULPS = BLOCK_ROWS - 1   # a packed key replaces the score's low 7 bits
+FLAG_ROWS = 0.01         # split precision: share of targets whose packed3 flags
+                         # may differ (a third key within rounding of the worst)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -109,30 +120,69 @@ def split_slack(targets, raw, aff, ids, precision, sqn=None) -> torch.Tensor:
     return -(-3 * kd // MMA_DEPTH) * F32_EPS * 2.0 * mag
 
 
+def packed_slack(vals, targets, aff, select) -> torch.Tensor:
+    """(n, k) float64: how far a packed selection may move a returned score
+    ``vals`` (n, k) from the one it ranked, 0 at "stream" and "phase":
+    :data:`PACKED_ULPS` f32 ulps of the score before ``comp`` was added
+    (``aff`` given: the zero-transient form, whose ``comp`` is taken off)."""
+    if select in ("stream", "phase"):
+        return torch.zeros(vals.shape, dtype=torch.float64, device=vals.device)
+    s = vals.double()
+    if aff is not None:
+        s = s - _prescale(targets, aff)[1].double()[:, None]
+    return PACKED_ULPS * F32_EPS * torch.where(torch.isfinite(s), s.abs(), 0.0)
+
+
+def pileup_block(feats, targets, aff=None, start: int = 512, run: int = 10,
+                 n_targets: int = 16, seed: int = 0):
+    """Plant, in place, ``run`` near-duplicate rows ``base + 1e-3 i`` at
+    feature rows ``start ..`` (all inside one 128-row block) of ``feats``
+    (M, kd) numpy, and put the first ``n_targets`` rows of ``targets`` on
+    ``base + 1e-4``: in the rows' own space, or normalised and weighted by
+    ``aff = (mean, std, sqrt_w)`` where ``feats`` are raw.  Those targets
+    then hold ``run`` rows of one block at the top of their list."""
+    if start // BLOCK_ROWS != (start + run - 1) // BLOCK_ROWS:
+        raise ValueError("the run must lie inside one 128-row block")
+    base = np.random.default_rng(seed).standard_normal(feats.shape[1]).astype(np.float32)
+    feats[start:start + run] = base + np.float32(1e-3) * np.arange(run, dtype=np.float32)[:, None]
+    hit = base + np.float32(1e-4)
+    if aff is not None:
+        mean, std, w = aff
+        hit = (hit - mean) / std * w
+    targets[:n_targets] = hit
+
+
 def compare(targets, raw, aff, m_rows, k, precision="highest", sqn=None, n_real=None,
-            **masks):
+            select="stream", **masks):
     """Kernel vs plain twin on the same card tensors, in the zero-transient
     form (``raw`` the raw block, ``aff`` its affine) or, with ``sqn``, the
-    derived one (``raw`` the operand, ``aff`` None); with ``n_real``, no
-    live slot of the kernel may hold a padding row.  Per row: scores
-    ascending; the same number of dead slots, each (+inf, 0); id sets
-    equal, except where the differing ids are f32 near-ties of the k-th
-    score (checked in float64, penalties included, on the three bf16
-    products at a split precision), on at most 1% of the rows; scores of
-    shared ids within SCORE_ATOL (at a split precision the larger of that
-    and :func:`split_slack`) plus one f32 ulp of the score (penalised
-    scores sit near 2^24, ulp 2).
+    derived one (``raw`` the operand, ``aff`` None), at the selection
+    ``select``; with ``n_real``, no live slot of the kernel may hold a
+    padding row.  Per row: scores ascending; the same number of dead slots,
+    each (+inf, 0); id sets equal, except where the differing ids are f32
+    near-ties of the k-th score (checked in float64, penalties included, on
+    the three bf16 products at a split precision), on at most 1% of the
+    rows; scores of shared ids within SCORE_ATOL (at a split precision the
+    larger of that and :func:`split_slack`) plus one f32 ulp of the score
+    (penalised scores sit near 2^24, ulp 2) plus :func:`packed_slack`.  At
+    "packed3diag" the flags are equal at "highest" and differ on at most
+    :data:`FLAG_ROWS` of the targets at a split precision.
     Returns (max_abs_err, rows_with_differing_ids, dead slots)."""
-    ik, vk = cuda_topk_preselect(targets, raw, k, aff, m_rows, precision=precision,
-                                 zero_transient=sqn is None, sqn=sqn, **masks)
+    ik, vk, *fk = cuda_topk_preselect(targets, raw, k, aff, m_rows, precision=precision,
+                                      zero_transient=sqn is None, sqn=sqn, select=select,
+                                      **masks)
     if sqn is None:
-        ip, vp = topk_preselect_zt_plain(targets, raw, k, aff, m_rows,
-                                         precision=precision, **masks)
+        ip, vp, *fp = topk_preselect_zt_plain(targets, raw, k, aff, m_rows,
+                                              precision=precision, select=select, **masks)
     else:
-        ip, vp = topk_preselect_dv_plain(targets, raw, sqn, k, m_rows,
-                                         precision=precision, **masks)
+        ip, vp, *fp = topk_preselect_dv_plain(targets, raw, sqn, k, m_rows,
+                                              precision=precision, select=select, **masks)
     if vk.is_cuda:
         torch.cuda.synchronize()
+    if fk:
+        n_diff = int((fk[0] != fp[0]).sum())
+        check(n_diff <= (0 if precision == "highest" else FLAG_ROWS * targets.shape[0]),
+              f"packed3 overflow flags differ on {n_diff} targets")
     check(bool((ik >= 0).all() and (ik < m_rows).all()), "kernel ids in range")
     if n_real is not None:
         check(bool((ik[torch.isfinite(vk)] < n_real).all()), "a padding row was selected")
@@ -150,9 +200,12 @@ def compare(targets, raw, aff, m_rows, k, precision="highest", sqn=None, n_real=
     diff = (vk_s - vp_s).abs()[live]
     err = float(diff.max()) if diff.numel() else 0.0
     slack = split_slack(targets, raw, aff, ip_s, precision, sqn)
-    allowed = torch.clamp(slack[live], min=SCORE_ATOL) + F32_EPS * vp_s.abs()[live]
+    packed = packed_slack(vp_s, targets, aff if sqn is None else None, select)
+    allowed = (torch.clamp(slack[live], min=SCORE_ATOL) + F32_EPS * vp_s.abs()[live]
+               + packed[live])
     check(bool((diff <= allowed).all()),
-          f"score error {err} beyond max({SCORE_ATOL}, accumulation bound) + 1 ulp")
+          f"score error {err} beyond max({SCORE_ATOL}, accumulation bound) + 1 ulp"
+          + ("" if select in ("stream", "phase") else f" + {PACKED_ULPS} ulp"))
     bad = torch.nonzero(~same).flatten()
     if len(bad):
         sub = {}
@@ -164,7 +217,7 @@ def compare(targets, raw, aff, m_rows, k, precision="highest", sqn=None, n_real=
             return torch.where(torch.isinf(s), -float("inf"), s).max(1).values
 
         worst_k, worst_p = worst(ik_s), worst(ip_s)
-        row_slack = slack[bad].max(1).values
+        row_slack = (slack + packed)[bad].max(1).values
         gap = float(((worst_k - worst_p - row_slack) / worst_p.abs().clamp(min=1.0)).max())
         check(gap <= TIE_RTOL, f"differing ids are not near-ties (gap {gap})")
         check(len(bad) <= 0.01 * targets.shape[0], f"{len(bad)} rows differ")

@@ -1,16 +1,39 @@
 """Fused distance + top-k preselect over the unit DB.
 
 Counterpart of ``snickery_tpu/ops/pallas_topk.py::pallas_topk_preselect``
-in the forms the synthesis paths run (``select="stream"``), in both operand
-forms: zero_transient=True (the resident raw block) and False (the derived
-operand, config ``zero_transient: 0``); each at precision "highest" and the
-bf16-split precisions "split3" and "split3cat", each with or without the
-fused voice partition mask and the fused quinphone penalties (24 entry
-points).  The CUDA C++ kernels live in ``csrc/topk_preselect.cuh`` and are
-exported by ``csrc/topk_preselect.cu`` (zero-transient) and
-``csrc/topk_derived.cu`` (derived); their plain PyTorch twins
-:func:`topk_preselect_zt_plain` and :func:`topk_preselect_dv_plain` compute
-the same things.
+in both operand forms: zero_transient=True (the resident raw block) and
+False (the derived operand, config ``zero_transient: 0``); each at precision
+"highest" and the bf16-split precisions "split3" and "split3cat", each with
+or without the fused voice partition mask and the fused quinphone
+penalties, and each in every selection form of the Pallas kernel:
+``select="stream"`` (the one the synthesis paths run), "phase", "packed",
+"packed3" and "packed3diag" (reached from sweeps only, as in the JAX
+package: :mod:`snickery_tpu_torch.sweep_topk`).  That is 24 entry points a
+selection, 96 in all ("packed3diag" is the "packed3" kernel with its flags
+returned).  The CUDA C++ kernels live in ``csrc/topk_preselect.cuh`` and
+are exported by ``csrc/topk_preselect*.cu`` (zero-transient) and
+``csrc/topk_derived*.cu`` (derived), one source a selection; their plain
+PyTorch twins :func:`topk_preselect_zt_plain` and
+:func:`topk_preselect_dv_plain` compute the same things.
+
+Selections (:data:`SELECTS`).  "stream" and "phase" are the exact
+(score, index) top-k, equal bit for bit; they differ in how the kernel finds
+it.  "packed" ranks by :func:`packed_keys`: the order-preserving int key of
+the score (:func:`to_key`) with its low 7 bits replaced by ``u & 127``, u
+the DB row (the Pallas default BLOCK = 128), ties by u; the returned scores
+are the unpacked keys (:func:`from_key`), within 127 ulp of the ranked
+score, so callers use it with the rank margin.  "packed3" takes, per
+128-row block, only the three least keys, and flags a target whose worst
+kept key lies above some block's third key (a fourth row of that block
+might belong in the list; the flag is conservative); a target without flag
+has exactly the "packed" result.  If any target is flagged, "packed3"
+returns the "stream" result instead (the flags are read back: one host
+synchronisation, then a launch of the stream kernel), so it is exact either
+way; "packed3diag" returns the fast path as it is and the (T,) int32 flags
+as a third tensor.  Unlike the Pallas kernel, a +inf score takes no key in
+the packed forms: dead slots read (+inf, 0) in every selection, and a
+target starved by its partition is flagged only where a block holds three
+of its finite scores.
 
 Precisions (``pallas_topk._split3_dot``, ``_bf16_split``): "highest" forms
 ``u.t2`` in f32; "split3" and "split3cat" split both operands into bf16
@@ -91,6 +114,12 @@ SPLIT_KERNELS = {"split3": "topk_preselect_zt_split3",
 _MASK_SUFFIX = {(False, False): "", (True, False): "_part", (False, True): "_ling",
                 (True, True): "_ling_part"}
 SPLIT_KC = 32              # the kernel's KC: a pre-split half is padded to a multiple
+# selection forms; the kernel codes are their positions (packed3diag: packed3's)
+SELECTS = ("stream", "phase", "packed", "packed3", "packed3diag")
+BLOCK_ROWS = 128           # rows of a packed3 block; a packed key carries u & 127
+KEY_EMPTY = 0x7FFFFFFF     # no key: an empty slot, a +inf score
+_KEY_INF = 0x7F800000      # to_key(+inf)
+_NO_PAIR = torch.iinfo(torch.int64).max   # (KEY_EMPTY, no row) as one int64
 # launches of each hand-written kernel by its wrapper, for run reports
 # (updated under _LOCK: a server launches from several threads)
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
@@ -100,22 +129,53 @@ _TARGET_CTAS_PER_SM = 4    # two resident CTAs per SM, two waves
 
 
 def kernel_name(partition: bool, linguistic: bool, precision: str = "highest",
-                zero_transient: bool = True) -> str:
+                zero_transient: bool = True, select: str = "stream") -> str:
     """The kernel entry point (without its ``snk_`` prefix) of a variant:
     ``topk_preselect_zt...`` reads the raw block, ``topk_preselect_dv...``
-    the derived operand."""
+    the derived operand; any selection but "stream" is the name's suffix
+    ("packed3diag" runs the ``_packed3`` entry point)."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; have {PRECISIONS}")
+    if select not in SELECTS:
+        raise ValueError(f"unknown select {select!r}; have {SELECTS}")
     if precision == "highest":
         name = KERNELS[bool(partition), bool(linguistic)]
     else:
         name = SPLIT_KERNELS[precision] + _MASK_SUFFIX[bool(partition), bool(linguistic)]
+    if select != "stream":
+        name += "_" + select.removesuffix("diag")
     return name if zero_transient else name.replace("_zt", "_dv", 1)
 
 
-# every entry point, in (form, precision, partition, linguistic) order
+# the stream entry points, in (form, precision, partition, linguistic) order,
+# and every entry point: those at each selection
 ALL_KERNELS = tuple(kernel_name(p, ling, prec, zt) for zt in (True, False)
                     for prec in PRECISIONS for p in (False, True) for ling in (False, True))
+ALL_ENTRY_POINTS = tuple(name + ("" if sel == "stream" else "_" + sel)
+                         for sel in SELECTS[:4] for name in ALL_KERNELS)
+
+
+def to_key(scores: torch.Tensor) -> torch.Tensor:
+    """Order-preserving f32 -> int32 key (``pallas_topk._to_key``):
+    non-negative bit patterns as they are, negative ones with their
+    magnitude bits flipped, so int ``<`` is float ``<`` (and -0.0 sorts
+    below +0.0)."""
+    bits = scores.contiguous().view(torch.int32)
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
+def from_key(keys: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`to_key` for packed keys (``pallas_topk._from_key``):
+    clamped at the +inf pattern, so :data:`KEY_EMPTY` reads +inf."""
+    keys = keys.clamp(max=_KEY_INF)
+    return torch.where(keys < 0, keys ^ 0x7FFFFFFF, keys).contiguous().view(torch.float32)
+
+
+def packed_keys(scores: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """int32 packed keys of ``scores`` at DB rows ``rows`` (broadcast against
+    them): :func:`to_key` with the low 7 bits replaced by ``rows & 127``
+    (``pallas_topk.py:524-527`` at BLOCK = 128)."""
+    return (to_key(scores) & ~(BLOCK_ROWS - 1)) | (rows.to(torch.int32) & (BLOCK_ROWS - 1))
 
 
 def presplit_width(kd: int) -> int:
@@ -267,26 +327,26 @@ def _apply_masks(scores, tm, dm, partition, pens):
     return scores
 
 
-def _plain_select(T, k, m_rows, scores_of, tgt_meta, db_meta, partition, ling_weights,
+def _masked_scores(scores_of, t0, t1, lo, hi, tgt_meta, db_meta, partition, pens):
+    scores = scores_of(t0, t1, lo, hi)
+    if partition or pens is not None:
+        scores = _apply_masks(scores, tgt_meta[t0:t1], db_meta[lo:hi], partition, pens)
+    return scores
+
+
+def _exact_select(T, k, m_rows, scores_of, tgt_meta, db_meta, partition, pens,
                   t_block, chunk):
-    """Exact (score, index) top-k over DB rows [0, m_rows), the chunk loop of
-    both twins: ``scores_of(t0, t1, lo, hi)`` gives the (t1 - t0, hi - lo)
-    ranking scores of targets [t0, t1) against rows [lo, hi); the fused
-    masks go on in the kernel's order; the lowest index wins ties and a slot
-    with no finite score reads (+inf, 0).  Returns (indices (T, k) int32,
-    scores (T, k) f32), ascending."""
-    masked = partition or ling_weights is not None
-    pens = None if ling_weights is None else penalty_constants(ling_weights)
+    """Exact (score, index) top-k over DB rows [0, m_rows), "stream" and
+    "phase": the lowest index wins ties and a slot with no finite score
+    reads (+inf, 0)."""
     out_i, out_v = [], []
     for t0 in range(0, T, t_block):
         t1 = min(t0 + t_block, T)
         vals, cols = [], []
         for lo in range(0, m_rows, chunk):
             hi = min(lo + chunk, m_rows)
-            scores = scores_of(t0, t1, lo, hi)
-            if masked:
-                scores = _apply_masks(scores, tgt_meta[t0:t1], db_meta[lo:hi],
-                                      partition, pens)
+            scores = _masked_scores(scores_of, t0, t1, lo, hi, tgt_meta, db_meta,
+                                    partition, pens)
             v, c = smallest_k(scores, min(k, hi - lo),
                               torch.arange(lo, hi, device=scores.device))
             vals.append(v)
@@ -297,21 +357,101 @@ def _plain_select(T, k, m_rows, scores_of, tgt_meta, db_meta, partition, ling_we
     return torch.cat(out_i), torch.cat(out_v)
 
 
+def _key_pairs(keys, rows):
+    """(key, row) as one int64 whose order is the pair's; :data:`_NO_PAIR`
+    where the key is :data:`KEY_EMPTY`."""
+    pairs = (keys.to(torch.int64) << 32) | rows.to(torch.int64)
+    return torch.where(keys == KEY_EMPTY, _NO_PAIR, pairs)
+
+
+def _packed_select(T, k, m_rows, scores_of, tgt_meta, db_meta, partition, pens,
+                   t_block, chunk, three: bool):
+    """The packed selections over DB rows [0, m_rows).  "packed": the k
+    least (key, row) pairs.  ``three`` ("packed3"'s fast path): the k least
+    among each 128-row block's three least keys, and per target the flag
+    ``least third key of any block < worst kept key`` (:data:`KEY_EMPTY`
+    while the list has room).  A score that is not below +inf takes no key.
+    Returns (indices (T, k) int32, unpacked scores (T, k) f32, flags (T,)
+    int32 or None); a slot no key reaches reads (+inf, 0)."""
+    if three and chunk % BLOCK_ROWS:
+        raise ValueError(f"chunk={chunk} must be a multiple of {BLOCK_ROWS}")
+    out_i, out_v, out_f = [], [], []
+    for t0 in range(0, T, t_block):
+        t1 = min(t0 + t_block, T)
+        best, third = [], None
+        for lo in range(0, m_rows, chunk):
+            hi = min(lo + chunk, m_rows)
+            scores = _masked_scores(scores_of, t0, t1, lo, hi, tgt_meta, db_meta,
+                                    partition, pens)
+            rows = torch.arange(lo, hi, device=scores.device)
+            keys = torch.where(scores < float("inf"), packed_keys(scores, rows), KEY_EMPTY)
+            if three:
+                pad = -(hi - lo) % BLOCK_ROWS
+                keys = torch.nn.functional.pad(keys, (0, pad), value=KEY_EMPTY)
+                keys = keys.reshape(t1 - t0, -1, BLOCK_ROWS)
+                keys = torch.topk(keys, 3, dim=2, largest=False, sorted=True).values
+                least = keys[:, :, 2].min(dim=1).values
+                third = least if third is None else torch.minimum(third, least)
+                starts = lo + BLOCK_ROWS * torch.arange(keys.shape[1], device=keys.device)
+                rows = (starts[None, :, None] + (keys & (BLOCK_ROWS - 1))).flatten(1)
+                keys = keys.flatten(1)
+            pairs = _key_pairs(keys, rows)
+            best.append(torch.topk(pairs, min(k, pairs.shape[1]), dim=1, largest=False,
+                                   sorted=True).values)
+        pairs = torch.cat(best, 1)
+        if pairs.shape[1] < k:                           # fewer than k / 3 blocks
+            pairs = torch.nn.functional.pad(pairs, (0, k - pairs.shape[1]), value=_NO_PAIR)
+        pairs = torch.topk(pairs, k, dim=1, largest=False, sorted=True).values
+        keys = (pairs >> 32).to(torch.int32)             # _NO_PAIR: KEY_EMPTY
+        out_i.append(torch.where(pairs == _NO_PAIR, 0, pairs & 0xFFFFFFFF).to(torch.int32))
+        out_v.append(from_key(keys))
+        if three:
+            out_f.append((third < keys[:, -1]).to(torch.int32))
+    return torch.cat(out_i), torch.cat(out_v), torch.cat(out_f) if three else None
+
+
+def _plain_select(T, k, m_rows, scores_of, tgt_meta, db_meta, partition, ling_weights,
+                  t_block, chunk, select="stream", comp=None):
+    """The chunk loop of both twins at one selection: ``scores_of(t0, t1,
+    lo, hi)`` gives the (t1 - t0, hi - lo) ranking scores of targets
+    [t0, t1) against rows [lo, hi); the fused masks go on in the kernel's
+    order; ``comp`` (T,) is added to the selected scores.  Returns (indices
+    (T, k) int32, scores (T, k) f32), ascending, and for "packed3diag" the
+    (T,) int32 overflow flags as well."""
+    if select not in SELECTS:
+        raise ValueError(f"unknown select {select!r}; have {SELECTS}")
+    pens = None if ling_weights is None else penalty_constants(ling_weights)
+    args = (T, k, m_rows, scores_of, tgt_meta, db_meta, partition, pens, t_block, chunk)
+    flags = None
+    if select in ("packed", "packed3", "packed3diag"):
+        idx, vals, flags = _packed_select(*args, three=select != "packed")
+    if select in ("stream", "phase") or (select == "packed3" and bool(flags.any())):
+        idx, vals = _exact_select(*args)
+    if comp is not None:
+        vals = vals + comp[:, None]
+    return (idx, vals, flags) if select == "packed3diag" else (idx, vals)
+
+
 def topk_preselect_zt_plain(targets, raw_block, k, db_affine, m_rows, *,
                             tgt_meta=None, db_meta=None, partition=False,
                             ling_weights=None, precision: str = "highest",
-                            t_block: int = 4096, chunk: int = 65536):
+                            select: str = "stream", t_block: int = 4096,
+                            chunk: int = 65536):
     """Plain PyTorch twin of the zero-transient kernel: the same algebra in
     chunked matmuls (:func:`cross_products` at ``precision``), the fused
-    masks in the kernel's order, and exact (score, index) selection (lowest
-    index wins ties; a slot with no finite score reads (+inf, 0)).
+    masks in the kernel's order, and the selection ``select`` (module
+    docstring; "stream" and "phase": exact (score, index) selection, lowest
+    index wins ties; a slot with no finite score reads (+inf, 0) in all).
     ``ling_weights`` (w0..w4, scale) turns the quinphone penalties on,
     ``partition`` the voice mask; both read the (rows, META_WIDTH)
-    ``tgt_meta`` / ``db_meta`` of :func:`pack_meta`.
+    ``tgt_meta`` / ``db_meta`` of :func:`pack_meta`.  The packed selections
+    rank the scores before ``comp`` is added.  The result does not depend on
+    ``t_block`` or ``chunk`` (a multiple of 128 for "packed3").
 
-    Returns (indices (T, k) int32, scores (T, k) f32), ascending."""
+    Returns (indices (T, k) int32, scores (T, k) f32), ascending, and for
+    "packed3diag" the (T,) int32 overflow flags."""
     masked = partition or ling_weights is not None
-    kernel_name(partition, ling_weights is not None, precision)
+    kernel_name(partition, ling_weights is not None, precision, select=select)
     _check(targets, raw_block, k, m_rows, tgt_meta, db_meta, masked, db_affine=db_affine)
     kd = targets.shape[1]
     t2, comp = _prescale(targets, db_affine)
@@ -321,9 +461,8 @@ def topk_preselect_zt_plain(targets, raw_block, k, db_affine, m_rows, *,
         return rows[:, kd][None, :] - 2.0 * cross_products(t2[t0:t1], rows[:, :kd],
                                                             precision)
 
-    idx, vals = _plain_select(targets.shape[0], k, m_rows, scores_of, tgt_meta, db_meta,
-                              partition, ling_weights, t_block, chunk)
-    return idx, vals + comp[:, None]
+    return _plain_select(targets.shape[0], k, m_rows, scores_of, tgt_meta, db_meta,
+                         partition, ling_weights, t_block, chunk, select, comp)
 
 
 def derive_operand(raw_block, db_affine, n_real, m_rows: int, precision: str = "highest"):
@@ -362,17 +501,18 @@ def derive_operand(raw_block, db_affine, n_real, m_rows: int, precision: str = "
 
 def topk_preselect_dv_plain(targets, operand, sqn, k, m_rows, *, tgt_meta=None,
                             db_meta=None, partition=False, ling_weights=None,
-                            precision: str = "highest", t_block: int = 4096,
-                            chunk: int = 65536):
+                            precision: str = "highest", select: str = "stream",
+                            t_block: int = 4096, chunk: int = 65536):
     """Plain PyTorch twin of the derived-operand kernel: ``sqn - 2 * u.t``
     of the normalised, weighted targets against the operand of
     :func:`derive_operand` at ``precision`` (its pre-split halves at
     "split3cat"), in the chunk loop of :func:`topk_preselect_zt_plain`
-    with the same masks and selection, nothing added back.
+    with the same masks and selections, nothing added back.
 
-    Returns (indices (T, k) int32, scores (T, k) f32), ascending."""
+    Returns (indices (T, k) int32, scores (T, k) f32), ascending, and for
+    "packed3diag" the (T,) int32 overflow flags."""
     masked = partition or ling_weights is not None
-    kernel_name(partition, ling_weights is not None, precision, zero_transient=False)
+    kernel_name(partition, ling_weights is not None, precision, False, select)
     _check(targets, operand, k, m_rows, tgt_meta, db_meta, masked, sqn=sqn,
            precision=precision)
     kd = targets.shape[1]
@@ -384,7 +524,7 @@ def topk_preselect_dv_plain(targets, operand, sqn, k, m_rows, *, tgt_meta=None,
         return sqn[lo:hi][None, :] - 2.0 * cross_products(targets[t0:t1], rows, precision)
 
     return _plain_select(targets.shape[0], k, m_rows, scores_of, tgt_meta, db_meta,
-                         partition, ling_weights, t_block, chunk)
+                         partition, ling_weights, t_block, chunk, select)
 
 
 def _kernel():
@@ -398,15 +538,18 @@ def _kernel():
 def _bound_library():
     from snickery_tpu_torch.ops._build import kernel_library
     lib = kernel_library().lib
-    for name in ALL_KERNELS:
+    for name in ALL_ENTRY_POINTS:
         fn = getattr(lib, "snk_" + name)
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float] * 5
-                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                       + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    lib.snk_topk_partial_smem.argtypes = [ctypes.c_int] * 4
+    lib.snk_topk_partial_smem.argtypes = [ctypes.c_int] * 5
     lib.snk_topk_partial_smem.restype = ctypes.c_size_t
     lib.snk_topk_tile_rows.restype = ctypes.c_int
     lib.snk_topk_db_tile_rows.restype = ctypes.c_int
+    lib.snk_topk_block_rows.restype = ctypes.c_int
+    if lib.snk_topk_block_rows() != BLOCK_ROWS:
+        raise RuntimeError("the kernels' packed3 block is not BLOCK_ROWS")
     return lib
 
 
@@ -426,7 +569,7 @@ def split_plan(T: int, m_rows: int, n_sm: int, tile_rows: int,
 def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
                         tgt_meta=None, db_meta=None, partition=False,
                         ling_weights=None, precision: str = "highest",
-                        zero_transient: bool = True, sqn=None):
+                        zero_transient: bool = True, sqn=None, select: str = "stream"):
     """Top-k DB rows per target: exact at precision "highest", ranked by the
     bf16-split products at "split3" / "split3cat".
 
@@ -443,13 +586,20 @@ def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
     ``ling_weights`` (w0..w4, scale): add the quinphone penalties; either
     reads ``tgt_meta`` (T, 8) and ``db_meta`` (>= m_rows, 8) int32
     (:func:`pack_meta`).
+    ``select``: the selection form (:data:`SELECTS`, module docstring); the
+    synthesis paths run "stream".  "packed3" reads its overflow flags back
+    to the host (one synchronisation) and, if any is set, launches the
+    stream kernel and returns its result.
     Returns (indices (T, k) int32, scores (T, k) f32): the k best
-    (score, index) pairs, scores = squared distance (plus penalties) minus
-    ||t||^2, (+inf, 0) in a slot no row reaches.  On a CUDA device the
-    hand-written kernel of the variant runs (ascending order); on the CPU
-    the plain twin of the form."""
+    (score, index) pairs ((key, index) pairs at a packed selection), scores
+    = squared distance (plus penalties) minus ||t||^2, (+inf, 0) in a slot
+    no row reaches; for "packed3diag" also the (T,) int32 overflow flags.
+    On a CUDA device the hand-written kernel of the variant and selection
+    runs (ascending order); on the CPU the plain twin of the form."""
     kw = dict(tgt_meta=tgt_meta, db_meta=db_meta, partition=partition,
               ling_weights=ling_weights, precision=precision)
+    if select not in SELECTS:
+        raise ValueError(f"unknown select {select!r}; have {SELECTS}")
     if zero_transient != (sqn is None):
         raise ValueError("sqn goes with zero_transient=False (the derived operand), "
                          "and only with it")
@@ -458,25 +608,29 @@ def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
                          "must be None")
     if raw_block.device.type == "cpu":
         if zero_transient:
-            return topk_preselect_zt_plain(targets, raw_block, k, db_affine, m_rows, **kw)
-        return topk_preselect_dv_plain(targets, raw_block, sqn, k, m_rows, **kw)
+            return topk_preselect_zt_plain(targets, raw_block, k, db_affine, m_rows,
+                                           select=select, **kw)
+        return topk_preselect_dv_plain(targets, raw_block, sqn, k, m_rows, select=select, **kw)
     if raw_block.device.type != "cuda":
         raise ValueError(f"unsupported device {raw_block.device}")
     linguistic = ling_weights is not None
     masked = partition or linguistic
-    name = kernel_name(partition, linguistic, precision, zero_transient)
+    name = kernel_name(partition, linguistic, precision, zero_transient, select)
     _check(targets, raw_block, k, m_rows, tgt_meta, db_meta, masked, db_affine=db_affine,
            sqn=sqn, precision=precision)
     lib = _kernel()
     T, kd = targets.shape
-    if lib.snk_topk_partial_smem(kd, k, int(masked), PRECISIONS.index(precision)) > 227 * 1024:
+    three = select in ("packed3", "packed3diag")
+    sel_code = SELECTS.index("packed3" if three else select)
+    if lib.snk_topk_partial_smem(kd, k, int(masked), PRECISIONS.index(precision),
+                                 sel_code) > 227 * 1024:
         raise ValueError(f"kd={kd} needs more shared memory than a block has")
     if raw_block.dtype == torch.bfloat16 and raw_block.data_ptr() % 16:
         raise ValueError("the pre-split operand must start on a 16-byte boundary")
     dev = raw_block.device
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     splits, rows = split_plan(T, m_rows, n_sm, lib.snk_topk_tile_rows(),
-                              lib.snk_topk_db_tile_rows())
+                              BLOCK_ROWS if three else lib.snk_topk_db_tile_rows())
     if zero_transient:
         t2, third = _prescale(targets, db_affine)      # third: comp
         t2 = t2.contiguous()
@@ -487,16 +641,25 @@ def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
     part_i = torch.empty((T, splits, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((T, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((T, k), dtype=torch.int32, device=dev)
+    part_third = flags = None
+    if three:
+        part_third = torch.empty((T, splits), dtype=torch.int32, device=dev)
+        flags = torch.empty((T,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = getattr(lib, "snk_" + name)(
         t2.data_ptr(), raw_block.data_ptr(), third.data_ptr(),
         tgt_meta.data_ptr() if masked else None,
         db_meta.data_ptr() if masked else None, *pens,
-        part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
-        out_i.data_ptr(), T, kd, raw_block.shape[1], m_rows, k, splits, rows,
-        stream)
+        part_v.data_ptr(), part_i.data_ptr(), part_third.data_ptr() if three else None,
+        out_v.data_ptr(), out_i.data_ptr(), flags.data_ptr() if three else None,
+        T, kd, raw_block.shape[1], m_rows, k, splits, rows, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
     with _LOCK:
         LAUNCH_COUNTS[name] += 1
+    if select == "packed3diag":
+        return out_i, out_v, flags
+    if select == "packed3" and bool(flags.any()):
+        return cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows,
+                                   zero_transient=zero_transient, sqn=sqn, **kw)
     return out_i, out_v

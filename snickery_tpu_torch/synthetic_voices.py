@@ -2,6 +2,7 @@
 and for the card tests: no audio files and no analysis, only seeded random
 walks shaped like the features a built voice holds.
 
+- ``ar1_walks``: the feature walks alone (kernel sweeps);
 - ``make_utterances``: epoch-rate utterances (config-3 / config-5 style);
 - ``make_halfphone_utterances`` with ``phone_means``: labelled utterances
   with HalfphoneSegment labels and quinphone contexts (config-2 style).
@@ -22,19 +23,27 @@ KD = sum(DATADIMS.values())
 N_PHONES = 40            # 40 phones -> 80 halfphones (_L, _R)
 
 
+def ar1_walks(rng, n_walks: int, length: int, dim: int) -> np.ndarray:
+    """(n_walks, length, dim) f32 stationary AR(1) walks of unit variance and
+    lag-1 correlation 0.95: neighbouring rows are near-duplicates, as the
+    consecutive epochs of an utterance are."""
+    a = np.float32(0.95)
+    x = rng.standard_normal((n_walks, dim), dtype=np.float32)
+    feats = np.empty((n_walks, length, dim), np.float32)
+    for e in range(length):
+        feats[:, e] = x
+        x = a * x + np.float32(np.sqrt(1 - a * a)) * rng.standard_normal(
+            (n_walks, dim), dtype=np.float32)
+    return feats
+
+
 def make_utterances(rng, n_utts: int, n_epochs, prefix: str):
     """Synthetic epoch-rate utterances: a smooth f0 contour gives
     80-160-sample periods; features are an AR(1) walk per utterance (so
     natural joins matter); waves are low-amplitude noise of matching length."""
     n_epochs = np.broadcast_to(np.asarray(n_epochs), (n_utts,))
     E = int(n_epochs.max())
-    a = np.float32(0.95)
-    x = rng.standard_normal((n_utts, KD), dtype=np.float32)
-    feats = np.empty((n_utts, E, KD), np.float32)
-    for e in range(E):
-        feats[:, e] = x
-        x = a * x + np.float32(np.sqrt(1 - a * a)) * rng.standard_normal(
-            (n_utts, KD), dtype=np.float32)
+    feats = ar1_walks(rng, n_utts, E, KD)
     phase = rng.uniform(0, 2 * np.pi, (n_utts, 1))
     rate = rng.uniform(0.005, 0.02, (n_utts, 1))
     periods = np.rint(120 + 40 * np.sin(rate * np.arange(E)[None, :] + phase)).astype(np.int64)
