@@ -98,7 +98,28 @@ Phases, each timed, any failure ending the run with a non-zero exit:
     voices, so that every masked derived entry point runs on a main path;
 21. the server on the config-5 voice at ``zero_transient: 0`` and
     split3cat: 16 concurrent ``POST /synth``, ids equal to direct calls,
-    no leaks.
+    no leaks;
+22. the selection variants (``select="phase"``, ``"packed"``, ``"packed3"``,
+    ``"packed3diag"``) x both operand forms x three precisions x four masks
+    against their twins (kd 151 and 453, duplicated rows, 37 padding rows,
+    starved voices, one pile-up block): equal to the twin exactly at
+    "highest", "phase" equal to "stream" bit for bit, unflagged
+    "packed3diag" columns equal to "packed", "packed3" exact with a pile-up
+    (the stream kernel launches) and without (it does not) (this check runs
+    with phases 3, 4, 9, 13 and 18);
+23. the kernel sweep, the path that reaches those variants: ``python -m
+    snickery_tpu_torch.sweep_topk`` called in process, once per operand
+    form and mask at 2,048 x 131,072 x 151 over every precision and
+    selection, and once at its default shape (16,384 x 1,048,576, k 30)
+    with ``--pileup 6``; all 72 variant entry points must have launched;
+    then each of them against its twin, timed, at the sweep's small shape;
+24. the variants at the config-3 batch shape (65,536 x 1,048,576 x 151,
+    zero-transient) at "highest" (k 40) and split3cat (k 48): "phase",
+    "packed" and "packed3diag" against their twins, timed beside the stream
+    kernel of the same run; the overflow count on the voice and on a copy
+    with planted runs of 6 near-duplicates; at "highest" the packed
+    top-(30 + margin) must hold the stream top-30 of every target (these
+    checks run inside phases 5 and 10).
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after; the kernel it needs must have launched.  Standard output ends
@@ -134,9 +155,6 @@ T_BUCKET = 2048
 HP_UTTS = 625            # config 2: 625 x 80 = 50,000 halfphone units
 MV_EPOCHS = [351] * 93 + [313]   # config 5: 32,768 units a voice, 8 voices
 COMP_UTTS = 60           # composition: 4,800 halfphone units a voice
-# the entry points' sources (both include csrc/topk_preselect.cuh)
-KERNEL_SOURCES = {True: "snickery_tpu_torch/csrc/topk_preselect.cu",
-                  False: "snickery_tpu_torch/csrc/topk_derived.cu"}
 REPLACES = {
     "topk_preselect_zt": "snickery_tpu/ops/pallas_topk.py:904",
     "topk_preselect_zt_part": "snickery_tpu/ops/pallas_topk.py:904 (+:187-191)",
@@ -158,6 +176,23 @@ REPLACES.update({
         "(+", "(+:795-811, " + (":112-125, " if "split3cat" in name else ""), 1)
     if "(+" in line else line + " (+:795-811)"
     for name, line in REPLACES.items()})
+# the selection variants: one source per (form, selection), and the lines of
+# the Pallas selection loop each replaces
+SELECT_LINES = {"phase": ":572-641", "packed": ":212-306, :521-554",
+                "packed3": ":309-411, :521-554, :917-936"}
+STREAM_KERNELS = tuple(REPLACES)
+REPLACES.update({
+    f"{name}_{sel}": (f"{line[:-1]}, {lines})" if "(+" in line else f"{line} (+{lines})")
+    for sel, lines in SELECT_LINES.items() for name, line in list(REPLACES.items())})
+
+
+def kernel_source(name: str) -> str:
+    """The .cu file that exports entry point ``name``."""
+    stem = "topk_preselect" if "_zt" in name else "topk_derived"
+    sel = next((x for x in SELECT_LINES if name.endswith("_" + x)), None)
+    return f"snickery_tpu_torch/csrc/{stem}{'_' + sel if sel else ''}.cu"
+
+
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W): FP32
 # outside the tensor cores for "highest", bf16 tensor cores for the splits
 PEAK_FLOPS = {"highest": 67e12, "split3": 989e12, "split3cat": 989e12}
@@ -469,8 +504,8 @@ def select_case(torch, seed: int, T: int, M: int, kd: int, pileup: int):
     """Card tensors of one selection-variant case: a raw block of M - 37
     real rows (the last 37 padding) with duplicated rows and, with
     ``pileup``, a run of that many near-duplicates in the block of row 512
-    under the first 16 targets; targets; labels with starved voices.
-    Returns (targets, raw, aff, n_real, labels as numpy)."""
+    under the first 16 targets.  Returns (targets, raw, aff, n_real, the
+    generator, for the caller's labels)."""
     from snickery_tpu_torch.kernel_check import pileup_block
     from snickery_tpu_torch.voicedb.device_layout import build_raw_blocks
     rng = np.random.default_rng(seed)
@@ -582,6 +617,74 @@ def select_variants_synthetic(torch) -> dict:
     return errs
 
 
+SWEEP_SHAPE = (2048, 131072)   # the sweep's small shape: target rows, units
+SWEEP_K = {"highest": 30, "split3": 40, "split3cat": 48}
+
+
+def sweep_path(run) -> None:
+    """The path that reaches the selection variants: the sweep's entry
+    point, called in process with every count set to 0 just before and read
+    just after.  Once per operand form and mask at the small shape over
+    every precision and variant selection, then once at its default shape
+    (16,384 x 1,048,576 x 151, k 30) with planted runs.  Each of the 72
+    variant entry points must have launched."""
+    from snickery_tpu_torch import sweep_topk
+    from snickery_tpu_torch.ops.cuda_topk import PRECISIONS
+    counts = run.cuda_topk.LAUNCH_COUNTS
+    rows, units = SWEEP_SHAPE
+    combos = " ".join(f"{p},{sel}" for p in PRECISIONS
+                      for sel in ("phase", "packed", "packed3", "packed3diag"))
+    counts.clear()
+    for db_op in ("zt", "dv"):
+        for masks in sweep_topk.MASKS:
+            argv = ["--rows", str(rows), "--units", str(units), "--iters", "1", "--db-op",
+                    db_op, "--masks", masks, "--pileup", "6", "--combos", combos]
+            log("sweep_topk " + " ".join(argv[:12]) + " --combos <every precision x variant>")
+            check(sweep_topk.main(argv) == 0, "the sweep failed")
+    argv = ["--iters", "2", "--pileup", "6", "--combos",
+            "highest,stream highest,packed split3cat,stream split3cat,packed "
+            "split3cat,packed3diag"]
+    log("sweep_topk " + " ".join(argv))
+    check(sweep_topk.main(argv) == 0, "the sweep failed")
+    got = dict(counts)
+    log(f"sweep: {len(got)} entry points launched, {sum(got.values())} launches")
+    for name in REPLACES:
+        if name not in STREAM_KERNELS:
+            check(got.get(name, 0) > 0, f"the sweep never launched {name}")
+    for name, n in got.items():
+        run.launches[name] = run.launches.get(name, 0) + n
+
+
+def selects_at_sweep_shape(run) -> None:
+    """Every variant entry point against its twin, timed, on the data of the
+    sweep's small shape (AR(1) rows, planted runs of 6, uniform labels)."""
+    from snickery_tpu_torch import sweep_topk
+    from snickery_tpu_torch.ops.cuda_topk import PRECISIONS, derive_operand
+    torch = run.torch
+    dev = torch.device("cuda")
+    rows, units = SWEEP_SHAPE
+    tg, raw, aff = sweep_topk.make_data(rows, units, KD, 0, 6, False)
+    tg, raw = torch.from_numpy(tg).to(dev), torch.from_numpy(raw).to(dev)
+    aff = tuple(torch.from_numpy(a).to(dev) for a in aff)
+    for precision in PRECISIONS:
+        k = SWEEP_K[precision]
+        for zt in (True, False):
+            if zt:
+                form = dict(block=raw, aff=aff)
+                db_rows = raw[:, :KD]
+            else:
+                op, sqn = derive_operand(raw, aff, units, units, precision)
+                form = dict(block=op, aff=None, sqn=sqn,
+                            row_bytes=op.shape[1] * op.element_size() + 4)
+                db_rows = op
+            matmul = matmul_ms(torch, tg, db_rows, precision)
+            for masks in sweep_topk.MASKS:
+                kw = sweep_topk.make_masks(rows, units, 0, masks, dev)
+                for select in ("phase", "packed", "packed3diag"):
+                    run.variant_at(select, tg, m_rows=units, k=k, precision=precision,
+                                   matmul=matmul, **form, **kw)
+
+
 # -------------------------------------------------------------- voice checks
 def natural_rate(db, ids) -> float:
     return float((np.diff(db.unit_pos[ids]) == 1).mean())
@@ -628,6 +731,7 @@ class Run:
         self.times: dict[str, tuple[float, float]] = {}
         self.bounds: dict[str, tuple[float, str]] = {}
         self.matmul: dict[str, float] = {}
+        self.shapes: dict[str, str] = {}
 
     def main_path(self, label: str, kernel: str, fn):
         """Drive one main path with every count set to 0 just before and
@@ -699,6 +803,7 @@ class Run:
             b_ms, b_by = bound_ms(T, m_rows, kd, k, precision, bool(masks), row_bytes)
             msg = ""
             if report:
+                self.shapes[kernel] = f"{T} x {m_rows} x {kd}, k {k}"
                 self.times[kernel] = (ms, plain_ms)
                 self.bounds[kernel] = (b_ms, b_by)
                 self.matmul[kernel] = matmul_ms(torch, x, db_rows, precision)
@@ -706,6 +811,114 @@ class Run:
             log(f"{kernel} T={T} M={m_rows} kd={kd} k={k}: kernel {ms:.2f} ms, plain "
                 f"{plain_ms:.2f} ms, bound {b_ms:.3f} ms ({b_by}){msg}, max_abs_err "
                 f"{err:.3e}, near-tie id swaps {nbad}, dead slots {dead}")
+
+
+    def variant_at(self, select, x, block, aff, m_rows, k, precision, matmul, sqn=None,
+                   n_real=None, row_bytes=None, reps=3, **masks):
+        """One selection variant at one shape: the kernel timed (``reps``
+        launches after a warm-up), the twin run and timed once, the kernel's
+        result held to it (kernel_check.judge); the times, the stream
+        kernel's bound (the same work) and ``matmul`` (the product alone,
+        measured by the caller on these inputs) are what the kernels line
+        reports.  Returns the kernel's result."""
+        from snickery_tpu_torch.kernel_check import judge
+        from snickery_tpu_torch.ops.cuda_topk import (topk_preselect_dv_plain,
+                                                      topk_preselect_zt_plain)
+        torch = self.torch
+        T, kd = x.shape
+        kw = dict(precision=precision, select=select, **masks)
+        name = self.cuda_topk.kernel_name(masks.get("partition", False),
+                                          masks.get("ling_weights") is not None, precision,
+                                          sqn is None, select)
+
+        def kernel():
+            return self.cuda_topk.cuda_topk_preselect(x, block, k, aff, m_rows,
+                                                      zero_transient=sqn is None, sqn=sqn, **kw)
+
+        ms = time_ms(torch, kernel, reps)
+        got = kernel()
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        if sqn is None:
+            want = topk_preselect_zt_plain(x, block, k, aff, m_rows, **kw)
+        else:
+            want = topk_preselect_dv_plain(x, block, sqn, k, m_rows, **kw)
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(stop)
+        err, nbad, dead = judge(got, want, x, block, aff, m_rows, precision, sqn=sqn,
+                                n_real=n_real, **{**masks, "select": select})
+        del want
+        b_ms, b_by = bound_ms(T, m_rows, kd, k, precision, bool(masks), row_bytes)
+        self.errs[name] = max(self.errs.get(name, 0.0), err)
+        self.times[name], self.bounds[name], self.matmul[name] = (ms, plain_ms), (b_ms, b_by), matmul
+        self.shapes[name] = f"{T} x {m_rows} x {kd}, k {k}"
+        log(f"{name} ({select}) T={T} M={m_rows} kd={kd} k={k}: kernel {ms:.2f} ms, plain "
+            f"{plain_ms:.2f} ms, bound {b_ms:.3f} ms ({b_by}), max_abs_err {err:.3e}, near-tie "
+            f"id swaps {nbad}, dead slots {dead}")
+        return got
+
+    def selects_at(self, stream_kernel, synth, tgts, kwargs):
+        """The selection variants at the main path's batch shape, on the
+        voice the step reads (zero-transient, no mask): "phase", "packed"
+        and "packed3diag" against their twins, timed beside the stream
+        kernel in the same run; "phase" must equal "stream" bit for bit;
+        the overflow flags counted on the voice and on a copy with planted
+        runs (each planted target must raise its flag); and where the step
+        ranks in exact f32, the packed top-(n_cand + margin) must hold the
+        stream kernel's top-n_cand of every target."""
+        from snickery_tpu_torch.ops.topk import preselect_margin
+        torch, d = self.torch, synth.device_db
+        aff = (d.mean_t, d.std_t, d.sqrt_wt)
+        kd = tgts.shape[-1]
+        x = ((tgts - d.mean_t) / d.std_t * d.sqrt_wt).reshape(-1, kd).contiguous()
+        T, m_rows, precision, n_cand = x.shape[0], d.cut1.shape[0], kwargs["precision"], kwargs["n_cand"]
+        k = n_cand + preselect_margin(True, precision, zero_transient=True,
+                                      override=kwargs["margin"])
+
+        def kernel(select, block=d.raw, k=k):
+            return self.cuda_topk.cuda_topk_preselect(x, block, k, aff, m_rows,
+                                                      precision=precision, select=select)
+
+        stream_ms = time_ms(torch, lambda: kernel("stream"), 2)
+        log(f"{stream_kernel} (stream) T={T} M={m_rows} kd={kd} k={k}: kernel {stream_ms:.2f} ms "
+            f"in this phase")
+        i_s, v_s = kernel("stream")
+        out = {sel: self.variant_at(sel, x, d.raw, aff, m_rows, k, precision,
+                                    self.matmul[stream_kernel], n_real=int(d.n_real), reps=2)
+               for sel in ("phase", "packed", "packed3diag")}
+        check(torch.equal(out["phase"][0], i_s) and torch.equal(out["phase"][1], v_s),
+              f"phase differs from stream at the batch shape ({precision})")
+        flags = out["packed3diag"][2]
+        clear = flags == 0
+        check(torch.equal(out["packed3diag"][0][clear], out["packed"][0][clear])
+              and torch.equal(out["packed3diag"][1][clear], out["packed"][1][clear]),
+              "an unflagged packed3diag column differs from packed")
+        # a copy of the block with runs of 6 near-duplicates, each inside one
+        # 128-row block, under every 16th target
+        run_len, planted = 6, torch.arange(0, T, 16, device=x.device)
+        blocks = torch.randperm(m_rows // 128, device=x.device,
+                                generator=torch.Generator(device=x.device).manual_seed(6))[:len(planted)]
+        rows = blocks[:, None] * 128 + 8 + torch.arange(run_len, device=x.device)[None, :]
+        near = x[planted][:, None, :] + 1e-3 * torch.arange(1, run_len + 1, device=x.device)[
+            None, :, None]
+        piled = d.raw.clone()
+        piled[rows, :kd] = near / d.sqrt_wt * d.std_t + d.mean_t
+        back = (piled[rows, :kd] - d.mean_t) / d.std_t * d.sqrt_wt
+        piled[rows, kd] = (back * back).sum(-1)
+        flags_p = kernel("packed3diag", piled)[2]
+        del piled
+        check(bool(flags_p[planted].all()), "a planted run did not raise its overflow flag")
+        log(f"packed3diag overflow at {precision} k={k}: {int(flags.sum())}/{T} targets on the "
+            f"voice, {int(flags_p.sum())}/{T} on the copy with {len(planted)} planted runs of "
+            f"{run_len} (packed3 falls back to the stream kernel where any is set)")
+        if precision == "highest":
+            top = kernel("stream", k=n_cand)[0]
+            held_in = (top[:, :, None] == out["packed"][0][:, None, :]).any(-1)
+            cover = float(held_in.float().mean())
+            log(f"packed top-{k} covers the stream top-{n_cand}: {cover:.6f} of the slots, "
+                f"{int(held_in.all(1).sum())}/{T} targets")
+            check(bool(held_in.all()), f"packed top-{k} misses a stream top-{n_cand} row")
 
 
 def timed_batch(torch, synth, reps: int, *args, **kw):
@@ -792,6 +1005,8 @@ def config3(run: Run):
     stage_split("config-3 B=32", synth, tgts, lengths, kwargs)
     with Phase("config-3 kernel vs plain at main-path shapes"):
         run.kernel_at("topk_preselect_zt", synth, tgts, kwargs, (T_BUCKET, 32 * T_BUCKET))
+    with Phase("config-3 selection variants at the batch shape"):
+        run.selects_at("topk_preselect_zt", synth, tgts, kwargs)
     with Phase("config-3 held-out utterance vs float64 oracle (full DB)"):
         agree, _ = oracle_check(db, synth, short.features, "highest")
         check(agree >= 0.99, f"oracle agreement {agree} < 0.99")
@@ -862,6 +1077,8 @@ def config3_split3cat(run: Run, db, held, short, out_highest):
     with Phase("config-3 split3cat kernel vs plain at main-path shapes"):
         run.kernel_at("topk_preselect_zt_split3cat", synth, tgts, kwargs,
                       (T_BUCKET, 32 * T_BUCKET))
+    with Phase("config-3 split3cat selection variants at the batch shape"):
+        run.selects_at("topk_preselect_zt_split3cat", synth, tgts, kwargs)
     with Phase("config-3 split3cat held-out utterance vs float64 oracle (full DB)"):
         agree, gap = oracle_check(db, synth, short.features, "split3cat")
         check(agree >= 0.99, f"split3cat oracle agreement {agree} < 0.99")
@@ -1673,6 +1890,13 @@ def main() -> int:
     with Phase("derived operand (zero_transient 0) variants vs plain, synthetic"):
         for name, err in derived_variants_synthetic(torch).items():
             run.errs[name] = max(run.errs.get(name, 0.0), err)
+    with Phase("selection variants vs plain, synthetic"):
+        for name, err in select_variants_synthetic(torch).items():
+            run.errs[name] = max(run.errs.get(name, 0.0), err)
+    with Phase("kernel sweep (the selection variants' path)"):
+        sweep_path(run)
+    with Phase("selection variants vs plain at the sweep's small shape"):
+        selects_at_sweep_shape(run)
     db, held, short, out32 = config3(run)
     torch.cuda.empty_cache()
     config3_split3cat(run, db, held, short, out32)
@@ -1712,12 +1936,12 @@ def main() -> int:
 
     log(f"chip_smoke.py: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": KERNEL_SOURCES["_zt" in name],
+        "name": name, "route": "cuda", "source": kernel_source(name),
         "replaces": REPLACES[name], "launches": run.launches[name],
         "max_abs_err": run.errs[name], "ms": run.times[name][0],
         "plain_ms": run.times[name][1], "bound_ms": run.bounds[name][0],
         "bound_by": run.bounds[name][1], "library_ms": None,
-        "matmul_ms": run.matmul[name]} for name in REPLACES]}))
+        "matmul_ms": run.matmul[name], "shape": run.shapes[name]} for name in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

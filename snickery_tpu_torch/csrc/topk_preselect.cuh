@@ -1,18 +1,19 @@
 // Fused distance + top-k preselect, hand-written CUDA C++ for Hopper
 // (sm_90a): the kernels and their launchers, shared by the two sources that
 // export entry points, topk_preselect.cu (the zero-transient form) and
-// topk_derived.cu (the derived-operand form).  Each source is compiled on
-// its own, in parallel.
+// topk_derived.cu (the derived-operand form), each with one sibling per
+// selection variant (_phase, _packed, _packed3).  Each source is compiled
+// on its own, in parallel.
 //
 // Replaces snickery_tpu/ops/pallas_topk.py::pallas_topk_preselect
 // (_topk_kernel + _compute_scores and its selection loops), with
 // zero_transient=True (:745-794) or False (the derived operand, :795-811),
 // in every selection form: select="stream" (_stream_select, the form the
 // synthesis paths run), "phase" (:572-641), "packed" (_packed_select) and
-// "packed3" / "packed3diag" (_packed3_select); see "Selection" below.  At precision "highest" with or
-// without the fused partition mask (multi-voice DBs, _compute_scores
-// :187-191) and the fused quinphone penalties (halfphone voices, :192-208):
-// topk_partial<PART, LING>.  At the bf16-split precisions "split3"
+// "packed3" / "packed3diag" (_packed3_select); see "Selection" below.  At
+// precision "highest" with or without the fused partition mask (multi-voice
+// DBs, _compute_scores :187-191) and the fused quinphone penalties
+// (halfphone voices, :192-208): topk_partial<PART, LING>.  At the bf16-split precisions "split3"
 // (_split3_dot :77-93) and "split3cat" (_bf16_split :96-99, the [hi|hi|lo]
 // concat :112-130, :158-178), with the same fused masks applied after the
 // product (:156-208 composed): topk_partial_split<PREC, PART, LING,
@@ -603,8 +604,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // Pass 1 at the split precisions.  Shared memory: the tile's scores, lists
-// and packed3 state as in topk_partial, the metadata rows of the target tile and of the
-// DB tile when a mask is fused (MASKED), the target tile as bf16
+// and packed3 state as in topk_partial, the metadata rows of the target
+// tile and of the DB tile when a mask is fused (MASKED), the target tile as bf16
 // [TT][kp + SPAD] hi and lo (kp = kd rounded up to KC, zero past kd), and
 // the DB stage as bf16 [R][DS] hi and lo.  Warp w computes DB rows
 // (w % 4) * 16 .. + 16 against targets (w / 4) * 32 .. + 32: one A fragment

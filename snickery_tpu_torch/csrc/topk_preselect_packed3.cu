@@ -1,9 +1,8 @@
-// The zero-transient form of the preselect at select="packed3": twelve
-// entry points (precision x fused masks) that read the resident raw block
-// [data kd | sqn | ptr] directly, with the DB affine folded into prescaled
-// targets t2 and comp added back to the scores
-// (snickery_tpu/ops/pallas_topk.py:745-794, :309-411).  The kernels, the selections,
-// their shape on Hopper and their bound are described in topk_preselect.cuh.
+// The zero-transient form of the preselect at select="packed3" (its flags
+// returned: "packed3diag"): the twelve entry points of topk_preselect.cu
+// (precision x fused masks, the same arguments) with the suffix _packed3,
+// running the PACKED3 selection epilogue of topk_preselect.cuh
+// (snickery_tpu/ops/pallas_topk.py:309-411, :521-554, :917-936).
 
 #include "topk_preselect.cuh"
 

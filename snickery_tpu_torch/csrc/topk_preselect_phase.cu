@@ -1,9 +1,7 @@
-// The zero-transient form of the preselect at select="phase": twelve
-// entry points (precision x fused masks) that read the resident raw block
-// [data kd | sqn | ptr] directly, with the DB affine folded into prescaled
-// targets t2 and comp added back to the scores
-// (snickery_tpu/ops/pallas_topk.py:745-794, :572-641).  The kernels, the selections,
-// their shape on Hopper and their bound are described in topk_preselect.cuh.
+// The zero-transient form of the preselect at select="phase": the twelve
+// entry points of topk_preselect.cu (precision x fused masks, the same
+// arguments) with the suffix _phase, running the PHASE selection epilogue of
+// topk_preselect.cuh (snickery_tpu/ops/pallas_topk.py:572-641).
 
 #include "topk_preselect.cuh"
 

@@ -1,7 +1,8 @@
 """Checks of the preselect kernel, shared by ``chip_smoke.py`` and the card
 tests (``tests/test_torch_cuda_kernel.py``).
 
-- :func:`compare`: the kernel against its plain twin on the same tensors,
+- :func:`compare` (and :func:`judge`, the rule alone, for results already
+  computed): the kernel against its plain twin on the same tensors,
   in either operand form (the raw block and its affine, or with ``sqn``
   the derived operand of ``cuda_topk.derive_operand``).
   At a split precision the tolerance on a score grows with the product's
@@ -157,26 +158,36 @@ def compare(targets, raw, aff, m_rows, k, precision="highest", sqn=None, n_real=
     """Kernel vs plain twin on the same card tensors, in the zero-transient
     form (``raw`` the raw block, ``aff`` its affine) or, with ``sqn``, the
     derived one (``raw`` the operand, ``aff`` None), at the selection
-    ``select``; with ``n_real``, no live slot of the kernel may hold a
+    ``select``: both are run and :func:`judge` holds the kernel's result to
+    the twin's.  Returns (max_abs_err, rows_with_differing_ids, dead slots)."""
+    got = cuda_topk_preselect(targets, raw, k, aff, m_rows, precision=precision,
+                              zero_transient=sqn is None, sqn=sqn, select=select, **masks)
+    if sqn is None:
+        want = topk_preselect_zt_plain(targets, raw, k, aff, m_rows, precision=precision,
+                                       select=select, **masks)
+    else:
+        want = topk_preselect_dv_plain(targets, raw, sqn, k, m_rows, precision=precision,
+                                       select=select, **masks)
+    return judge(got, want, targets, raw, aff, m_rows, precision, sqn=sqn, n_real=n_real,
+                 select=select, **masks)
+
+
+def judge(got, want, targets, raw, aff, m_rows, precision="highest", sqn=None, n_real=None,
+          select="stream", **masks):
+    """Hold a kernel's result ``got`` to the twin's ``want`` (each (ids,
+    scores) or, at "packed3diag", (ids, scores, flags)) for the inputs of
+    :func:`compare`; with ``n_real``, no live slot of the kernel may hold a
     padding row.  Per row: scores ascending; the same number of dead slots,
     each (+inf, 0); id sets equal, except where the differing ids are f32
     near-ties of the k-th score (checked in float64, penalties included, on
     the three bf16 products at a split precision), on at most 1% of the
-    rows; scores of shared ids within SCORE_ATOL (at a split precision the
+    rows (at "packed3diag": of the rows neither side flags); scores of shared ids within SCORE_ATOL (at a split precision the
     larger of that and :func:`split_slack`) plus one f32 ulp of the score
     (penalised scores sit near 2^24, ulp 2) plus :func:`packed_slack`.  At
     "packed3diag" the flags are equal at "highest" and differ on at most
     :data:`FLAG_ROWS` of the targets at a split precision.
     Returns (max_abs_err, rows_with_differing_ids, dead slots)."""
-    ik, vk, *fk = cuda_topk_preselect(targets, raw, k, aff, m_rows, precision=precision,
-                                      zero_transient=sqn is None, sqn=sqn, select=select,
-                                      **masks)
-    if sqn is None:
-        ip, vp, *fp = topk_preselect_zt_plain(targets, raw, k, aff, m_rows,
-                                              precision=precision, select=select, **masks)
-    else:
-        ip, vp, *fp = topk_preselect_dv_plain(targets, raw, sqn, k, m_rows,
-                                              precision=precision, select=select, **masks)
+    (ik, vk, *fk), (ip, vp, *fp) = got, want
     if vk.is_cuda:
         torch.cuda.synchronize()
     if fk:
@@ -220,7 +231,11 @@ def compare(targets, raw, aff, m_rows, k, precision="highest", sqn=None, n_real=
         row_slack = (slack + packed)[bad].max(1).values
         gap = float(((worst_k - worst_p - row_slack) / worst_p.abs().clamp(min=1.0)).max())
         check(gap <= TIE_RTOL, f"differing ids are not near-ties (gap {gap})")
-        check(len(bad) <= 0.01 * targets.shape[0], f"{len(bad)} rows differ")
+        # a flagged packed3 column is the one "packed3" throws away, and it has
+        # a near-tie boundary in every crowded block, not only at rank k: the
+        # 1% rule counts the columns that neither side flags
+        counted = bad[(fk[0][bad] == 0) & (fp[0][bad] == 0)] if fk else bad
+        check(len(counted) <= 0.01 * targets.shape[0], f"{len(counted)} rows differ")
     return err, int(len(bad)), int(dead_k.sum())
 
 
@@ -237,19 +252,20 @@ def split_probe_operands(T: int = 16, n: int = 64, kd: int = 8, seed: int = 5):
     return x[:T], x[T:]
 
 
-def split_probe_error(device, precision: str, k: int = 48) -> float:
+def split_probe_error(device, precision: str, k: int = 48, select: str = "stream") -> float:
     """Largest |score - float64 score| / (2 sum |t| |u|) of the kernel's
     (the twin's on the CPU) k best rows for the probe operands at
     ``precision``, the float64 score being ``-2 (hh + hl + lh)``.  The block
     has sqn 0 and the affine is the identity, so a score is exactly -2
-    times the kernel's dot product."""
+    times the kernel's dot product.  ``select``: "stream" or "phase", the
+    selections that return the scores they ranked."""
     t2, rows = (x.to(device) for x in split_probe_operands())
     n, kd = rows.shape
     raw = torch.zeros((n, kd + 2), dtype=torch.float32, device=device)
     raw[:, :kd] = rows
     aff = (torch.zeros(kd, device=device), torch.ones(kd, device=device),
            torch.ones(kd, device=device))
-    ids, scores = cuda_topk_preselect(t2, raw, k, aff, n, precision=precision)
+    ids, scores = cuda_topk_preselect(t2, raw, k, aff, n, precision=precision, select=select)
     ids = ids.long()
     ref = split_scores64(t2, raw[ids], aff)
     scale = 2.0 * torch.einsum("tnc,tc->tn", rows[ids].double().abs(), t2.double().abs())

@@ -632,10 +632,10 @@ def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
     splits, rows = split_plan(T, m_rows, n_sm, lib.snk_topk_tile_rows(),
                               BLOCK_ROWS if three else lib.snk_topk_db_tile_rows())
     if zero_transient:
-        t2, third = _prescale(targets, db_affine)      # third: comp
+        t2, extra = _prescale(targets, db_affine)      # the third pointer: comp
         t2 = t2.contiguous()
     else:
-        t2, third = targets, sqn
+        t2, extra = targets, sqn                       # or sqn
     pens = penalty_constants(ling_weights) if linguistic else (0.0,) * 5
     part_v = torch.empty((T, splits, k), dtype=torch.float32, device=dev)
     part_i = torch.empty((T, splits, k), dtype=torch.int32, device=dev)
@@ -647,7 +647,7 @@ def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
         flags = torch.empty((T,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = getattr(lib, "snk_" + name)(
-        t2.data_ptr(), raw_block.data_ptr(), third.data_ptr(),
+        t2.data_ptr(), raw_block.data_ptr(), extra.data_ptr(),
         tgt_meta.data_ptr() if masked else None,
         db_meta.data_ptr() if masked else None, *pens,
         part_v.data_ptr(), part_i.data_ptr(), part_third.data_ptr() if three else None,

@@ -21,6 +21,10 @@ near-duplicate epochs; ``--scatter`` stride-permutes the DB rows with a
 golden-ratio step (``bench_topk.py:144-153``), which spreads such runs over
 many blocks.  ``--db-op zt`` times the zero-transient form (the raw block),
 ``dv`` the derived operand (derived once per precision, outside the timing).
+``--masks part | ling | ling_part`` fuses the voice partition mask, the
+quinphone penalties or both, on labels drawn from 8 voices, 80 halfphone
+codes and 40 context phones (the JAX script sweeps the unmasked kernel
+only), so that every entry point of the kernel library can be timed.
 
 On ``--device cuda`` (the default) the hand-written kernels run and the
 times are CUDA-event times, the median of ``--iters`` after one warm-up
@@ -43,14 +47,17 @@ import time
 import numpy as np
 import torch
 
+from snickery_tpu_torch.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
 from snickery_tpu_torch.kernel_check import pileup_block
 from snickery_tpu_torch.ops.cuda_topk import (BLOCK_ROWS, PRECISIONS, SELECTS,
-                                              cuda_topk_preselect, derive_operand)
+                                              cuda_topk_preselect, derive_operand, pack_meta)
 from snickery_tpu_torch.synthetic_voices import ar1_walks
 from snickery_tpu_torch.voicedb.device_layout import build_raw_blocks
 
 WALK = 350               # rows of one AR(1) walk (an utterance's epochs)
 PILEUP_SHARE = 16        # --pileup: one target in this many gets a run
+MASKS = {"none": (False, False), "part": (True, False), "ling": (False, True),
+         "ling_part": (True, True)}       # --masks: (partition, linguistic)
 
 
 def scatter_order(n: int) -> np.ndarray:
@@ -87,6 +94,24 @@ def make_data(rows: int, units: int, dim: int, seed: int, pileup: int, scatter: 
     jr[:-1], jr[-1] = feats[1:], feats[0]
     raw, _, _ = build_raw_blocks(feats, jr, units, affine=aff)
     return targets, raw, aff
+
+
+def make_masks(rows: int, units: int, seed: int, masks: str, device) -> dict:
+    """The mask arguments of ``cuda_topk_preselect`` for ``--masks``: labels
+    drawn uniformly from 8 voices, 80 halfphone codes and 40 context phones
+    on both sides, the penalties those of the halfphone voices."""
+    partition, linguistic = MASKS[masks]
+    if not (partition or linguistic):
+        return {}
+    rng = np.random.default_rng(seed + 1_000_003)
+
+    def meta(n):
+        return pack_meta(*(torch.from_numpy(rng.integers(0, hi, shape).astype(np.int32))
+                           for hi, shape in ((80, n), (40, (n, 5)), (8, n)))).to(device)
+
+    weights = (*QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE) if linguistic else None
+    return dict(tgt_meta=meta(rows), db_meta=meta(units), partition=partition,
+                ling_weights=weights)
 
 
 def time_call(fn, iters: int, device) -> tuple[float, tuple]:
@@ -126,6 +151,8 @@ def main(argv=None) -> int:
     ap.add_argument("--pileup", type=int, default=0,
                     help="plant runs of N near-duplicate rows in one 128-row block "
                          f"for one target in {PILEUP_SHARE}")
+    ap.add_argument("--masks", default="none", choices=tuple(MASKS),
+                    help="fuse the voice partition mask, the quinphone penalties or both")
     ap.add_argument("--scatter", action="store_true",
                     help="stride-permute the DB rows (golden-ratio step)")
     ap.add_argument("--seed", type=int, default=0)
@@ -149,13 +176,15 @@ def main(argv=None) -> int:
     what = (f"kernel, {torch.cuda.get_device_name(0)}" if device.type == "cuda"
             else "plain twin on the CPU, host wall time")
     print(f"# {args.rows} target rows x {args.units} units x {args.dim} dims, k {args.k}, "
-          f"db-op {args.db_op}, pileup {args.pileup}, scatter {args.scatter}, seed "
+          f"db-op {args.db_op}, masks {args.masks}, pileup {args.pileup}, scatter "
+          f"{args.scatter}, seed "
           f"{args.seed}; {what}", file=sys.stderr)
 
     targets, raw, aff = make_data(args.rows, args.units, args.dim, args.seed, args.pileup,
                                   args.scatter)
     targets, raw = torch.from_numpy(targets).to(device), torch.from_numpy(raw).to(device)
     aff = tuple(torch.from_numpy(a).to(device) for a in aff)
+    masks = make_masks(args.rows, args.units, args.seed, args.masks, device)
     operands = {}
     results = []
     for precision, select in combos:
@@ -169,7 +198,8 @@ def main(argv=None) -> int:
             op, sqn = operands[key]
             kw = dict(raw_block=op, db_affine=None, zero_transient=False, sqn=sqn)
         ms, out = time_call(lambda: cuda_topk_preselect(
-            targets, k=args.k, m_rows=args.units, precision=precision, select=select, **kw),
+            targets, k=args.k, m_rows=args.units, precision=precision, select=select, **kw,
+            **masks),
             args.iters, device)
         results.append((ms, tag))
         note = ""

@@ -1,6 +1,6 @@
 """The port on a CUDA card: the preselect kernel (its masked variants, its
-split-precision variants and the two composed, in both operand forms)
-against its plain twin, and the synthesiser on the card against the same
+split-precision variants and the two composed, in both operand forms and
+in every selection form) against its plain twin, and the synthesiser on the card against the same
 synthesiser on the CPU, for epoch, halfphone and merged voices, at the
 split precisions, on the derived operand, and streaming.
 
@@ -20,7 +20,8 @@ from snickery_tpu_torch.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
 from snickery_tpu_torch.voicedb.build import UtteranceData, build_voicedb
 from snickery_tpu_torch.voicedb.device_layout import build_raw_blocks
 from snickery_tpu_torch.voicedb.multivoice import merge_voicedbs
-from snickery_tpu_torch.kernel_check import PROBE_RTOL, compare, split_probe_error
+from snickery_tpu_torch.kernel_check import (PROBE_RTOL, compare, pileup_block,
+                                             split_probe_error)
 from snickery_tpu_torch.ops import cuda_topk
 from snickery_tpu_torch.ops.cuda_topk import (cuda_topk_preselect, derive_operand, pack_meta,
                                               topk_preselect_zt_plain)
@@ -441,3 +442,118 @@ def test_derived_synthesiser_on_card_matches_cpu(cuda_device, precision):
             np.testing.assert_array_equal(g, c)
         for g, c in zip(audio_g, audio_c):
             np.testing.assert_allclose(g, c, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zt", [True, False], ids=["zt", "dv"])
+@pytest.mark.parametrize("variant", ["none", *sorted(VARIANTS)])
+@pytest.mark.parametrize("precision,k", [("highest", 30), ("split3", 40), ("split3cat", 48)])
+@pytest.mark.parametrize("select", ["phase", "packed", "packed3", "packed3diag"])
+def test_select_kernel_matches_plain(cuda_device, select, precision, k, variant, zt):
+    """Every selection variant entry point against its twin on the same
+    card tensors (the rule of kernel_check.compare at the selection: 127 ulp
+    more on a packed score, flags equal at "highest"), T=300 x M=8229 x kd
+    151 with duplicated rows, a run of 10 near-duplicates inside one
+    128-row block under 16 targets, the last 37 rows padding, a voice of
+    k // 2 rows, a voice of none and a code no row carries.  At "highest"
+    kernel and twin are equal exactly; "phase" equals the stream kernel bit
+    for bit; "packed3" returns the stream kernel's result where a flag is
+    raised (and launches it) and the packed one where none is."""
+    T, M = 300, 8229
+    partition, weights = VARIANTS.get(variant, (False, None))
+    rng = np.random.default_rng(17 + k)
+    n_real = M - 37
+    feats = rng.standard_normal((n_real, KD)).astype(np.float32)
+    feats[100:140] = feats[50]
+    aff = ((0.1 * rng.standard_normal(KD)).astype(np.float32),
+           rng.uniform(0.5, 2.0, KD).astype(np.float32),
+           rng.uniform(0.2, 1.0, KD).astype(np.float32))
+    tg = rng.standard_normal((T, KD)).astype(np.float32)
+    pileup_block(feats, tg, aff, start=512, run=10, n_targets=16, seed=3)
+    jr = np.zeros_like(feats)
+    jr[:-1] = feats[1:]
+    raw, _, _ = build_raw_blocks(feats, jr, M, affine=aff)
+    D = lambda a: torch.from_numpy(a).to(cuda_device)
+    tg, R, A = D(tg), D(raw), tuple(map(D, aff))
+    kw = {}
+    if variant != "none":
+        tc = rng.integers(0, 80, T).astype(np.int32)
+        tc[:16] = 80
+        tv = rng.integers(0, 7, T).astype(np.int32)
+        tv[16:48], tv[48:56] = 7, 9
+        dc = rng.integers(0, 80, M).astype(np.int32)
+        dx = rng.integers(0, 40, (M, 5)).astype(np.int32)
+        dv = rng.integers(0, 7, M).astype(np.int32)
+        dv[rng.choice(n_real, k // 2, replace=False)] = 7
+        dc[n_real:], dx[n_real:], dv[n_real:] = -1, -1, -1
+        kw = dict(tgt_meta=pack_meta(D(tc), D(rng.integers(0, 40, (T, 5)).astype(np.int32)),
+                                     D(tv)),
+                  db_meta=pack_meta(D(dc), D(dx), D(dv)), partition=partition,
+                  ling_weights=weights)
+    if zt:
+        block, sqn, form = R, None, dict(db_affine=A)
+    else:
+        block, sqn = derive_operand(R, A, n_real, M, precision)
+        form = dict(db_affine=None, zero_transient=False, sqn=sqn)
+    name = cuda_topk.kernel_name(partition, weights is not None, precision, zt, select)
+    assert name.endswith("_" + select.removesuffix("diag"))
+    before = cuda_topk.LAUNCH_COUNTS[name]
+    err, nbad, dead = compare(tg, block, A if zt else None, M, k, precision, sqn=sqn,
+                              n_real=None if partition else n_real, select=select, **kw)
+    assert cuda_topk.LAUNCH_COUNTS[name] == before + 1
+    if precision == "highest":
+        assert err == 0.0 and nbad == 0
+    if partition:
+        assert dead == 32 * (k - k // 2) + 8 * k
+
+    def kernel(sel):
+        return cuda_topk_preselect(tg, block, k=k, m_rows=M, precision=precision, select=sel,
+                                   **form, **kw)
+
+    stream = kernel("stream")
+    if select == "phase":
+        for x, y in zip(kernel("phase"), stream):
+            assert torch.equal(x, y)
+        return
+    packed = kernel("packed")
+    ids, vals, flags = kernel("packed3diag")
+    assert flags.dtype == torch.int32 and flags.shape == (T,)
+    if variant == "none":
+        assert bool(flags[:16].all()), "the pile-up targets must raise the flag"
+    if select == "packed3diag":
+        clear = flags == 0
+        assert torch.equal(ids[clear], packed[0][clear])
+        assert torch.equal(vals[clear], packed[1][clear])
+    elif select == "packed3":
+        stream_name = cuda_topk.kernel_name(partition, weights is not None, precision, zt)
+        before = cuda_topk.LAUNCH_COUNTS[stream_name]
+        got = kernel("packed3")
+        fell_back = bool(flags.any())
+        assert cuda_topk.LAUNCH_COUNTS[stream_name] == before + fell_back
+        for x, y in zip(got, stream if fell_back else packed):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["split3cat", "split3"])
+def test_phase_kernel_on_split_probe(cuda_device, precision):
+    """The phase epilogue returns the scores the split product formed: on
+    the probe they equal the float64 hh + hl + lh to 1e-6 relative."""
+    assert split_probe_error(cuda_device, precision, select="phase") <= PROBE_RTOL
+
+
+@pytest.mark.cuda
+def test_packed3_without_pileup_takes_no_fallback(cuda_device):
+    """Independent rows, k 8 over 512 blocks: no block holds three of a
+    target's best, no flag is raised, "packed3" launches only its own entry
+    point and returns the "packed" result."""
+    rng, raw, aff = _block(91, 65536, False)
+    D = lambda a: torch.from_numpy(a).to(cuda_device)
+    tg, R, A = D(rng.standard_normal((128, KD)).astype(np.float32)), D(raw), tuple(map(D, aff))
+    before = dict(cuda_topk.LAUNCH_COUNTS)
+    got = cuda_topk_preselect(tg, R, 8, A, 65536, select="packed3")
+    after = dict(cuda_topk.LAUNCH_COUNTS)
+    assert {n: after[n] - before.get(n, 0) for n in after if after[n] != before.get(n, 0)} == {
+        "topk_preselect_zt_packed3": 1}
+    for x, y in zip(got, cuda_topk_preselect(tg, R, 8, A, 65536, select="packed")):
+        assert torch.equal(x, y)

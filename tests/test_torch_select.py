@@ -542,6 +542,32 @@ def test_sweep_on_cpu_reports_overflow_with_pileup(capsys, db_op):
     assert overflow(capsys.readouterr().out)[0] < n
 
 
+@pytest.mark.parametrize("masks", ["part", "ling", "ling_part"])
+def test_sweep_with_fused_masks_on_cpu(capsys, masks):
+    """``--masks`` fuses the partition mask, the quinphone penalties or
+    both on uniform labels (8 voices, 80 codes, 40 context phones), in
+    either operand form: the sweep runs every selection and its masks are
+    the ones ``cuda_topk_preselect`` takes (a partitioned target keeps only
+    rows of its own voice)."""
+    argv = ["--device", "cpu", "--rows", "32", "--units", "2048", "--dim", "12", "--k", "4",
+            "--iters", "1", "--masks", masks, "--db-op", "dv" if masks == "ling" else "zt",
+            "--combos", "highest,stream split3,phase split3cat,packed highest,packed3 "
+            "highest,packed3diag"]
+    assert sweep_topk.main(argv) == 0
+    out = capsys.readouterr().out
+    assert out.count(" ms") == 6 and "overflow" in out
+    kw = sweep_topk.make_masks(32, 2048, 0, masks, torch.device("cpu"))
+    assert kw["partition"] == ("part" in masks) and (kw["ling_weights"] is not None) == (
+        "ling" in masks)
+    assert kw["tgt_meta"].shape == (32, 8) and kw["db_meta"].shape == (2048, 8)
+    if kw["partition"]:
+        targets, raw, aff = sweep_topk.make_data(32, 2048, 12, 0, 0, False)
+        ids, vals = cuda_topk_preselect(P(targets), P(raw), 4, tuple(map(P, aff)), 2048,
+                                        select="packed", **kw)
+        assert torch.equal(kw["db_meta"][ids.long(), 6], kw["tgt_meta"][:, 6, None].expand(-1, 4))
+    assert sweep_topk.make_masks(32, 2048, 0, "none", torch.device("cpu")) == {}
+
+
 def test_sweep_refuses_bad_arguments(capsys):
     with pytest.raises(SystemExit):
         sweep_topk.main(["--device", "cpu", "--combos", "highest,auto"])
