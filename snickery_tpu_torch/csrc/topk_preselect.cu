@@ -9,18 +9,25 @@
 
 extern "C" {
 
-// Dynamic shared memory pass 1 needs (masked != 0: a variant with fused
+// Dynamic shared memory pass 1 needs at its narrower target tile (64 rows),
+// the least a shape must find room for (masked != 0: a variant with fused
 // masks; precision: 0 highest, 1 split3, 2 split3cat; select: 0 stream,
 // 1 phase, 2 packed, 3 packed3), in either form; 0 if the shape or the
 // combination is not supported.
 size_t snk_topk_partial_smem(int kd, int k, int masked, int precision,
                              int select) {
-  return partial_smem(kd, k, masked != 0, precision, select);
+  return partial_smem(64, kd, k, masked != 0, precision, select);
 }
 
-int snk_topk_tile_rows() { return TT; }
+// Target rows a CTA of pass 1 takes for T targets at this shape (128 or
+// 64; 0 if unsupported) and DB rows of one of its tiles at this precision:
+// the wrapper's split plan is made of them.
+int snk_topk_tile_rows(int kd, int k, int masked, int precision, int select,
+                       int T) {
+  return tile_rows(kd, k, masked != 0, precision, select, T);
+}
 
-int snk_topk_db_tile_rows() { return R; }
+int snk_topk_db_tile_rows(int precision) { return precision == HIGHEST ? R1 : R2; }
 
 // Rows of a packed3 block: a packed3 split is a whole number of them.
 int snk_topk_block_rows() { return BLOCK; }

@@ -13,13 +13,13 @@
 // "packed3" / "packed3diag" (_packed3_select); see "Selection" below.  At
 // precision "highest" with or without the fused partition mask (multi-voice
 // DBs, _compute_scores :187-191) and the fused quinphone penalties
-// (halfphone voices, :192-208): topk_partial<PART, LING>.  At the bf16-split precisions "split3"
-// (_split3_dot :77-93) and "split3cat" (_bf16_split :96-99, the [hi|hi|lo]
-// concat :112-130, :158-178), with the same fused masks applied after the
-// product (:156-208 composed): topk_partial_split<PREC, PART, LING,
-// PRESPLIT>.  Both templates take the selection as a last parameter SEL.
-// One exported entry point per (form, precision, masks, selection), 96 in
-// all: 24 a selection, exported by one source per (form, selection).
+// (halfphone voices, :192-208): topk_partial<TT, PART, LING, SEL>.  At the
+// bf16-split precisions "split3" (_split3_dot :77-93) and "split3cat"
+// (_bf16_split :96-99, the [hi|hi|lo] concat :112-130, :158-178), with the
+// same fused masks applied after the product (:156-208 composed):
+// topk_partial_split<TT, PREC, PART, LING, PRESPLIT, SEL>.  One exported
+// entry point per (form, precision, masks, selection), 96 in all: 24 a
+// selection, exported by one source per (form, selection).
 //
 // For every target row t and DB row u in [0, m_rows):
 //
@@ -37,21 +37,23 @@
 // nothing is added back.  At "highest" and "split3" the operand is (m_rows,
 // kd) f32; at "split3cat" it is pre-split: (m_rows, 2 kp) bf16 rows
 // [hi | lo], hi = bf16_rn(x), lo = bf16_rn(x - hi), each half zero-padded
-// to kp = kd rounded up to KC, so a row is 4 kp bytes (640 at kd 151), a
-// multiple of 128, and is staged with 16-byte loads.  The kernels read sqn
+// to kp = kd rounded up to 32, so a row is 4 kp bytes (640 at kd 151), a
+// multiple of 128, and is staged with 16-byte copies.  The kernels read sqn
 // through a pointer and a stride: the raw block's column kd (stride width)
 // or the vector (stride 1).  Per target the k smallest (score, u) pairs are
 // kept, the lowest u winning ties.
 //
-// Precisions.  "highest": cross in FP32 FMAs on the CUDA cores.  The split
-// precisions cut each operand once into bf16 hi = bf16_rn(x) and
-// lo = bf16_rn(x - hi), as JAX's astype(bfloat16) does, and form
-// cross = hi.hi + hi.lo + lo.hi (raw side first) on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulate).  Each bf16 x bf16 product is
-// exact in f32, so only the summation order differs from the TPU kernel:
-// "split3cat" keeps one accumulator over the 3 * kd pairs (the TPU's one
-// K = 3d pass), "split3" three, combined as (hh + hl) + lh (its three
-// passes).
+// Precisions.  "highest": cross in FP32 FMAs on the CUDA cores, one fmaf a
+// column in ascending column order, so a score does not depend on the tile
+// shape.  The split precisions cut each operand once into bf16
+// hi = bf16_rn(x) and lo = bf16_rn(x - hi), as JAX's astype(bfloat16) does,
+// and form cross = hi.hi + hi.lo + lo.hi (raw side first) on the tensor
+// cores (wgmma m64nNk16, bf16 in, f32 accumulate).  Each bf16 x bf16
+// product is exact in f32, so only the summation order differs from the TPU
+// kernel: "split3cat" keeps one accumulator over the 3 * kd pairs (the
+// TPU's one K = 3d pass), "split3" three, combined as (hh + hl) + lh (its
+// three passes).  A wgmma adds 16 products, as the warp-level mma of the
+// first design did; columns past kd are zero on both sides and add exact zeros.
 //
 // Fused masks, at every precision, applied to the score after the product in
 // the Pallas order (so at "highest" the plain twin agrees bit for bit):
@@ -61,86 +63,119 @@
 //         skipping slots whose constant is 0; pen[c] = float32(w_c * scale)
 //         is rounded on the host.
 // Each side describes a row with 8 int32 [code, ctx0..ctx4, vid, 0] (two
-// int4 loads); target rows of the tile and the DB rows of each tile are
-// staged in shared memory.  A +inf score never enters a list, so a slot that
-// no finite score reaches (a voice with fewer than k rows) is written as
-// (+inf, index 0): the Pallas contract for partition-starved columns.
+// int4 loads); the target rows of the tile sit in shared memory and the DB
+// rows of each tile ride in the staging ring.  A +inf score never enters a
+// list, so a slot that no finite score reaches (a voice with fewer than k
+// rows) is written as (+inf, index 0): the Pallas contract for
+// partition-starved columns.
 //
 // Shape of the work on Hopper.  The TPU kernel walks the DB chunk by chunk
 // in sequence and carries a k-slot state in VMEM.  Here blocks run in
 // parallel and in no order, so the DB is cut into S contiguous splits as
-// well as the targets into tiles of TT rows:
+// well as the targets into tiles of TT rows (128, or 64 where 128 do not
+// fit in shared memory or T <= 64), one CTA an SM:
 //
-//   pass 1 (topk_partial, topk_partial_split), grid (target tiles) x
-//     (S splits): the target tile sits in shared memory; DB rows stream
-//     through shared memory in tiles of R rows x KC columns, f32 rows with
-//     scalar loads (neither the raw block's 4 * (kd + 2)-byte row stride
-//     nor the derived operand's 4 * kd is 16-byte aligned at kd 151 or
-//     453), pre-split rows with one 16-byte load per 8 bf16.
-//     "highest": each thread accumulates a 4 x 4 register tile with FP32
-//     FMAs (no TF32).  Split precisions: an f32 tile is split to bf16 hi /
-//     lo while it is stored (a pre-split one is copied as it is), and each
-//     warp computes a 16-row x 32-target block of the 64 x 64 tile with
-//     mma.sync.  After each DB tile one warp per
-//     target offers the tile's 64 scores to a sorted k-slot list in shared
-//     memory: a candidate enters only if it beats the worst (score, index)
-//     pair, so a warm list costs one ballot per 32 scores.
+//   pass 1, grid (target tiles) x (S splits).  The target tile stays in
+//     shared memory; the split's DB rows stream through a ring of stages
+//     filled ahead of the arithmetic, and a sparse epilogue keeps sorted
+//     k-slot lists in shared memory (below).
+//     topk_partial ("highest"): 256 threads, DB tiles of 128 rows, stages of
+//     16 columns in a ring of three filled by 4-byte cp.async (an f32 row
+//     of 4 (kd + 2) or 4 kd bytes is only 4-byte aligned at kd 151 and
+//     453), one __syncthreads a stage, the loads of stage s + 2 in flight
+//     while stage s is multiplied.  Each thread owns an 8 x 8 register tile
+//     (8 x 4 at TT = 64), read as two float4 a side: 64 FMAs for four
+//     LDS.128.  The stage is stored column-major, [column][row] with the
+//     row stride padded from 128 to 132 floats: a warp copies 8 columns of
+//     4 rows, which land in 32 different banks (bank = 4 column + row),
+//     and the float4 reads along the rows stay 16-byte aligned and free of
+//     conflicts; the global reads are runs of 32 bytes along a row.
+//     topk_partial_split (split precisions): 384 threads.  One producer
+//     warpgroup fills a ring of four stages, each 64 DB rows x 64 columns
+//     of bf16 hi and lo in the 128-byte-swizzled K-major layout wgmma
+//     reads (a row is 128 bytes, its 16-byte chunk c sits at chunk
+//     c ^ (row % 8); tiles are 1,024-byte aligned): pre-split rows by
+//     16-byte cp.async; f32 rows by loads along the row, split in
+//     registers and stored as packed bf16x2 words, the loads of the next
+//     stage issued before the current one is split.  Two consumer
+//     warpgroups take alternate 64-row DB tiles and multiply them (M = 64
+//     DB rows) by the resident target tile (N = TT targets, bf16 hi and lo
+//     in the same layout) with wgmma, the f32 sums in registers, so one
+//     warpgroup's epilogue runs under the other's products.  Stages are
+//     handed over with mbarriers (full: the producer's 128 arrivals after a
+//     fence.proxy.async; empty: the consumer's 128 after the wgmma that
+//     read the stage completed); a tile's sqn and metadata rows travel with
+//     its last stage.  "split3" runs at TT = 64 (three accumulators).
 //   pass 2 (topk_merge): one warp per target merges the S sorted partial
 //     lists under the same (score, index) order and adds comp (the
 //     zero-transient form only).
 //
 // S is chosen by the wrapper so that tiles x S fills the card at small T
-// (one utterance: 2 to 32 target tiles) as well as at large T.
+// (one utterance: 1 to 16 target tiles) as well as at large T.
 //
-// Selection (SEL), the epilogue that follows each DB tile's scores; the
-// product, the masks and the two-pass shape are the same in all four:
-//   STREAM  (offer_tile): every score that beats the list's worst (score,
-//     index) pair is inserted, in lane order; exact, lowest index on ties.
-//   PHASE   (phase_tile): rounds of warp minimum, lowest index holding it,
-//     insert, mask the extracted element, until the tile's remaining
-//     minimum no longer beats the list's worst: the same exact top-k, bit
-//     for bit, found the way the Pallas phase loop finds it.
-//   PACKED  (packed_tile): the lists hold int keys, key = to_key(score) with
-//     the low 7 bits replaced by u & 127 (pallas_topk.py:212-217, :524-527,
-//     BLOCK = 128), ordered by (key, u); a candidate is screened with one
-//     int compare.  Pass 2 unpacks (from_key, :220-226) and adds comp, so a
-//     returned score lies within 127 ulp of the score that was ranked.
-//   PACKED3 (packed3_tile): per target and 128-row block the three
-//     smallest keys, by three warp reductions a tile (a block spans two
-//     tiles; the running three wait in shared memory), offered to the list
-//     at the block's end, and the least third key of any block kept per
-//     (target, split).  Pass 2 raises a target's overflow flag where that
-//     least third key lies below the worst key kept: some block may hold a
-//     fourth row that belongs in the list.  A target without flag has
-//     exactly the PACKED result.  Splits start on multiples of 128.
+// The sparse epilogue.  A finished score is compared in registers with its
+// target's worst kept score (slot k - 1 of the list; `<=`, so a tie still
+// reaches the exact compare) and only the survivors are appended, as
+// (value, target, row), to a queue of QCAP entries in shared memory; after
+// one barrier the warps drain it, each entry inserted by the warp that owns
+// its target under the exact (score, index) order.  The exact top-k under a
+// total order does not depend on the order of insertion, and a pair of the
+// final top-k beats every worst pair its list ever had, so it passes the
+// screen whenever it is computed: the result is that of offering every
+// score.  Overflow rule: an entry that finds the queue full stays pending
+// in its thread's registers; the queue is drained, the pending scores are
+// screened again against the lowered worst and appended again, until none
+// is pending (cold lists at the start of a split, a DB sorted by falling
+// score).  A warm list takes k / rows_seen of a tile's scores, so after the
+// first few tiles the queue holds a handful of entries and the epilogue is
+// 64 compares a thread.  In topk_partial_split both consumer warpgroups
+// insert into the same lists, so a warpgroup drains its own queue while it
+// holds the CTA's list lock; it reads the worst scores without the lock (a
+// stale worst is larger and only lets more through).
+//
+// Selection (SEL): how the queued survivors reach the lists.
+//   STREAM: in queue order; exact, lowest index on ties.
+//   PHASE:  by rounds of warp minimum over a batch of queue entries, lowest
+//     row holding it, insert, mask the extracted entry: the same exact
+//     top-k, bit for bit, found the way the Pallas phase loop finds it.
+//   PACKED: the lists hold int keys, key = to_key(score) with the low 7
+//     bits replaced by u & 127 (pallas_topk.py:212-217, :524-527,
+//     BLOCK = 128), ordered by (key, u); the screen is one int compare.
+//     Pass 2 unpacks (from_key, :220-226) and adds comp, so a returned
+//     score lies within 127 ulp of the score that was ranked.
+//   PACKED3: per target and 128-row block the three smallest keys, kept in
+//     shared memory by an atomicMin cascade (a key that loses a slot moves
+//     to the next, so the three slots end as the three least whatever the
+//     order), offered to the list through the queue at the block's end, and
+//     the least third key of any block kept per (target, split).  Pass 2
+//     raises a target's overflow flag where that least third key lies below
+//     the worst key kept: some block may hold a fourth row that belongs in
+//     the list.  A target without flag has exactly the PACKED result.
+//     Splits start on multiples of 128; in topk_partial_split a block's two
+//     64-row tiles go to the same warpgroup.
 // In the packed forms a +inf score (a masked row) gets no key and enters no
 // list, as in the other two, so dead slots read (+inf, 0) in all four; the
 // Pallas kernel fills them with (+inf, some row).
 //
-// Shared memory of pass 1 ("highest") is 4 * (64 * kd + 8,256 + 128 * k)
-// bytes, plus 4 KB of metadata in the masked variants: at kd = 151 (epoch
-// units) two CTAs fit per SM; at kd = 453 (halfphone units, [first | mid |
-// last] frames) about 150-160 KB, so one CTA per SM.  The split variants
-// hold the target tile as bf16 hi and lo (the same bytes as one f32 copy,
-// row stride padded by 8 against bank conflicts): 4 * (4,160 + 128 * k) +
-// 256 * (kd rounded up to 32, + 8) + 10,240 bytes, plus the same 4 KB of
-// metadata in the masked variants: about 96 KB at kd 151 and k 48, so two
-// CTAs still fit per SM; about 176 KB at kd 453 (halfphone), one CTA.  The
-// derived form uses the same layouts, and the pre-split operand stages
-// into the same bf16 hi / lo tiles, so each derived variant needs exactly
-// the shared memory of its zero-transient twin (partial_smem).
+// Shared memory of pass 1 (partial_smem), one CTA an SM.  "highest":
+// 4 * (TT * kd16 + 3 * 16 * 132 + 3 * 128 + 2 * TT * k) + 12 KB of queue,
+// kd16 = kd rounded up to 16, plus 12 KB + 32 TT of metadata in the masked
+// variants: 177 KB at kd 151, k 40, TT 128; at kd 453 TT 128 would need
+// 232 KB for the targets alone, so TT is 64 there (about 185 KB).  Split
+// precisions: the target tile 2 * TT * 128 * ceil(kd / 64) bytes (96 KB at
+// kd 151 and TT 128, 128 KB at kd 453 and TT 64), the ring 64 KB, the
+// lists 8 TT k, two queues of 6 KB: 222 KB at kd 151, k 48, TT 128.
 //
 // Bound: at the config-3 batch shape (65,536 targets x 1,048,576 units x
-// kd = 151) "highest" is about 2.1e13 FLOP of FP32 FMA, so it is bound by
-// FP32 FMA throughput and shared-memory operand traffic, in either form.
-// The split variants do 3x the products at bf16 tensor-core rate, which
-// leaves them bound by the DB staging (every target tile reads the ~640 MB
-// block or operand, from device memory about once per wave of resident
-// tiles and from L2 for the rest) and by the selection epilogue.  The
-// derived form moves more bytes than the zero-transient one (the operand is
-// written and read each step) but the same FLOP, so it stays bound by
-// operations; its pre-split split3cat operand removes the split arithmetic
-// and the scalar loads from the staging, which is what it measures.
+// kd = 151) "highest" is 2.1e13 FLOP of FP32 FMA against 640 MB of DB, so
+// it is bound by the FP32 FMA rate; what the design removes is what kept
+// the FMA pipe idle: shared-memory operand traffic (8 x 8 tile), exposed
+// load latency and barriers (the ring), the dense score tile and its idle
+// selection phase (the screen).  The split variants do 3x the products at
+// the bf16 tensor-core rate and are bound by it once wgmma feeds the tensor
+// cores; beside it stand the L2 traffic of the DB stream (each target tile
+// streams the whole operand: halved by TT = 128) and, for f32 rows, the
+// producer's split arithmetic.
 
 #pragma once
 
@@ -153,11 +188,6 @@
 
 namespace {
 
-constexpr int TT = 64;                  // target rows per CTA
-constexpr int R = 64;                   // DB rows per tile
-constexpr int KC = 32;                  // DB columns per shared-memory stage
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr int KMAX = 64;                // list slots: two per lane
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int META = 8;                 // [code, ctx0..ctx4, vid, 0]
@@ -172,9 +202,25 @@ constexpr int BLOCK = 128;              // rows of a packed3 block; a packed key
 constexpr int KEY_EMPTY = INT_MAX;      // no key: an empty slot, a +inf score
 constexpr int B3 = 4;                   // packed3 state a target: the block's
                                         // three least keys, the least third
-constexpr int KS = 16;                  // mma depth (bf16 pairs)
-constexpr int SPAD = 8;                 // bf16 row padding of the split tiles
-constexpr int DS = KC + SPAD;           // bf16 row stride of the DB stage
+constexpr int QCAP = 1024;              // queue entries of topk_partial
+constexpr int QCAP2 = 512;              // of each consumer warpgroup of
+                                        // topk_partial_split
+constexpr int SMEM_LIMIT = 232448;      // 227 KB: what a block may use
+
+// topk_partial ("highest")
+constexpr int THREADS = 256;
+constexpr int R1 = 128;                 // DB rows per tile
+constexpr int KC1 = 16;                 // DB columns per stage
+constexpr int NS1 = 3;                  // stages in the ring
+constexpr int SD = R1 + 4;              // row stride of a stage column (floats)
+
+// topk_partial_split (split precisions)
+constexpr int THREADS2 = 384;           // two consumer warpgroups, one producer
+constexpr int R2 = 64;                  // DB rows per tile: the M of wgmma
+constexpr int KC2 = 64;                 // bf16 columns per stage: one 128-byte row
+constexpr int NS2 = 4;                  // stages in the ring, where they fit
+constexpr int HALF2 = R2 * KC2 * 2;     // bytes of a stage's hi (or lo) tile
+constexpr int KPAD = 32;                // a pre-split half is padded to this
 
 struct Penalties {
   float w[5];                             // float32(w_c * scale); 0 = skip
@@ -205,7 +251,7 @@ __device__ __forceinline__ float from_key(int key) {
 }
 
 // The key of score s at DB row u, or KEY_EMPTY where the row takes no part
-// (past the split's end, or a score that is not below +inf).
+// (past the split's end, a target past T, or a score that is not below +inf).
 __device__ __forceinline__ int packed_key(float s, int u, bool in_range) {
   return in_range && s < pos_inf()
              ? (to_key(s) & ~(BLOCK - 1)) | (u & (BLOCK - 1))
@@ -246,6 +292,7 @@ __device__ void warp_insert(V* lv, int* li, int k, V v, int i, int lane) {
 // Offer one candidate per lane (ok = the lane holds one) to the list; the
 // finite candidates that beat the worst slot are inserted one at a time in
 // lane order, each re-checked against the worst slot as it stands then.
+// (Pass 2.)
 __device__ void warp_offer(float* lv, int* li, int k, float v, int i, bool ok,
                            int lane) {
   unsigned m = __ballot_sync(
@@ -264,7 +311,7 @@ __device__ void warp_offer(float* lv, int* li, int k, float v, int i, bool ok,
 // The packed forms' offer: one candidate key per lane (ok = the lane holds
 // one; never KEY_EMPTY).  One int compare screens a candidate against the
 // worst key; the ones that pass (an equal key among them) are inserted one
-// at a time in lane order under the (key, index) order.
+// at a time in lane order under the (key, index) order.  (Pass 2.)
 __device__ void warp_offer_key(int* lk, int* li, int k, int key, int i, bool ok,
                                int lane) {
   unsigned m = __ballot_sync(FULL, ok && key <= lk[k - 1]);
@@ -279,156 +326,286 @@ __device__ void warp_offer_key(int* lk, int* li, int k, int key, int i, bool ok,
   }
 }
 
+// ---------------------------------------------------------------- selection
+// What the sparse epilogue of one group of threads works on: the CTA's
+// lists (values or keys, and rows; the worst kept value of each once more
+// in an array of its own, which the screen reads free of bank conflicts),
+// the group's queue (ranked value bits,
+// target of the tile, DB row; count[parity of the tile]) and, for PACKED3,
+// the group's per-target block state [TT][B3].
+struct Select {
+  float* lv;
+  int* li;
+  int* worst;                             // [TT] bits of each list's slot k - 1
+  int* qbits;
+  int* qtgt;
+  int* qrow;
+  int* qcount;
+  int* sB3;
+  int k;
+  int cap;                                // queue entries
+};
+
+// The group that runs an epilogue together.  topk_partial: the whole CTA;
+// nobody else touches the lists, so the lock is empty.
+struct CtaGroup {
+  int tid, warp;
+  static constexpr int threads = THREADS, warps = THREADS / 32;
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+  __device__ __forceinline__ void lock() const {}
+  __device__ __forceinline__ void unlock() const {}
+};
+
+// topk_partial_split: one consumer warpgroup (named barrier 1 + id).  The
+// other warpgroup inserts into the same lists, so a drain runs under the
+// CTA's list lock (an int in shared memory, 0 = free), taken by the
+// group's first thread.
+struct WarpGroup {
+  int tid, warp, id;
+  int* mutex;
+  static constexpr int threads = 128, warps = 4;
+  __device__ __forceinline__ void sync() const {
+    asm volatile("bar.sync %0, 128;\n" ::"r"(id + 1) : "memory");
+  }
+  __device__ __forceinline__ void lock() const {
+    if (tid == 0) {
+      const long long t0 = clock64();
+      while (atomicCAS(mutex, 0, 1) != 0) {
+        __nanosleep(32);
+        if (clock64() - t0 > (1ll << 33)) __trap();   // seconds: a lost unlock
+      }
+      __threadfence_block();
+    }
+    sync();
+  }
+  __device__ __forceinline__ void unlock() const {
+    sync();
+    if (tid == 0) {
+      __threadfence_block();
+      atomicExch(mutex, 0);
+    }
+  }
+};
+
+// Does the ranked value (score bits, or a packed key) pass the screen of a
+// list whose worst value is `worst`?  Finite scores only; `<=` so that an
+// equal score still reaches the exact (score, row) compare of the drain.
+template <bool KEYS>
+__device__ __forceinline__ bool passes(int bits, int worst) {
+  if constexpr (KEYS) {
+    return bits != KEY_EMPTY && bits <= worst;
+  } else {
+    const float v = __int_as_float(bits);
+    return v < pos_inf() && v <= __int_as_float(worst);
+  }
+}
+
+// Append one entry; false where the queue is full (the entry stays pending).
+__device__ __forceinline__ bool push(const Select& s, int parity, int bits, int t,
+                                     int u) {
+  const int slot = atomicAdd(s.qcount + parity, 1);
+  if (slot >= s.cap) return false;
+  s.qbits[slot] = bits;
+  s.qtgt[slot] = t;
+  s.qrow[slot] = u;
+  return true;
+}
+
+// Insert the first n queue entries into their lists.  Every warp of the
+// group reads all entries, 32 at a time, and takes those whose target it
+// owns (t % warps == warp), so no two warps write one list.
+template <int SEL, typename G>
+__device__ void drain_queue(const Select& s, int n, const G& g, int lane) {
+  constexpr bool KEYS = SEL == PACKED || SEL == PACKED3;
+  const int k = s.k;
+  for (int b = 0; b < n; b += 32) {
+    const int e = b + lane;
+    const bool has = e < n;
+    const int bits = has ? s.qbits[e] : 0;
+    const int t = has ? s.qtgt[e] : 0;
+    const int u = has ? s.qrow[e] : 0;
+    bool alive = has && t % G::warps == g.warp;
+    if constexpr (SEL == PHASE) {
+      // rounds: the least (score, row) among the batch's entries left, then
+      // insert it if it still beats its list's worst
+      while (true) {
+        const float cv = alive ? __int_as_float(bits) : pos_inf();
+        float vmin = cv;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          vmin = fminf(vmin, __shfl_xor_sync(FULL, vmin, o));
+        }
+        if (!(vmin < pos_inf())) break;   // queued scores are finite: none left
+        const int imin = __reduce_min_sync(FULL, alive && cv == vmin ? u : INT_MAX);
+        const bool own = alive && cv == vmin && u == imin;
+        const int src = __ffs(__ballot_sync(FULL, own)) - 1;
+        const int ct = __shfl_sync(FULL, t, src);
+        const float v = __shfl_sync(FULL, cv, src);
+        float* tv = s.lv + ct * k;
+        int* ti = s.li + ct * k;
+        if (lex_less(v, imin, tv[k - 1], ti[k - 1])) {
+          warp_insert(tv, ti, k, v, imin, lane);
+          if (lane == 0) s.worst[ct] = __float_as_int(tv[k - 1]);
+        }
+        if (lane == src) alive = false;
+      }
+    } else {
+      unsigned m = __ballot_sync(FULL, alive);
+      while (m) {
+        const int src = __ffs(m) - 1;
+        m &= m - 1;
+        const int cb = __shfl_sync(FULL, bits, src);
+        const int ct = __shfl_sync(FULL, t, src);
+        const int cu = __shfl_sync(FULL, u, src);
+        int* ti = s.li + ct * k;
+        if constexpr (KEYS) {
+          int* tk = reinterpret_cast<int*>(s.lv) + ct * k;
+          if (lex_less(cb, cu, tk[k - 1], ti[k - 1])) {
+            warp_insert(tk, ti, k, cb, cu, lane);
+            if (lane == 0) s.worst[ct] = tk[k - 1];
+          }
+        } else {
+          float* tv = s.lv + ct * k;
+          const float cv = __int_as_float(cb);
+          if (lex_less(cv, cu, tv[k - 1], ti[k - 1])) {
+            warp_insert(tv, ti, k, cv, cu, lane);
+            if (lane == 0) s.worst[ct] = __float_as_int(tv[k - 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// PACKED3: merge key x into a block's three least keys s[0..2].  Each slot
+// keeps the least key it has seen and hands the other on, so whatever the
+// order of concurrent calls the slots end as the three least of all keys.
+__device__ __forceinline__ void insert3(int* s, int x) {
+  int o = atomicMin(s, x);
+  x = max(o, x);
+  o = atomicMin(s + 1, x);
+  x = max(o, x);
+  atomicMin(s + 2, x);
+}
+
+// The sparse epilogue of one DB tile for one group of threads.  vals[e]:
+// the thread's N ranked values as float bit patterns, in the registers of
+// the sums they replace (score bits, or packed keys; +inf bits / KEY_EMPTY
+// where the row or the target takes no part); pass: bit e set
+// where vals[e] passed the screen against its list's worst value (for
+// PACKED3: where it is a key at all); t_of(e), u_of(e): its target in the
+// tile and its DB row.  parity: of the group's tile count.  block_ends,
+// block_base (PACKED3): the tile closes the 128-row block that starts at
+// that row.  The caller guarantees that a group barrier or more separates
+// two calls' queue writes from the reads of the call between them (the
+// ring's barrier in topk_partial; unlock() here for a warpgroup).
+template <int SEL, int TT, int N, typename G, typename TOf, typename UOf>
+__device__ __forceinline__ void sparse_select(const float (&vals)[N],
+                                              unsigned long long pass, TOf t_of,
+                                              UOf u_of, const Select& s,
+                                              const G& g, int parity,
+                                              bool block_ends, int block_base,
+                                              int t0, int T, int lane) {
+  constexpr bool KEYS = SEL == PACKED || SEL == PACKED3;
+  static_assert(N <= 64, "one pending bit per value");
+  // the other parity's count is free: its last reader passed a barrier
+  if (g.tid == 0) s.qcount[parity ^ 1] = 0;
+  unsigned long long pend = 0;
+  if constexpr (SEL == PACKED3) {
+    if (pass) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        int* st = s.sB3 + t_of(e) * B3;
+        if ((pass >> e & 1) && __float_as_int(vals[e]) < *reinterpret_cast<volatile int*>(st + 2)) {
+          insert3(st, __float_as_int(vals[e]));
+        }
+      }
+    }
+    if (block_ends) {
+      g.sync();
+      for (int t = g.tid; t < TT; t += G::threads) {
+        int* st = s.sB3 + t * B3;
+        st[3] = min(st[3], st[2]);
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const int key = st[j];
+          st[j] = KEY_EMPTY;
+          // 3 TT entries at most: the queue (empty here) cannot overflow
+          if (t0 + t < T && passes<true>(key, s.worst[t])) {
+            push(s, parity, key, t, block_base + (key & (BLOCK - 1)));
+          }
+        }
+      }
+    }
+  } else {
+    if (pass) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        if ((pass >> e & 1) && !push(s, parity, __float_as_int(vals[e]), t_of(e), u_of(e))) {
+          pend |= 1ull << e;
+        }
+      }
+    }
+  }
+  g.sync();                               // the queue is complete
+  int total = *reinterpret_cast<volatile int*>(s.qcount + parity);
+  if (total == 0) return;                 // uniform across the group
+  g.lock();
+  while (true) {
+    drain_queue<SEL>(s, min(total, s.cap), g, lane);
+    if (total <= s.cap) break;            // nothing was left pending
+    g.sync();                             // drained, and every thread read total
+    if (g.tid == 0) s.qcount[parity] = 0;
+    g.sync();
+    if (pend) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        if (pend >> e & 1) {
+          const int t = t_of(e);
+          const int worst = *reinterpret_cast<volatile int*>(s.worst + t);
+          if (!passes<KEYS>(__float_as_int(vals[e]), worst) || push(s, parity, __float_as_int(vals[e]), t, u_of(e))) {
+            pend &= ~(1ull << e);
+          }
+        }
+      }
+    }
+    g.sync();
+    total = *reinterpret_cast<volatile int*>(s.qcount + parity);
+  }
+  g.unlock();
+}
+
 // Every list of the CTA empty: (+inf, INT_MAX) in each slot, or
-// (KEY_EMPTY, INT_MAX) where the lists hold packed keys; the packed3 state
-// sB3 [TT][B3] all KEY_EMPTY.
+// (KEY_EMPTY, INT_MAX) where the lists hold packed keys, the worst array
+// likewise; n3 ints of packed3
+// state all KEY_EMPTY; nq queue counters 0.
 template <int SEL>
-__device__ void init_lists(float* lv, int* li, int* sB3, int k, int tid) {
+__device__ void init_state(float* lv, int* li, int n_list, int* worst, int n_tgt,
+                           int* sB3, int n3, int* counters, int nq, int tid,
+                           int threads) {
   constexpr bool KEYS = SEL == PACKED || SEL == PACKED3;
   const float none = KEYS ? __int_as_float(KEY_EMPTY) : pos_inf();
-  for (int e = tid; e < TT * k; e += THREADS) {
+  for (int e = tid; e < n_list; e += threads) {
     lv[e] = none;
     li[e] = INT_MAX;
   }
+  for (int e = tid; e < n_tgt; e += threads) worst[e] = __float_as_int(none);
   if constexpr (SEL == PACKED3) {
-    for (int e = tid; e < TT * B3; e += THREADS) sB3[e] = KEY_EMPTY;
+    for (int e = tid; e < n3; e += threads) sB3[e] = KEY_EMPTY;
   }
-}
-
-// STREAM.  One warp per target offers the tile's R scores sS[t][.] (DB rows
-// base .. base + R - 1, those at or past row_hi left out) to its list.
-__device__ void offer_tile(const float* sS, float* lv, int* li, int k, int t0,
-                           int T, int base, int row_hi, int warp, int lane) {
-  for (int t = warp; t < TT; t += WARPS) {
-    if (t0 + t >= T) continue;            // uniform across the warp
-    for (int h = 0; h < R; h += 32) {
-      const int u = base + h + lane;
-      warp_offer(lv + t * k, li + t * k, k, sS[t * R + h + lane], u,
-                 u < row_hi, lane);
-    }
-  }
-}
-
-// PHASE.  One warp per target; a lane holds the tile's rows lane and
-// lane + 32.  Each round finds the least remaining score of the tile (warp
-// minimum), the lowest row that holds it (warp minimum of the indices),
-// inserts the pair and masks that element, and the rounds end when the
-// pair no longer beats the list's worst: the exact (score, index) top-k of
-// offer_tile, bit for bit (the inserted value is the element's own).
-__device__ void phase_tile(const float* sS, float* lv, int* li, int k, int t0,
-                           int T, int base, int row_hi, int warp, int lane) {
-  const int u0 = base + lane, u1 = u0 + 32;
-  for (int t = warp; t < TT; t += WARPS) {
-    if (t0 + t >= T) continue;            // uniform across the warp
-    float* tv = lv + t * k;
-    int* ti = li + t * k;
-    float a = sS[t * R + lane], b = sS[t * R + 32 + lane];
-    if (!(u0 < row_hi && a < pos_inf())) a = pos_inf();
-    if (!(u1 < row_hi && b < pos_inf())) b = pos_inf();
-    while (true) {
-      const bool first = a <= b;          // u0 < u1: the lower row on a tie
-      const float cv = first ? a : b;
-      const int ci = first ? u0 : u1;
-      float vmin = cv;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        vmin = fminf(vmin, __shfl_xor_sync(FULL, vmin, o));
-      }
-      if (!(vmin < pos_inf())) break;     // nothing finite is left
-      const int imin = __reduce_min_sync(FULL, cv == vmin ? ci : INT_MAX);
-      if (!lex_less(vmin, imin, tv[k - 1], ti[k - 1])) break;
-      const bool own = cv == vmin && ci == imin;
-      const int src = __ffs(__ballot_sync(FULL, own)) - 1;
-      warp_insert(tv, ti, k, __shfl_sync(FULL, cv, src), imin, lane);
-      if (own) {
-        if (first) a = pos_inf(); else b = pos_inf();
-      }
-    }
-  }
-}
-
-// PACKED.  As offer_tile on the packed keys of the scores.
-__device__ void packed_tile(const float* sS, int* lk, int* li, int k, int t0,
-                            int T, int base, int row_hi, int warp, int lane) {
-  for (int t = warp; t < TT; t += WARPS) {
-    if (t0 + t >= T) continue;            // uniform across the warp
-    for (int h = 0; h < R; h += 32) {
-      const int u = base + h + lane;
-      const int key = packed_key(sS[t * R + h + lane], u, u < row_hi);
-      warp_offer_key(lk + t * k, li + t * k, k, key, u, key != KEY_EMPTY, lane);
-    }
-  }
-}
-
-__device__ __forceinline__ int above(int key, int floor) {
-  return key > floor ? key : KEY_EMPTY;
-}
-
-// PACKED3.  A 128-row block is two tiles (splits start on multiples of
-// BLOCK, tiles advance by R = BLOCK / 2; the DB's last block may be short).
-// Per target the three least keys of the block so far wait in sB3[t][0..2];
-// each tile merges its 64 keys into them with three warp minima (keys are
-// distinct within a block: their low bits are the row).  At the block's end
-// the three are offered to the list, their rows rebuilt from the low bits,
-// and the third lowers sB3[t][3], the least third key of the split.
-__device__ void packed3_tile(const float* sS, int* lk, int* li, int* sB3, int k,
-                             int t0, int T, int base, int row_hi, int warp,
-                             int lane) {
-  const bool block_ends = base % BLOCK + R >= BLOCK || base + R >= row_hi;
-  const int u0 = base + lane, u1 = u0 + 32;
-  for (int t = warp; t < TT; t += WARPS) {
-    if (t0 + t >= T) continue;            // uniform across the warp
-    int* st = sB3 + t * B3;
-    const int a = packed_key(sS[t * R + lane], u0, u0 < row_hi);
-    const int b = packed_key(sS[t * R + 32 + lane], u1, u1 < row_hi);
-    const int c = lane < 3 ? st[lane] : KEY_EMPTY;
-    const int m1 = __reduce_min_sync(FULL, min(a, min(b, c)));
-    const int m2 = __reduce_min_sync(
-        FULL, min(above(a, m1), min(above(b, m1), above(c, m1))));
-    const int m3 = __reduce_min_sync(
-        FULL, min(above(a, m2), min(above(b, m2), above(c, m2))));
-    const int mine = lane == 0 ? m1 : lane == 1 ? m2 : m3;
-    __syncwarp();                         // st was read by lanes 0..2
-    if (block_ends) {
-      const int u = base / BLOCK * BLOCK + (mine & (BLOCK - 1));
-      warp_offer_key(lk + t * k, li + t * k, k, mine, u,
-                     lane < 3 && mine != KEY_EMPTY, lane);
-      if (lane < 3) st[lane] = KEY_EMPTY;
-      if (lane == 3) st[3] = min(st[3], m3);
-    } else if (lane < 3) {
-      st[lane] = mine;
-    }
-    __syncwarp();
-  }
-}
-
-// The selection SEL of one DB tile's scores.
-template <int SEL>
-__device__ __forceinline__ void select_tile(const float* sS, float* lv, int* li,
-                                            int* sB3, int k, int t0, int T,
-                                            int base, int row_hi, int warp,
-                                            int lane) {
-  if constexpr (SEL == STREAM) {
-    offer_tile(sS, lv, li, k, t0, T, base, row_hi, warp, lane);
-  } else if constexpr (SEL == PHASE) {
-    phase_tile(sS, lv, li, k, t0, T, base, row_hi, warp, lane);
-  } else if constexpr (SEL == PACKED) {
-    packed_tile(sS, reinterpret_cast<int*>(lv), li, k, t0, T, base, row_hi,
-                warp, lane);
-  } else {
-    packed3_tile(sS, reinterpret_cast<int*>(lv), li, sB3, k, t0, T, base,
-                 row_hi, warp, lane);
-  }
+  if (tid < nq) counters[tid] = 0;
 }
 
 // The CTA's lists (scores or keys, copied as they are) to its slot of the
 // (T, splits, k) partial outputs, and with part_third (PACKED3) each
-// target's least third key to its slot of the (T, splits) array.
+// target's least third key (over the `groups` block states) to its slot of
+// the (T, splits) array.
+template <int TT>
 __device__ void store_lists(const float* lv, const int* li, const int* sB3,
-                            float* part_v, int* part_i, int* part_third, int k,
-                            int t0, int T, int split, int splits, int warp,
-                            int lane) {
-  for (int t = warp; t < TT; t += WARPS) {
+                            int groups, float* part_v, int* part_i,
+                            int* part_third, int k, int t0, int T, int split,
+                            int splits, int warp, int warps, int lane) {
+  for (int t = warp; t < TT; t += warps) {
     if (t0 + t >= T) continue;
     const size_t o = (static_cast<size_t>(t0 + t) * splits + split) * k;
     for (int j = lane; j < k; j += 32) {
@@ -436,12 +613,14 @@ __device__ void store_lists(const float* lv, const int* li, const int* sB3,
       part_i[o + j] = li[t * k + j];
     }
     if (part_third != nullptr && lane == 0) {
-      part_third[static_cast<size_t>(t0 + t) * splits + split] = sB3[t * B3 + 3];
+      int third = KEY_EMPTY;
+      for (int gq = 0; gq < groups; ++gq) third = min(third, sB3[(gq * TT + t) * B3 + 3]);
+      part_third[static_cast<size_t>(t0 + t) * splits + split] = third;
     }
   }
 }
 
-// Score of target row tt against DB row r of the tile (both in shared
+// Score of a target row against a DB row (their metadata rows in shared
 // memory), with the variant's fused masks applied in the Pallas order.
 template <bool PART, bool LING>
 __device__ __forceinline__ float fused_score(float s, const int* tm,
@@ -467,10 +646,57 @@ __device__ __forceinline__ float fused_score(float s, const int* tm,
   return s;
 }
 
+// The ranked value of a score: its bits, or its packed key.
+template <bool KEYS>
+__device__ __forceinline__ int ranked_bits(float s, int u, bool in_range) {
+  if constexpr (KEYS) {
+    return packed_key(s, u, in_range);
+  } else {
+    return __float_as_int(in_range ? s : pos_inf());
+  }
+}
+
+// cp.async of 4 or 16 bytes; n_src < the size zero-fills the rest (0: all).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int n_src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(n_src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n_src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(n_src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------------------ pass 1, highest
+// Bytes of shared memory topk_partial<TT> needs; the kernel carves the same
+// regions in the same order.
+size_t partial_smem_highest(int TT, int kd, int k, bool masked, int sel) {
+  const size_t kd16 = static_cast<size_t>((kd + KC1 - 1) / KC1 * KC1);
+  return (kd16 * TT + NS1 * KC1 * SD + NS1 * R1 + 2 * static_cast<size_t>(TT) * k) * 4 +
+         (masked ? (NS1 * R1 + TT) * META * 4 : 0) + (3 * QCAP + 4 + TT) * 4 +
+         (sel == PACKED3 ? TT * B3 * 4 : 0);
+}
+
 // Pass 1 at "highest".  raw: f32 DB rows of row stride width (the raw block
 // or the derived operand); sqn[u * sqn_stride]: the squared norm of row u.
-template <bool PART, bool LING, int SEL>
-__global__ void __launch_bounds__(THREADS, 2)
+// Thread (tx, ty) = (tid % 16, tid / 16) owns DB rows tx * 4 .. + 3 and
+// 64 + tx * 4 .. + 3 of the tile and targets ty * 4 .. + 3 (and, at
+// TT = 128, 64 + ty * 4 .. + 3): two float4 a side per column.
+template <int TT, bool PART, bool LING, int SEL>
+__global__ void __launch_bounds__(THREADS, 1)
 topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
              const float* __restrict__ sqn, int sqn_stride,
              const int* __restrict__ tmeta, const int* __restrict__ dmeta,
@@ -479,27 +705,40 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
              int kd, int width, int m_rows, int rows_per_split, int k,
              int splits) {
   constexpr bool MASKED = PART || LING;
+  constexpr bool KEYS = SEL == PACKED || SEL == PACKED3;
+  constexpr int TM = TT / 16;             // targets a thread: 8 or 4
+  constexpr int N = TM * 8;
   extern __shared__ __align__(16) float smem[];
-  float* sT = smem;                       // [kd][TT]  targets, column-major
-  float* sD = sT + kd * TT;               // [KC][R]   DB tile stage
-  float* sS = sD + KC * R;                // [TT][R]   scores of the tile
-  float* sSqn = sS + TT * R;              // [R]       sqn column of the tile
-  int* sTM = reinterpret_cast<int*>(sSqn + R);     // [TT][META] if MASKED
-  int* sDM = sTM + (MASKED ? TT * META : 0);       // [R][META]  if MASKED
-  float* lv = reinterpret_cast<float*>(sDM + (MASKED ? R * META : 0));
-                                          // [TT][k]   list values or keys
-  int* li = reinterpret_cast<int*>(lv + TT * k);   // [TT][k] list indices
-  int* sB3 = li + TT * k;                 // [TT][B3]  if SEL == PACKED3
+  const int nk = (kd + KC1 - 1) / KC1;    // stages a DB tile
+  float* sT = smem;                       // [nk * KC1][TT] targets, column-major,
+                                          //   zero past kd
+  float* sD = sT + nk * KC1 * TT;         // [NS1][KC1][SD] the ring
+  float* sSqn = sD + NS1 * KC1 * SD;      // [NS1][R1] sqn of a tile
+  int* sDM = reinterpret_cast<int*>(sSqn + NS1 * R1);   // [NS1][R1][META] if MASKED
+  int* sTM = sDM + (MASKED ? NS1 * R1 * META : 0);      // [TT][META] if MASKED
+  float* lv = reinterpret_cast<float*>(sTM + (MASKED ? TT * META : 0));
+                                          // [TT][k] list values or keys
+  int* li = reinterpret_cast<int*>(lv + TT * k);        // [TT][k] list rows
+  int* queue = li + TT * k;               // 3 x [QCAP], then 4 counters
+  int* sW = queue + 3 * QCAP + 4;         // [TT] the lists' worst values
+  int* sB3 = sW + TT;                     // [TT][B3] if SEL == PACKED3
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const CtaGroup grp = {tid, tid >> 5};
+  const Select sel = {lv, li, sW, queue, queue + QCAP, queue + 2 * QCAP,
+                      queue + 3 * QCAP, sB3, k, QCAP};
   const int t0 = blockIdx.x * TT;
   const int split = blockIdx.y;
   const int row_lo = split * rows_per_split;
   const int row_hi = min(row_lo + rows_per_split, m_rows);
+  const int n_tiles = (row_hi - row_lo + R1 - 1) / R1;
+  const int n_stages = n_tiles * nk;
 
-  for (int e = tid; e < kd * TT; e += THREADS) {
-    const int t = e % TT, c = e / TT;
-    sT[e] = (t0 + t < T) ? t2[static_cast<size_t>(t0 + t) * kd + c] : 0.f;
+  for (int e = tid; e < nk * KC1 * TT; e += THREADS) {
+    const int t = e / (nk * KC1), c = e % (nk * KC1);   // lanes along a row
+    sT[c * TT + t] = (t0 + t < T && c < kd)
+                         ? t2[static_cast<size_t>(t0 + t) * kd + c]
+                         : 0.f;
   }
   if constexpr (MASKED) {
     for (int e = tid; e < TT * META; e += THREADS) {
@@ -507,272 +746,598 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
       sTM[e] = t < T ? tmeta[static_cast<size_t>(t) * META + e % META] : -1;
     }
   }
-  init_lists<SEL>(lv, li, sB3, k, tid);
-  __syncthreads();                        // lists are owned per warp below
+  init_state<SEL>(lv, li, TT * k, sW, TT, sB3, TT * B3, queue + 3 * QCAP, 4, tid,
+                  THREADS);
 
-  const int tx = tid & 15;                // DB rows tx * 4 .. tx * 4 + 3
-  const int ty = tid >> 4;                // targets ty * 4 .. ty * 4 + 3
-  for (int base = row_lo; base < row_hi; base += R) {
-    float acc[4][4];
+  // Stage (tile jt, column block ck) into ring slot `slot`: thread tid
+  // copies column (i / 4) * 8 + tid % 8 of rows tid / 8 + 32 * (i % 4),
+  // i = 0..7; the tile's sqn (and metadata rows) go with its first stage
+  // into slot jt % NS1 of their own rings.
+  auto issue = [&](int jt, int ck, int slot) {
+    const int base = row_lo + jt * R1;
+    const int c0 = ck * KC1;
+    float* buf = sD + slot * KC1 * SD;
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-
-    for (int c0 = 0; c0 < kd; c0 += KC) {
-      __syncthreads();                    // previous stage / selection done
-      const int kc = min(KC, kd - c0);
-      for (int e = tid; e < KC * R; e += THREADS) {
-        const int r = e % R, cc = e / R;
-        const int u = base + r;
-        sD[e] = (cc < kc && u < row_hi)
-                    ? __ldg(raw + static_cast<size_t>(u) * width + c0 + cc)
-                    : 0.f;
-      }
-      if (c0 == 0 && tid < R) {
+    for (int i = 0; i < 8; ++i) {
+      const int c = (i >> 2) * 8 + (tid & 7);
+      const int r = (tid >> 3) + 32 * (i & 3);
+      const int u = base + r;
+      const bool ok = u < row_hi && c0 + c < kd;
+      cp_async4(buf + c * SD + r,
+                ok ? raw + static_cast<size_t>(u) * width + c0 + c : raw,
+                ok ? 4 : 0);
+    }
+    if (ck == 0) {
+      const int ts = jt % NS1;
+      if (tid < R1) {
         const int u = base + tid;
-        sSqn[tid] = u < row_hi
-                        ? __ldg(sqn + static_cast<size_t>(u) * sqn_stride)
-                        : 0.f;
+        const bool ok = u < row_hi;
+        cp_async4(sSqn + ts * R1 + tid,
+                  ok ? sqn + static_cast<size_t>(u) * sqn_stride : sqn, ok ? 4 : 0);
       }
       if constexpr (MASKED) {
-        if (c0 == 0) {
-          for (int e = tid; e < R * META; e += THREADS) {
-            const int u = base + e / META;
-            sDM[e] = u < row_hi
-                         ? __ldg(dmeta + static_cast<size_t>(u) * META + e % META)
-                         : -1;
-          }
-        }
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int cc = 0; cc < kc; ++cc) {
-        const float4 a =
-            *reinterpret_cast<const float4*>(sT + (c0 + cc) * TT + ty * 4);
-        const float4 b = *reinterpret_cast<const float4*>(sD + cc * R + tx * 4);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        const int u = base + (tid >> 1);
+        const bool ok = u < row_hi;
+        cp_async16(sDM + (ts * R1 + (tid >> 1)) * META + (tid & 1) * 4,
+                   ok ? dmeta + static_cast<size_t>(u) * META + (tid & 1) * 4 : dmeta,
+                   ok ? 16 : 0);
       }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int* tm = sTM + (ty * 4 + i) * META;
-      float v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[j] = fused_score<PART, LING>(sSqn[tx * 4 + j] - 2.f * acc[i][j], tm,
-                                       sDM + (tx * 4 + j) * META, pen);
+  };
+
+  // the ring runs NS1 - 1 stages ahead: (ij, ik) is the next stage to issue
+  int ij = 0, ik = 0, is = 0;
+  auto issue_next = [&]() {
+    if (is < n_stages) {
+      issue(ij, ik, is % NS1);
+      if (++ik == nk) {
+        ik = 0;
+        ++ij;
       }
-      *reinterpret_cast<float4*>(sS + (ty * 4 + i) * R + tx * 4) =
-          make_float4(v[0], v[1], v[2], v[3]);
     }
-    __syncthreads();
-    select_tile<SEL>(sS, lv, li, sB3, k, t0, T, base, row_hi, warp, lane);
+    ++is;
+    cp_async_commit();                    // one group a stage, empty past the end
+  };
+#pragma unroll
+  for (int s = 0; s < NS1 - 1; ++s) issue_next();
+
+  const int tx = tid & 15, ty = tid >> 4;
+  auto trow = [&](int i) { return i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4); };
+  auto rrow = [&](int j) { return j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4); };
+  float acc[N];                           // [TM][8]: target i, DB row j at 8 i + j
+  int jt = 0, ck = 0;
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<NS1 - 2>();             // this thread's part of stage s landed
+    __syncthreads();                      // everyone's did; stage s - 1 is consumed
+    issue_next();                         // into the slot of stage s - 1
+    if (ck == 0) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i * 8 + j] = 0.f;
+    }
+    const float* a_col = sT + ck * KC1 * TT + ty * 4;
+    const float* b_col = sD + (s % NS1) * KC1 * SD + tx * 4;
+#pragma unroll
+    for (int cc = 0; cc < KC1; ++cc) {
+      float av[TM], bv[8];
+#pragma unroll
+      for (int h = 0; h < TM / 4; ++h) {
+        const float4 a = *reinterpret_cast<const float4*>(a_col + cc * TT + 64 * h);
+        av[4 * h] = a.x, av[4 * h + 1] = a.y, av[4 * h + 2] = a.z, av[4 * h + 3] = a.w;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 b = *reinterpret_cast<const float4*>(b_col + cc * SD + 64 * h);
+        bv[4 * h] = b.x, bv[4 * h + 1] = b.y, bv[4 * h + 2] = b.z, bv[4 * h + 3] = b.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i * 8 + j] = fmaf(av[i], bv[j], acc[i * 8 + j]);
+    }
+    if (++ck < nk) continue;
+    // the tile's products are complete: scores, screen, queue, drain
+    ck = 0;
+    const int base = row_lo + jt * R1;
+    const int ts = jt % NS1;
+    unsigned long long pass = 0;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int t = trow(i);
+      const bool t_ok = t0 + t < T;
+      const int worst = sW[t];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int r = rrow(j);
+        const int u = base + r;
+        const float sc = fused_score<PART, LING>(
+            sSqn[ts * R1 + r] - 2.f * acc[i * 8 + j], sTM + t * META,
+            sDM + (ts * R1 + r) * META, pen);
+        const int b = ranked_bits<KEYS>(sc, u, t_ok && u < row_hi);
+        acc[i * 8 + j] = __int_as_float(b);
+        const bool ok = SEL == PACKED3 ? b != KEY_EMPTY : passes<KEYS>(b, worst);
+        pass |= static_cast<unsigned long long>(ok) << (i * 8 + j);
+      }
+    }
+    sparse_select<SEL, TT>(
+        acc, pass, [&](int e) { return trow(e >> 3); },
+        [&](int e) { return base + rrow(e & 7); }, sel, grp, jt & 1, true, base,
+        t0, T, lane);
+    ++jt;
   }
-  store_lists(lv, li, sB3, part_v, part_i, part_third, k, t0, T, split, splits,
-              warp, lane);
+  __syncthreads();
+  store_lists<TT>(lv, li, sB3, 1, part_v, part_i, part_third, k, t0, T, split,
+                  splits, grp.warp, CtaGroup::warps, lane);
 }
 
-// bf16 hi / lo split of x (hi = bf16_rn(x), lo = bf16_rn(x - hi), the
-// split of pallas_topk._bf16_split), stored as raw bf16 bits.
-__device__ __forceinline__ void split_store(float x, unsigned short* hi,
-                                            unsigned short* lo) {
-  const __nv_bfloat16 h = __float2bfloat16_rn(x);
-  *hi = __bfloat16_as_ushort(h);
-  *lo = __bfloat16_as_ushort(__float2bfloat16_rn(x - __bfloat162float(h)));
+// ------------------------------------------------- pass 1, split precisions
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t ld_pair(const unsigned short* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
 }
 
-// d += a * b, one m16n8k16 bf16 tensor-core product with f32 accumulation.
-// a: 16 x 16 row-major fragment (4 registers of 2 bf16), b: 16 x 8
-// column-major fragment (2 registers), d: 16 x 8 f32 fragment.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed.  A wait of
+// seconds means a lost arrival: trap, so that the launch fails instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long t0 = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 33)) __trap();
+  }
+}
+
+// Writes to shared memory by ordinary stores or cp.async, made visible to
+// the reads wgmma makes through the async proxy.
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory matrix descriptor of a K-major bf16 tile in the 128-byte
+// swizzle: rows of 128 bytes, groups of 8 rows 1,024 bytes apart (the
+// stride byte offset; the leading byte offset is not used by this layout),
+// the tile 1,024-byte aligned.  `addr` may point 32, 64 or 96 bytes into
+// the first row: the next 16 columns of the same tile.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d (+)= a * b^T for a 64 x 16 tile a (DB rows) and an N x 16 tile b
+// (targets), both bf16 from shared memory, f32 sums in registers; scale_d 0
+// starts a new sum.  Thread (warp w of the group, g = lane / 4, q = lane % 4)
+// holds d[4 j + h] = (row 16 w + g + 8 (h / 2), column 8 j + 2 q + h % 2).
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                           int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// Pass 1 at the split precisions.  Shared memory: the tile's scores, lists
-// and packed3 state as in topk_partial, the metadata rows of the target
-// tile and of the DB tile when a mask is fused (MASKED), the target tile as bf16
-// [TT][kp + SPAD] hi and lo (kp = kd rounded up to KC, zero past kd), and
-// the DB stage as bf16 [R][DS] hi and lo.  Warp w computes DB rows
-// (w % 4) * 16 .. + 16 against targets (w / 4) * 32 .. + 32: one A fragment
-// (DB rows, row-major over columns) and four B fragments (8 targets each)
-// per 16 columns.  Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), with
-// g = lane / 4 and q = lane % 4: a0 = (g, 2q..2q+1), a1 = (g + 8, 2q..),
-// a2 = (g, 2q + 8..), a3 = (g + 8, 2q + 8..); b0 = (k 2q..2q+1, n g),
-// b1 = (k 2q + 8.., n g); d0..d3 = (g, 2q), (g, 2q + 1), (g + 8, 2q),
-// (g + 8, 2q + 1).  Row indices are int and element offsets size_t: the
-// capacity block has 8.4 M rows x 153 columns.  The fused masks are
-// applied to each score in the epilogue, after the product and before the
-// selection, in the order of topk_partial (fused_score).
-// db: f32 rows of row stride width, split while staged; with PRESPLIT,
-// bf16 rows [hi | lo] of row stride width = 2 kp elements (4 kp bytes, a
-// multiple of 128), copied into the hi / lo stages with one 16-byte load
-// and one 16-byte store per 8 values.  sqn[u * sqn_stride]: the squared
-// norm of row u.
-template <int PREC, bool PART, bool LING, bool PRESPLIT, int SEL>
-__global__ void __launch_bounds__(THREADS, 2)
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int TT>
+__device__ __forceinline__ void wgmma_tile(float (&d)[TT / 2], uint32_t a, uint32_t b,
+                                           int scale_d) {
+  if constexpr (TT == 128) {
+    wgmma_n128(d, wgmma_desc(a), wgmma_desc(b), scale_d);
+  } else {
+    wgmma_n64(d, wgmma_desc(a), wgmma_desc(b), scale_d);
+  }
+}
+
+// Keeps the compiler from moving reads or writes of the sums across the
+// asynchronous products' fence and wait.
+template <int N>
+__device__ __forceinline__ void fence_sums(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// bf16 hi / lo split of two neighbouring columns (hi = bf16_rn(x),
+// lo = bf16_rn(x - hi), the split of pallas_topk._bf16_split) as packed
+// bf16x2 words, the lower column in the low half.
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat16 h0 = __float2bfloat16_rn(x0), h1 = __float2bfloat16_rn(x1);
+  const __nv_bfloat16 l0 = __float2bfloat16_rn(x0 - __bfloat162float(h0));
+  const __nv_bfloat16 l1 = __float2bfloat16_rn(x1 - __bfloat162float(h1));
+  hi = static_cast<uint32_t>(__bfloat16_as_ushort(h0)) |
+       static_cast<uint32_t>(__bfloat16_as_ushort(h1)) << 16;
+  lo = static_cast<uint32_t>(__bfloat16_as_ushort(l0)) |
+       static_cast<uint32_t>(__bfloat16_as_ushort(l1)) << 16;
+}
+
+// Byte offset of 32-bit word w (columns 2 w, 2 w + 1) of row r in a
+// 128-byte-swizzled tile of 128-byte rows.
+__device__ __forceinline__ int swizzled_word(int r, int w) {
+  return r * 128 + ((((w >> 2) ^ (r & 7)) << 4) | ((w & 3) << 2));
+}
+
+// Bytes of shared memory topk_partial_split<TT> needs with a ring of ns
+// stages (1,024 of them to align the tiles); the kernel carves the same regions in the same order.
+size_t partial_smem_split(int TT, int kd, int k, bool masked, int sel, int ns) {
+  const size_t nch = static_cast<size_t>((kd + KC2 - 1) / KC2);
+  return 1024 + 2 * nch * TT * 128 + ns * 2 * HALF2 + 3 * NS2 * 8 + 16 +
+         ns * R2 * 4 + (masked ? (ns * R2 + TT) * META * 4 : 0) +
+         2 * static_cast<size_t>(TT) * k * 4 + 2 * (3 * QCAP2 + 4) * 4 + TT * 4 +
+         (sel == PACKED3 ? 2 * TT * B3 * 4 : 0);
+}
+
+// Stages of the ring at this shape: as many of NS2 as fit beside the target
+// tile and the lists, two at the least; 0 if not even two fit.
+int split_stages(int TT, int kd, int k, bool masked, int sel) {
+  for (int ns = NS2; ns >= 2; --ns) {
+    if (partial_smem_split(TT, kd, k, masked, sel, ns) <= SMEM_LIMIT) return ns;
+  }
+  return 0;
+}
+
+// Pass 1 at the split precisions.  Threads 0..255: two consumer
+// warpgroups; 256..383: the producer warpgroup.  db: f32 rows of row stride
+// width, split by the producer; with PRESPLIT, bf16 rows [hi | lo] of row
+// stride width = 2 kp elements, copied as they are.  sqn[u * sqn_stride]:
+// the squared norm of row u.  Row indices are int and element offsets
+// size_t: the capacity block has 8.4 M rows x 153 columns.  The fused masks
+// are applied to each score in the epilogue, after the product and before
+// the screen, in the order of topk_partial (fused_score).
+template <int TT, int PREC, bool PART, bool LING, bool PRESPLIT, int SEL>
+__global__ void __launch_bounds__(THREADS2, 1)
 topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
                    const float* __restrict__ sqn, int sqn_stride,
                    const int* __restrict__ tmeta, const int* __restrict__ dmeta,
                    Penalties pen, float* __restrict__ part_v,
                    int* __restrict__ part_i, int* __restrict__ part_third,
                    int T, int kd, int width, int m_rows, int rows_per_split,
-                   int k, int splits) {
-  // split3: accumulators hh, hl, lh; split3cat: one for all three
+                   int k, int splits, int ns) {
+  // split3: sums hh, hl, lh; split3cat: one for all three
   constexpr int NACC = PREC == SPLIT3 ? 3 : 1;
   constexpr int HL = NACC == 3 ? 1 : 0, LH = NACC == 3 ? 2 : 0;
   constexpr bool MASKED = PART || LING;
-  extern __shared__ __align__(16) float smem[];
-  const int kp = (kd + KC - 1) / KC * KC;
-  const int ts = kp + SPAD;               // bf16 row stride of the target tile
-  float* sS = smem;                       // [TT][R]   scores of the tile
-  float* sSqn = sS + TT * R;              // [R]       sqn column of the tile
-  float* lv = sSqn + R;                   // [TT][k]   list values
-  int* li = reinterpret_cast<int*>(lv + TT * k);   // [TT][k] list indices
-  int* sB3 = li + TT * k;                          // [TT][B3] if SEL == PACKED3
-  int* sTM = sB3 + (SEL == PACKED3 ? TT * B3 : 0);   // [TT][META] if MASKED
-  int* sDM = sTM + (MASKED ? TT * META : 0);       // [R][META]  if MASKED
-  unsigned short* sThi =
-      reinterpret_cast<unsigned short*>(sDM + (MASKED ? R * META : 0));
-  unsigned short* sTlo = sThi + TT * ts;  // [TT][ts]  target tile, bf16
-  unsigned short* sDhi = sTlo + TT * ts;  // [R][DS]   DB stage, bf16
-  unsigned short* sDlo = sDhi + R * DS;
+  constexpr bool KEYS = SEL == PACKED || SEL == PACKED3;
+  constexpr int N = TT / 2;               // sums a thread: 2 DB rows x TT / 4 targets
+  constexpr int QINTS = 3 * QCAP2 + 4;    // a queue: 3 x [QCAP2], then 4 counters
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nch = (kd + KC2 - 1) / KC2;   // stages a DB tile
+  const int ksteps_all = (kd + 15) / 16;  // wgmma steps a product
+  unsigned char* p = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sTh = p;                 // [nch][TT][128 B] targets hi, swizzled
+  unsigned char* sTl = sTh + nch * TT * 128;            // lo
+  unsigned char* ring = sTl + nch * TT * 128;           // [ns][hi | lo] stages
+  // full[w][slot]: the stage in this slot is ready for consumer warpgroup w
+  // (each group waits only on its own barriers, so it sees every phase of
+  // them and a parity names one phase); empty[slot]: its reader is done
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ns * 2 * HALF2);
+  uint64_t* empty = full + 2 * NS2;
+  int* mutex = reinterpret_cast<int*>(empty + NS2);     // the list lock (+ padding)
+  float* sSqn = reinterpret_cast<float*>(mutex + 4);    // [ns][R2] sqn with a
+                                                        //   tile's last stage
+  int* sDM = reinterpret_cast<int*>(sSqn + ns * R2);    // [ns][R2][META] if MASKED
+  int* sTM = sDM + (MASKED ? ns * R2 * META : 0);       // [TT][META] if MASKED
+  float* lv = reinterpret_cast<float*>(sTM + (MASKED ? TT * META : 0));
+  int* li = reinterpret_cast<int*>(lv + TT * k);
+  int* queues = li + TT * k;              // one per consumer warpgroup
+  int* sW = queues + 2 * QINTS;           // [TT] the lists' worst values
+  int* sB3 = sW + TT;                     // [2][TT][B3] if SEL == PACKED3
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int t0 = blockIdx.x * TT;
   const int split = blockIdx.y;
   const int row_lo = split * rows_per_split;
   const int row_hi = min(row_lo + rows_per_split, m_rows);
+  const int n_tiles = (row_hi - row_lo + R2 - 1) / R2;
 
-  for (int e = tid; e < TT * kp; e += THREADS) {
-    const int t = e / kp, c = e % kp;
-    const float x = (t0 + t < T && c < kd)
-                        ? t2[static_cast<size_t>(t0 + t) * kd + c]
-                        : 0.f;
-    split_store(x, sThi + t * ts + c, sTlo + t * ts + c);
+  // the target tile, split once: word w of row t holds columns 2 w, 2 w + 1
+  for (int e = tid; e < TT * nch * 32; e += THREADS2) {
+    const int t = e / (nch * 32), w = e % (nch * 32);
+    const int c = 2 * w;
+    const float* row = t2 + static_cast<size_t>(t0 + t) * kd;
+    const float x0 = (t0 + t < T && c < kd) ? row[c] : 0.f;
+    const float x1 = (t0 + t < T && c + 1 < kd) ? row[c + 1] : 0.f;
+    uint32_t hi, lo;
+    split_pair(x0, x1, hi, lo);
+    const int off = (w >> 5) * TT * 128 + swizzled_word(t, w & 31);
+    *reinterpret_cast<uint32_t*>(sTh + off) = hi;
+    *reinterpret_cast<uint32_t*>(sTl + off) = lo;
   }
   if constexpr (MASKED) {
-    for (int e = tid; e < TT * META; e += THREADS) {
+    for (int e = tid; e < TT * META; e += THREADS2) {
       const int t = t0 + e / META;
       sTM[e] = t < T ? tmeta[static_cast<size_t>(t) * META + e % META] : -1;
     }
   }
-  init_lists<SEL>(lv, li, sB3, k, tid);
+  init_state<SEL>(lv, li, TT * k, sW, TT, sB3, 2 * TT * B3, queues + 3 * QCAP2, 4,
+                  tid, THREADS2);
+  if (tid < 4) queues[QINTS + 3 * QCAP2 + tid] = 0;     // the second queue's counters
+  if (tid == 0) {
+    for (int s = 0; s < ns; ++s) {
+      mbar_init(full + s, 128);           // every producer thread arrives
+      mbar_init(full + NS2 + s, 128);
+      mbar_init(empty + s, 128);          // every thread of the consuming group
+    }
+    *mutex = 0;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fence_async_proxy();                    // the target tile, for wgmma
   __syncthreads();
 
-  const int g = lane >> 2, q = lane & 3;
-  const int m0 = (warp & 3) * 16;         // DB rows of this warp's block
-  const int n0 = (warp >> 2) * 32;        // targets of this warp's block
-  for (int base = row_lo; base < row_hi; base += R) {
-    float acc[NACC][4][4];
-#pragma unroll
-    for (int s = 0; s < NACC; ++s)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int h = 0; h < 4; ++h) acc[s][j][h] = 0.f;
-
-    for (int c0 = 0; c0 < kp; c0 += KC) {
-      __syncthreads();                    // previous stage / selection done
-      if constexpr (PRESPLIT) {
-        // 8 loads a row: 4 of the hi half, then 4 of the lo half (columns
-        // past kd are zero in the operand)
-        constexpr int V = 8, PER_HALF = KC / V;
-        const unsigned short* pre = static_cast<const unsigned short*>(db);
-        for (int e = tid; e < R * 2 * PER_HALF; e += THREADS) {
-          const int r = e / (2 * PER_HALF), j = e % (2 * PER_HALF);
-          const int half = j / PER_HALF, cc = (j % PER_HALF) * V;
-          const int u = base + r;
-          uint4 v = make_uint4(0u, 0u, 0u, 0u);
-          if (u < row_hi) {
-            v = __ldg(reinterpret_cast<const uint4*>(
-                pre + static_cast<size_t>(u) * width + half * kp + c0 + cc));
-          }
-          *reinterpret_cast<uint4*>((half ? sDlo : sDhi) + r * DS + cc) = v;
-        }
-      } else {
-        const float* raw = static_cast<const float*>(db);
-        for (int e = tid; e < R * KC; e += THREADS) {
-          const int r = e / KC, cc = e % KC;
-          const int u = base + r, c = c0 + cc;
-          const float x = (c < kd && u < row_hi)
-                              ? __ldg(raw + static_cast<size_t>(u) * width + c)
-                              : 0.f;
-          split_store(x, sDhi + r * DS + cc, sDlo + r * DS + cc);
-        }
-      }
-      if (c0 == 0 && tid < R) {
-        const int u = base + tid;
-        sSqn[tid] = u < row_hi
-                        ? __ldg(sqn + static_cast<size_t>(u) * sqn_stride)
-                        : 0.f;
+  if (tid >= 256) {
+    // ---- producer: stage g = (tile g / nch, column block g % nch) into
+    // slot g % ns, after the consumer of stage g - ns released it
+    const int ptid = tid - 256, pwarp = ptid >> 5;
+    const int n_stages = n_tiles * nch;
+    // the full barrier of stage g: that of the warpgroup which takes its tile
+    auto full_of = [&](int g) {
+      const int jt = g / nch;
+      return full + ((SEL == PACKED3 ? jt >> 1 : jt) & 1) * NS2 + g % ns;
+    };
+    // the tile's sqn and metadata rows, with its last stage
+    auto side_rows = [&](int base, int slot, auto copy4, auto copy16) {
+      if (ptid < R2) {
+        const int u = base + ptid;
+        copy4(sSqn + slot * R2 + ptid, sqn + static_cast<size_t>(u) * sqn_stride,
+              u < row_hi);
       }
       if constexpr (MASKED) {
-        if (c0 == 0) {
-          for (int e = tid; e < R * META; e += THREADS) {
-            const int u = base + e / META;
-            sDM[e] = u < row_hi
-                         ? __ldg(dmeta + static_cast<size_t>(u) * META + e % META)
-                         : -1;
+        const int u = base + (ptid >> 1);
+        copy16(sDM + (slot * R2 + (ptid >> 1)) * META + (ptid & 1) * 4,
+               dmeta + static_cast<size_t>(u) * META + (ptid & 1) * 4, u < row_hi);
+      }
+    };
+    if constexpr (PRESPLIT) {
+      const __nv_bfloat16* pre = static_cast<const __nv_bfloat16*>(db);
+      const int kp = (kd + KPAD - 1) / KPAD * KPAD;     // columns of a half
+      // stages in flight behind the newest: a consumer holds stage g - 1
+      // until stage g is full, so the arrival of g must not wait for the
+      // slot of g - 1
+      const int lag = ns - 2;
+      int jt = 0, c = 0;
+      for (int g = 0; g < n_stages; ++g) {
+        const int slot = g % ns;
+        mbar_wait(empty + slot, ((g / ns) & 1) ^ 1);
+        const int base = row_lo + jt * R2;
+        unsigned char* stage = ring + slot * 2 * HALF2;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {     // 16 bytes: chunk ch of row r of a half
+          const int idx = ptid + 128 * i;
+          const int half = idx >> 9, r = (idx >> 3) & 63, ch = idx & 7;
+          const int u = base + r, col = c * KC2 + ch * 8;
+          const bool ok = u < row_hi && col < kp;
+          cp_async16(stage + half * HALF2 + r * 128 + ((ch ^ (r & 7)) << 4),
+                     ok ? pre + static_cast<size_t>(u) * width + half * kp + col : pre,
+                     ok ? 16 : 0);
+        }
+        if (c == nch - 1) {
+          side_rows(
+              base, slot,
+              [&](float* d, const float* s, bool ok) { cp_async4(d, ok ? s : sqn, ok ? 4 : 0); },
+              [&](int* d, const int* s, bool ok) { cp_async16(d, ok ? s : dmeta, ok ? 16 : 0); });
+        }
+        cp_async_commit();
+        if (g >= lag) {                   // stage g - lag has landed
+          if (lag == 2) cp_async_wait<2>(); else if (lag == 1) cp_async_wait<1>(); else cp_async_wait<0>();
+          fence_async_proxy();
+          mbar_arrive(full_of(g - lag));
+        }
+        if (++c == nch) {
+          c = 0;
+          ++jt;
+        }
+      }
+      cp_async_wait<0>();
+      fence_async_proxy();
+      for (int g = max(n_stages - lag, 0); g < n_stages; ++g) mbar_arrive(full_of(g));
+    } else {
+      // f32 rows: lane l loads columns 2 l, 2 l + 1 of the block (a warp
+      // reads 256 contiguous bytes of a row), rows pwarp + 4 i; the loads of
+      // the next stage are issued before this one is split and stored
+      const float* raw = static_cast<const float*>(db);
+      auto load = [&](int jt, int c, float (&x)[32]) {
+        const int col = c * KC2 + 2 * lane;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int u = row_lo + jt * R2 + pwarp + 4 * i;
+          const float* src = raw + static_cast<size_t>(u) * width + col;
+          x[2 * i] = (u < row_hi && col < kd) ? __ldg(src) : 0.f;
+          x[2 * i + 1] = (u < row_hi && col + 1 < kd) ? __ldg(src + 1) : 0.f;
+        }
+      };
+      float cur[32], nxt[32];
+      load(0, 0, cur);
+      int jt = 0, c = 0;
+      for (int g = 0; g < n_stages; ++g) {
+        const int slot = g % ns;
+        const int jn = c + 1 == nch ? jt + 1 : jt, cn = c + 1 == nch ? 0 : c + 1;
+        if (g + 1 < n_stages) load(jn, cn, nxt);
+        mbar_wait(empty + slot, ((g / ns) & 1) ^ 1);
+        unsigned char* stage = ring + slot * 2 * HALF2;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          uint32_t hi, lo;
+          split_pair(cur[2 * i], cur[2 * i + 1], hi, lo);
+          const int off = swizzled_word(pwarp + 4 * i, lane);
+          *reinterpret_cast<uint32_t*>(stage + off) = hi;
+          *reinterpret_cast<uint32_t*>(stage + HALF2 + off) = lo;
+        }
+        if (c == nch - 1) {
+          side_rows(
+              row_lo + jt * R2, slot,
+              [](float* d, const float* s, bool ok) { *d = ok ? __ldg(s) : 0.f; },
+              [](int* d, const int* s, bool ok) {
+                *reinterpret_cast<int4*>(d) =
+                    ok ? __ldg(reinterpret_cast<const int4*>(s)) : make_int4(0, 0, 0, 0);
+              });
+        }
+        fence_async_proxy();
+        mbar_arrive(full_of(g));
+#pragma unroll
+        for (int i = 0; i < 32; ++i) cur[i] = nxt[i];
+        jt = jn;
+        c = cn;
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg takes every other DB tile (with PACKED3
+    // every other pair of tiles: a 128-row block stays in one group)
+    const int wg = tid >> 7, wtid = tid & 127, wwarp = wtid >> 5;
+    const WarpGroup grp = {wtid, wwarp, wg, mutex};
+    int* q = queues + wg * QINTS;
+    const Select sel = {lv, li, sW, q, q + QCAP2, q + 2 * QCAP2, q + 3 * QCAP2,
+                        sB3 + wg * TT * B3, k, QCAP2};
+    const int g8 = lane >> 2, q4 = lane & 3;
+    const int r0 = wwarp * 16 + g8;       // this thread's DB rows: r0, r0 + 8
+    float acc[NACC][N];
+    int mine = 0;                         // tiles this group has taken
+    unsigned phases = 0;                  // bit s: parity of full[wg][s]'s next phase
+    for (int jt = 0; jt < n_tiles; ++jt) {
+      if ((SEL == PACKED3 ? jt >> 1 : jt) % 2 != wg) continue;
+      const int base = row_lo + jt * R2;
+      int slot = 0;
+      for (int c = 0; c < nch; ++c) {
+        const int g = jt * nch + c;
+        const int prev = slot;
+        slot = g % ns;
+        mbar_wait(full + wg * NS2 + slot, phases >> slot & 1);
+        phases ^= 1u << slot;
+#pragma unroll
+        for (int a = 0; a < NACC; ++a) fence_sums(acc[a]);
+        wgmma_fence();
+        const uint32_t a_hi = smem_u32(ring + slot * 2 * HALF2), a_lo = a_hi + HALF2;
+        const uint32_t b_hi = smem_u32(sTh + c * TT * 128);
+        const uint32_t b_lo = smem_u32(sTl + c * TT * 128);
+        const int ksteps = min(KC2 / 16, ksteps_all - c * (KC2 / 16));
+#pragma unroll
+        for (int ks = 0; ks < KC2 / 16; ++ks) {
+          if (ks < ksteps) {
+            const int go = c > 0 || ks > 0;       // 0: the tile's first step
+            wgmma_tile<TT>(acc[0], a_hi + 32 * ks, b_hi + 32 * ks, go);     // db_hi . t_hi
+            wgmma_tile<TT>(acc[HL], a_hi + 32 * ks, b_lo + 32 * ks,
+                           NACC == 3 ? go : 1);                            // db_hi . t_lo
+            wgmma_tile<TT>(acc[LH], a_lo + 32 * ks, b_hi + 32 * ks,
+                           NACC == 3 ? go : 1);                            // db_lo . t_hi
           }
         }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += KS) {
-        const int ra = (m0 + g) * DS + kk + 2 * q;
-        const uint32_t ah[4] = {ld_pair(sDhi + ra), ld_pair(sDhi + ra + 8 * DS),
-                                ld_pair(sDhi + ra + 8),
-                                ld_pair(sDhi + ra + 8 * DS + 8)};
-        const uint32_t al[4] = {ld_pair(sDlo + ra), ld_pair(sDlo + ra + 8 * DS),
-                                ld_pair(sDlo + ra + 8),
-                                ld_pair(sDlo + ra + 8 * DS + 8)};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int rb = (n0 + j * 8 + g) * ts + c0 + kk + 2 * q;
-          const uint32_t bh[2] = {ld_pair(sThi + rb), ld_pair(sThi + rb + 8)};
-          const uint32_t bl[2] = {ld_pair(sTlo + rb), ld_pair(sTlo + rb + 8)};
-          mma_bf16(acc[0][j], ah, bh);    // db_hi . t_hi
-          mma_bf16(acc[HL][j], ah, bl);   // db_hi . t_lo
-          mma_bf16(acc[LH][j], al, bh);   // db_lo . t_hi
+        wgmma_commit();
+        if (c > 0) {                      // the stage before this one is read
+          wgmma_wait<1>();
+          mbar_arrive(empty + prev);
         }
       }
-    }
+      wgmma_wait<0>();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+      for (int a = 0; a < NACC; ++a) fence_sums(acc[a]);
+      // scores and screen; sqn and metadata rows lie with the last stage
+      unsigned long long pass = 0;
+      const float sq[2] = {sSqn[slot * R2 + r0], sSqn[slot * R2 + r0 + 8]};
 #pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        const int r = m0 + g + (h >> 1) * 8;
-        const int t = n0 + j * 8 + 2 * q + (h & 1);
-        float cross = acc[0][j][h];
-        if constexpr (PREC == SPLIT3) {
-          cross = (acc[0][j][h] + acc[1][j][h]) + acc[2][j][h];
-        }
-        sS[t * R + r] = fused_score<PART, LING>(sSqn[r] - 2.f * cross,
-                                                sTM + t * META, sDM + r * META,
-                                                pen);
+      for (int e = 0; e < N; ++e) {
+        const int t = (e >> 2) * 8 + 2 * q4 + (e & 1);
+        const int h = (e >> 1) & 1;
+        const int u = base + r0 + 8 * h;
+        float cross = acc[0][e];
+        if constexpr (NACC == 3) cross = (acc[0][e] + acc[1][e]) + acc[2][e];
+        const float sc = fused_score<PART, LING>(
+            sq[h] - 2.f * cross, sTM + t * META,
+            sDM + (slot * R2 + r0 + 8 * h) * META, pen);
+        const int b = ranked_bits<KEYS>(sc, u, t0 + t < T && u < row_hi);
+        acc[0][e] = __int_as_float(b);
+        const int worst = sW[t];
+        const bool ok = SEL == PACKED3 ? b != KEY_EMPTY : passes<KEYS>(b, worst);
+        pass |= static_cast<unsigned long long>(ok) << e;
       }
+      mbar_arrive(empty + slot);          // the tile's last stage
+      const bool block_ends = (jt & 1) == 1 || base + R2 >= row_hi;
+      sparse_select<SEL, TT>(
+          acc[0], pass, [&](int e) { return (e >> 2) * 8 + 2 * q4 + (e & 1); },
+          [&](int e) { return base + r0 + 8 * ((e >> 1) & 1); }, sel, grp,
+          mine & 1, block_ends, row_lo + (jt >> 1) * BLOCK, t0, T, lane);
+      ++mine;
     }
-    __syncthreads();
-    select_tile<SEL>(sS, lv, li, sB3, k, t0, T, base, row_hi, warp, lane);
   }
-  store_lists(lv, li, sB3, part_v, part_i, part_third, k, t0, T, split, splits,
-              warp, lane);
+  __syncthreads();
+  store_lists<TT>(lv, li, sB3, 2, part_v, part_i, part_third, k, t0, T, split,
+                  splits, tid >> 5, THREADS2 / 32, lane);
 }
+
+constexpr int WARPS = THREADS / 32;     // targets a CTA of pass 2
 
 // comp: (T,) constants added to the merged scores (zero-transient form), or
 // nullptr (derived form: the scores are returned as ranked).  KEYS: the
@@ -834,23 +1399,31 @@ topk_merge(const float* __restrict__ part_v, const int* __restrict__ part_i,
   }
 }
 
-size_t partial_smem(int kd, int k, bool masked, int prec, int sel) {
+// Target rows a CTA of pass 1 takes at this shape: 128 where the tile fits
+// in shared memory and there are more than 64 targets ("split3" keeps three
+// sums a score and stays at 64), else 64; 0 if the shape or the combination
+// is not supported.
+int tile_rows(int kd, int k, bool masked, int prec, int sel, int T) {
   if (kd < 1 || k < 1 || k > KMAX || prec < HIGHEST || prec > SPLIT3CAT ||
       sel < STREAM || sel > PACKED3) {
     return 0;
   }
-  const size_t state = sel == PACKED3 ? TT * B3 * sizeof(int) : 0;
-  if (prec != HIGHEST) {
-    const size_t ts = static_cast<size_t>((kd + KC - 1) / KC * KC + SPAD);
-    return static_cast<size_t>(TT * R + R + 2 * TT * k) * sizeof(float) + state +
-           static_cast<size_t>(masked ? (TT + R) * META : 0) * sizeof(int) +
-           2 * (TT * ts + R * DS) * sizeof(unsigned short);
+  if (prec == HIGHEST) {
+    return T > 64 && partial_smem_highest(128, kd, k, masked, sel) <= SMEM_LIMIT ? 128 : 64;
   }
-  return static_cast<size_t>(kd * TT + KC * R + TT * R + R + TT * k) *
-             sizeof(float) +
-         static_cast<size_t>(TT * k + (masked ? (TT + R) * META : 0)) *
-             sizeof(int) +
-         state;
+  return prec == SPLIT3CAT && T > 64 && split_stages(128, kd, k, masked, sel) >= 3
+             ? 128
+             : 64;
+}
+
+// Dynamic shared memory of pass 1 with TT target rows a CTA; 0 if the shape
+// or the combination is not supported.
+size_t partial_smem(int TT, int kd, int k, bool masked, int prec, int sel) {
+  if (tile_rows(kd, k, masked, prec, sel, TT) == 0) return 0;
+  if (prec == HIGHEST) return partial_smem_highest(TT, kd, k, masked, sel);
+  const int ns = split_stages(TT, kd, k, masked, sel);
+  // where not even two stages fit, the size that was refused
+  return partial_smem_split(TT, kd, k, masked, sel, ns == 0 ? 2 : ns);
 }
 
 // The DB side of a launch: the rows, their stride (in elements of the row
@@ -878,9 +1451,9 @@ struct Outputs {
 
 bool bad_shape(size_t smem, int T, const Operand& db, int m_rows, int k,
                int splits, int rows_per_split) {
-  return smem == 0 || T < 1 || db.rows == nullptr || db.sqn == nullptr ||
-         db.width < db.min_width || m_rows < k || splits < 1 ||
-         rows_per_split < 1 ||
+  return smem == 0 || smem > SMEM_LIMIT || T < 1 || db.rows == nullptr ||
+         db.sqn == nullptr || db.width < db.min_width || m_rows < k ||
+         splits < 1 || rows_per_split < 1 ||
          static_cast<long long>(splits) * rows_per_split < m_rows;
 }
 
@@ -894,9 +1467,46 @@ int merge(const Outputs& o, const float* comp, int T, int k, int splits,
   return static_cast<int>(cudaGetLastError());
 }
 
+struct Shape {
+  int T, kd, m_rows, k, splits, rows_per_split;
+};
+
+// Pass 1 with TT target rows a CTA; returns a cudaError_t.
+template <int TT, int PREC, bool PART, bool LING, bool PRESPLIT, int SEL>
+cudaError_t launch_partial(const float* t2, const Operand& db, const int* tmeta,
+                           const int* dmeta, Penalties pen, const Outputs& o,
+                           int* part_third, const Shape& s, size_t smem,
+                           cudaStream_t stream) {
+  const dim3 grid((s.T + TT - 1) / TT, s.splits);
+  cudaError_t err;
+  if constexpr (PREC == HIGHEST) {
+    err = cudaFuncSetAttribute(topk_partial<TT, PART, LING, SEL>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    topk_partial<TT, PART, LING, SEL><<<grid, THREADS, smem, stream>>>(
+        t2, static_cast<const float*>(db.rows), db.sqn, db.sqn_stride, tmeta,
+        dmeta, pen, o.part_v, o.part_i, part_third, s.T, s.kd, db.width,
+        s.m_rows, s.rows_per_split, s.k, s.splits);
+  } else {
+    err = cudaFuncSetAttribute(
+        topk_partial_split<TT, PREC, PART, LING, PRESPLIT, SEL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    topk_partial_split<TT, PREC, PART, LING, PRESPLIT, SEL>
+        <<<grid, THREADS2, smem, stream>>>(
+            t2, db.rows, db.sqn, db.sqn_stride, tmeta, dmeta, pen, o.part_v,
+            o.part_i, part_third, s.T, s.kd, db.width, s.m_rows,
+            s.rows_per_split, s.k, s.splits,
+            split_stages(TT, s.kd, s.k, PART || LING, SEL));
+  }
+  return cudaGetLastError();
+}
+
 // Both passes of one variant on `stream`; returns a cudaError_t.  PRESPLIT
 // (the derived split3cat operand) must start on a 16-byte boundary; PACKED3
-// needs splits of whole 128-row blocks and its two extra outputs.
+// needs splits of whole 128-row blocks and its two extra outputs; every
+// split but the last is a whole number of DB tiles.
 template <int PREC, bool PART, bool LING, bool PRESPLIT, int SEL>
 int launch(const float* t2, const Operand& db, const float* comp,
            const int* tmeta, const int* dmeta, Penalties pen, const Outputs& o,
@@ -904,8 +1514,10 @@ int launch(const float* t2, const Operand& db, const float* comp,
            cudaStream_t stream) {
   static_assert(!PRESPLIT || PREC == SPLIT3CAT, "only split3cat is pre-split");
   constexpr bool MASKED = PART || LING;
-  const size_t smem1 = partial_smem(kd, k, MASKED, PREC, SEL);
+  const int tt = tile_rows(kd, k, MASKED, PREC, SEL, T);
+  const size_t smem1 = tt == 0 ? 0 : partial_smem(tt, kd, k, MASKED, PREC, SEL);
   if (bad_shape(smem1, T, db, m_rows, k, splits, rows_per_split) ||
+      rows_per_split % (PREC == HIGHEST ? R1 : R2) != 0 ||
       (MASKED && (tmeta == nullptr || dmeta == nullptr)) ||
       (PRESPLIT && reinterpret_cast<uintptr_t>(db.rows) % 16 != 0) ||
       (SEL == PACKED3 && (rows_per_split % BLOCK != 0 ||
@@ -913,29 +1525,19 @@ int launch(const float* t2, const Operand& db, const float* comp,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int* part_third = SEL == PACKED3 ? o.part_third : nullptr;
-  const dim3 grid1((T + TT - 1) / TT, splits);
+  const Shape s = {T, kd, m_rows, k, splits, rows_per_split};
   cudaError_t err;
-  if constexpr (PREC == HIGHEST) {
-    err = cudaFuncSetAttribute(topk_partial<PART, LING, SEL>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem1));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    topk_partial<PART, LING, SEL><<<grid1, THREADS, smem1, stream>>>(
-        t2, static_cast<const float*>(db.rows), db.sqn, db.sqn_stride, tmeta,
-        dmeta, pen, o.part_v, o.part_i, part_third, T, kd, db.width, m_rows,
-        rows_per_split, k, splits);
+  if (tt == 128) {
+    if constexpr (PREC == SPLIT3) {
+      return static_cast<int>(cudaErrorInvalidValue);   // tile_rows never says so
+    } else {
+      err = launch_partial<128, PREC, PART, LING, PRESPLIT, SEL>(
+          t2, db, tmeta, dmeta, pen, o, part_third, s, smem1, stream);
+    }
   } else {
-    err = cudaFuncSetAttribute(
-        topk_partial_split<PREC, PART, LING, PRESPLIT, SEL>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem1));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    topk_partial_split<PREC, PART, LING, PRESPLIT, SEL>
-        <<<grid1, THREADS, smem1, stream>>>(
-            t2, db.rows, db.sqn, db.sqn_stride, tmeta, dmeta, pen, o.part_v,
-            o.part_i, part_third, T, kd, db.width, m_rows, rows_per_split, k,
-            splits);
+    err = launch_partial<64, PREC, PART, LING, PRESPLIT, SEL>(
+        t2, db, tmeta, dmeta, pen, o, part_third, s, smem1, stream);
   }
-  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   Outputs m = o;
   if (SEL != PACKED3) m.part_third = m.flags = nullptr;
@@ -979,7 +1581,7 @@ int launch(const float* t2, const Operand& db, const float* comp,
 #define SNK_DV_ENTRY(NAME, PREC, PART, LING, PRESPLIT, SEL)                  \
   SNK_TOPK_SIGNATURE(NAME, void, sqn) {                                      \
     const Penalties pen = {{p0, p1, p2, p3, p4}};                           \
-    const int kp = (kd + KC - 1) / KC * KC;                                 \
+    const int kp = (kd + KPAD - 1) / KPAD * KPAD;                                 \
     const Operand db = {db_rows, width, PRESPLIT ? 2 * kp : kd, sqn, 1};    \
     const Outputs o = {part_v, part_i, part_third, out_v, out_i, flags};    \
     return launch<PREC, PART, LING, PRESPLIT, SEL>(t2, db, nullptr, tmeta,   \

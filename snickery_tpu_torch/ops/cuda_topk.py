@@ -125,7 +125,9 @@ _NO_PAIR = torch.iinfo(torch.int64).max   # (KEY_EMPTY, no row) as one int64
 LAUNCH_COUNTS: collections.Counter = collections.Counter()
 _LOCK = threading.Lock()
 MAX_K = 64                 # list slots the kernel keeps per target
-_TARGET_CTAS_PER_SM = 4    # two resident CTAs per SM, two waves
+SMEM_LIMIT = 227 * 1024    # shared memory a block may use on the card
+_TARGET_CTAS_PER_SM = 4    # one resident CTA per SM, four waves at the least
+MIN_SPLIT_ROWS = 8192      # DB rows of a split, at the least (split_plan)
 
 
 def kernel_name(partition: bool, linguistic: bool, precision: str = "highest",
@@ -545,7 +547,9 @@ def _bound_library():
         fn.restype = ctypes.c_int
     lib.snk_topk_partial_smem.argtypes = [ctypes.c_int] * 5
     lib.snk_topk_partial_smem.restype = ctypes.c_size_t
+    lib.snk_topk_tile_rows.argtypes = [ctypes.c_int] * 6
     lib.snk_topk_tile_rows.restype = ctypes.c_int
+    lib.snk_topk_db_tile_rows.argtypes = [ctypes.c_int]
     lib.snk_topk_db_tile_rows.restype = ctypes.c_int
     lib.snk_topk_block_rows.restype = ctypes.c_int
     if lib.snk_topk_block_rows() != BLOCK_ROWS:
@@ -557,10 +561,13 @@ def split_plan(T: int, m_rows: int, n_sm: int, tile_rows: int,
                db_tile_rows: int) -> tuple[int, int]:
     """(splits S, rows per split) for the kernel's first pass: enough
     (target tile x DB split) blocks to fill ``n_sm`` SMs, each split a
-    whole number of DB tiles and none empty."""
+    whole number of DB tiles and none empty, and no split shorter than
+    :data:`MIN_SPLIT_ROWS` while the DB has that many rows: every block
+    starts with empty lists, which take the first rows it sees whatever
+    their scores, so a short split is all start-up."""
     n_tiles = -(-T // tile_rows)
     want = -(-_TARGET_CTAS_PER_SM * n_sm // n_tiles)
-    splits = max(1, min(want, -(-m_rows // db_tile_rows)))
+    splits = max(1, min(want, -(-m_rows // db_tile_rows), m_rows // MIN_SPLIT_ROWS))
     rows = -(-m_rows // splits)
     rows = -(-rows // db_tile_rows) * db_tile_rows
     return -(-m_rows // rows), rows
@@ -622,15 +629,16 @@ def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
     T, kd = targets.shape
     three = select in ("packed3", "packed3diag")
     sel_code = SELECTS.index("packed3" if three else select)
-    if lib.snk_topk_partial_smem(kd, k, int(masked), PRECISIONS.index(precision),
-                                 sel_code) > 227 * 1024:
+    prec_code = PRECISIONS.index(precision)
+    if lib.snk_topk_partial_smem(kd, k, int(masked), prec_code, sel_code) > SMEM_LIMIT:
         raise ValueError(f"kd={kd} needs more shared memory than a block has")
     if raw_block.dtype == torch.bfloat16 and raw_block.data_ptr() % 16:
         raise ValueError("the pre-split operand must start on a 16-byte boundary")
     dev = raw_block.device
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, rows = split_plan(T, m_rows, n_sm, lib.snk_topk_tile_rows(),
-                              BLOCK_ROWS if three else lib.snk_topk_db_tile_rows())
+    splits, rows = split_plan(
+        T, m_rows, n_sm, lib.snk_topk_tile_rows(kd, k, int(masked), prec_code, sel_code, T),
+        BLOCK_ROWS if three else lib.snk_topk_db_tile_rows(prec_code))
     if zero_transient:
         t2, extra = _prescale(targets, db_affine)      # the third pointer: comp
         t2 = t2.contiguous()
