@@ -617,6 +617,35 @@ def select_variants_synthetic(torch) -> dict:
     return errs
 
 
+def edge_cases_synthetic(torch) -> None:
+    """The edges of the kernels' tiles and of their screened epilogue
+    (kernel_check.EDGE_CASES) against the twins, at "highest" and
+    "split3cat", in both operand forms."""
+    from snickery_tpu_torch.kernel_check import EDGE_CASES, run_edge_case
+    dev = torch.device("cuda")
+    for name, (T, M, kd, k, _) in EDGE_CASES.items():
+        for precision in ("highest", "split3cat"):
+            for zt in (True, False):
+                t0 = time.perf_counter()
+                err, nbad, dead = run_edge_case(name, dev, precision, zt)
+                log(f"edge {name} T={T} M={M} kd={kd} {precision} {'zt' if zt else 'dv'}: "
+                    f"max_abs_err {err:.3e}, near-tie id swaps {nbad}, dead slots {dead} "
+                    f"({time.perf_counter() - t0:.2f} s with the twin)")
+
+
+def first_design_digests() -> None:
+    """The "highest" kernels' (ids, scores) digests on the seeded case of
+    snickery_tpu_torch.kernel_ab (65,536 x 1,048,576 x 151), beside those
+    the first design printed: each score is one ascending fmaf chain and the
+    selection is exact, so a redesign of the tiles must not move a bit."""
+    from snickery_tpu_torch import kernel_ab
+    for line in kernel_ab.run_cases("chip_smoke", 1, set(kernel_ab.FIRST_DESIGN_DIGESTS)):
+        got = (line["ids_sha256"], line["scores_sha256"])
+        want = kernel_ab.FIRST_DESIGN_DIGESTS[line["case"]]
+        log(f"{line['case']} k={line['k']}: {line['ms']:.2f} ms, sha256 of ids {got[0]}, of "
+            f"scores {got[1]}; the first design's: {want[0]}, {want[1]}; equal: {got == want}")
+
+
 SWEEP_SHAPE = (2048, 131072)   # the sweep's small shape: target rows, units
 SWEEP_K = {"highest": 30, "split3": 40, "split3cat": 48}
 
@@ -1893,6 +1922,10 @@ def main() -> int:
     with Phase("selection variants vs plain, synthetic"):
         for name, err in select_variants_synthetic(torch).items():
             run.errs[name] = max(run.errs.get(name, 0.0), err)
+    with Phase("tile edges and queue overflow vs plain, synthetic"):
+        edge_cases_synthetic(torch)
+    with Phase("highest: digests of the seeded batch-shape case"):
+        first_design_digests()
     with Phase("kernel sweep (the selection variants' path)"):
         sweep_path(run)
     with Phase("selection variants vs plain at the sweep's small shape"):

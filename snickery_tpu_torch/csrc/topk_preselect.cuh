@@ -96,16 +96,20 @@
 //     reads (a row is 128 bytes, its 16-byte chunk c sits at chunk
 //     c ^ (row % 8); tiles are 1,024-byte aligned): pre-split rows by
 //     16-byte cp.async; f32 rows by loads along the row, split in
-//     registers and stored as packed bf16x2 words, the loads of the next
-//     stage issued before the current one is split.  Two consumer
+//     registers (one cvt.rn.bf16x2 a pair and half) and stored as packed
+//     bf16x2 words, the loads of the next two stages in flight while the
+//     current one is split.  Two consumer
 //     warpgroups take alternate 64-row DB tiles and multiply them (M = 64
 //     DB rows) by the resident target tile (N = TT targets, bf16 hi and lo
 //     in the same layout) with wgmma, the f32 sums in registers, so one
 //     warpgroup's epilogue runs under the other's products.  Stages are
 //     handed over with mbarriers (full: the producer's 128 arrivals after a
-//     fence.proxy.async; empty: the consumer's 128 after the wgmma that
-//     read the stage completed); a tile's sqn and metadata rows travel with
-//     its last stage.  "split3" runs at TT = 64 (three accumulators).
+//     fence.proxy.async, on the barrier of the warpgroup that takes the
+//     tile, so that each group sees every phase of the barriers it waits on
+//     and a parity names one phase; empty: the consumer's 128 after the
+//     wgmma that read the stage completed); a tile's sqn and metadata rows
+//     travel with its last stage.  "split3" runs at TT = 64 (three
+//     accumulators).
 //   pass 2 (topk_merge): one warp per target merges the S sorted partial
 //     lists under the same (score, index) order and adds comp (the
 //     zero-transient form only).
@@ -116,22 +120,25 @@
 // The sparse epilogue.  A finished score is compared in registers with its
 // target's worst kept score (slot k - 1 of the list; `<=`, so a tie still
 // reaches the exact compare) and only the survivors are appended, as
-// (value, target, row), to a queue of QCAP entries in shared memory; after
-// one barrier the warps drain it, each entry inserted by the warp that owns
-// its target under the exact (score, index) order.  The exact top-k under a
-// total order does not depend on the order of insertion, and a pair of the
-// final top-k beats every worst pair its list ever had, so it passes the
-// screen whenever it is computed: the result is that of offering every
-// score.  Overflow rule: an entry that finds the queue full stays pending
-// in its thread's registers; the queue is drained, the pending scores are
-// screened again against the lowered worst and appended again, until none
-// is pending (cold lists at the start of a split, a DB sorted by falling
-// score).  A warm list takes k / rows_seen of a tile's scores, so after the
-// first few tiles the queue holds a handful of entries and the epilogue is
-// 64 compares a thread.  In topk_partial_split both consumer warpgroups
-// insert into the same lists, so a warpgroup drains its own queue while it
-// holds the CTA's list lock; it reads the worst scores without the lock (a
-// stale worst is larger and only lets more through).
+// (value, target, row), to a queue of QCAP entries in shared memory
+// (QCAP = 1024 in topk_partial, QCAP2 = 512 for each consumer warpgroup of
+// topk_partial_split).  The queue is drained into the lists, each entry
+// inserted by the warp that owns its target under the exact (score, index)
+// order, only when it is half full, when an entry found it full, or after
+// the last tile; a tile that drains nothing costs one barrier.  The exact
+// top-k under a total order does not depend on the order of insertion, and
+// a pair of the final top-k beats every worst pair its list ever had, so it
+// passes the screen whenever it is computed, against a worst value that is
+// out of date too (it is larger and only lets more through): the result is
+// that of offering every score.  Overflow rule: an entry that finds the
+// queue full stays pending in its thread's registers; the queue is drained,
+// the pending scores are screened again against the lowered worst and
+// appended again, until none is pending (cold lists at the start of a
+// split, a DB sorted by falling score).  A warm list takes k / rows_seen of
+// a tile's scores, so after the first few tiles a tile adds a handful of
+// entries and the epilogue is 64 compares a thread.  In topk_partial_split
+// both consumer warpgroups insert into the same lists, so a warpgroup
+// drains its own queue while it holds the CTA's list lock.
 //
 // Selection (SEL): how the queued survivors reach the lists.
 //   STREAM: in queue order; exact, lowest index on ties.
@@ -146,7 +153,8 @@
 //   PACKED3: per target and 128-row block the three smallest keys, kept in
 //     shared memory by an atomicMin cascade (a key that loses a slot moves
 //     to the next, so the three slots end as the three least whatever the
-//     order), offered to the list through the queue at the block's end, and
+//     order), offered to the list through the queue at the block's end
+//     (drained at once), and
 //     the least third key of any block kept per (target, split).  Pass 2
 //     raises a target's overflow flag where that least third key lies below
 //     the worst key kept: some block may hold a fourth row that belongs in
@@ -185,6 +193,7 @@
 #include <climits>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -331,12 +340,12 @@ __device__ void warp_offer_key(int* lk, int* li, int k, int key, int i, bool ok,
 // lists (values or keys, and rows; the worst kept value of each once more
 // in an array of its own, which the screen reads free of bank conflicts),
 // the group's queue (ranked value bits,
-// target of the tile, DB row; count[parity of the tile]) and, for PACKED3,
+// target of the tile, DB row; one count) and, for PACKED3,
 // the group's per-target block state [TT][B3].
 struct Select {
   float* lv;
   int* li;
-  int* worst;                             // [TT] bits of each list's slot k - 1
+  int* worst;                             // [TT] the screen's thresholds (screen_bits)
   int* qbits;
   int* qtgt;
   int* qrow;
@@ -344,6 +353,7 @@ struct Select {
   int* sB3;
   int k;
   int cap;                                // queue entries
+  int drain_at;                           // entries at which the queue is drained
 };
 
 // The group that runs an epilogue together.  topk_partial: the whole CTA;
@@ -352,8 +362,10 @@ struct CtaGroup {
   int tid, warp;
   static constexpr int threads = THREADS, warps = THREADS / 32;
   __device__ __forceinline__ void sync() const { __syncthreads(); }
+  // a barrier that also tells every thread whether any thread's flag is set
+  __device__ __forceinline__ bool any(bool flag) const { return __syncthreads_or(flag); }
   __device__ __forceinline__ void lock() const {}
-  __device__ __forceinline__ void unlock() const {}
+  __device__ __forceinline__ void unlock() const { __syncthreads(); }
 };
 
 // topk_partial_split: one consumer warpgroup (named barrier 1 + id).  The
@@ -366,6 +378,16 @@ struct WarpGroup {
   static constexpr int threads = 128, warps = 4;
   __device__ __forceinline__ void sync() const {
     asm volatile("bar.sync %0, 128;\n" ::"r"(id + 1) : "memory");
+  }
+  __device__ __forceinline__ bool any(bool flag) const {
+    uint32_t out;
+    asm volatile(
+        "{\n.reg .pred p, q;\nsetp.ne.b32 p, %1, 0;\n"
+        "bar.red.or.pred q, %2, 128, p;\nselp.u32 %0, 1, 0, q;\n}\n"
+        : "=r"(out)
+        : "r"(static_cast<uint32_t>(flag)), "r"(id + 1)
+        : "memory");
+    return out != 0;
   }
   __device__ __forceinline__ void lock() const {
     if (tid == 0) {
@@ -387,8 +409,15 @@ struct WarpGroup {
   }
 };
 
+// What the screen compares a target's scores with: the worst kept score,
+// but FLT_MAX at most, so that a +inf score fails `<=` without a test of its
+// own.  (Targets past T get -inf: nothing passes.)
+__device__ __forceinline__ int screen_bits(float worst) {
+  return __float_as_int(fminf(worst, 3.402823466e+38f));
+}
+
 // Does the ranked value (score bits, or a packed key) pass the screen of a
-// list whose worst value is `worst`?  Finite scores only; `<=` so that an
+// list whose threshold (scores) or worst key is `worst`?  Finite scores only; `<=` so that an
 // equal score still reaches the exact (score, row) compare of the drain.
 template <bool KEYS>
 __device__ __forceinline__ bool passes(int bits, int worst) {
@@ -400,15 +429,16 @@ __device__ __forceinline__ bool passes(int bits, int worst) {
   }
 }
 
-// Append one entry; false where the queue is full (the entry stays pending).
-__device__ __forceinline__ bool push(const Select& s, int parity, int bits, int t,
-                                     int u) {
-  const int slot = atomicAdd(s.qcount + parity, 1);
-  if (slot >= s.cap) return false;
-  s.qbits[slot] = bits;
-  s.qtgt[slot] = t;
-  s.qrow[slot] = u;
-  return true;
+// Append one entry and return its slot; at slot >= cap the queue was full and
+// nothing was written (the entry stays pending).
+__device__ __forceinline__ int push(const Select& s, int bits, int t, int u) {
+  const int slot = atomicAdd(s.qcount, 1);
+  if (slot < s.cap) {
+    s.qbits[slot] = bits;
+    s.qtgt[slot] = t;
+    s.qrow[slot] = u;
+  }
+  return slot;
 }
 
 // Insert the first n queue entries into their lists.  Every warp of the
@@ -445,7 +475,7 @@ __device__ void drain_queue(const Select& s, int n, const G& g, int lane) {
         int* ti = s.li + ct * k;
         if (lex_less(v, imin, tv[k - 1], ti[k - 1])) {
           warp_insert(tv, ti, k, v, imin, lane);
-          if (lane == 0) s.worst[ct] = __float_as_int(tv[k - 1]);
+          if (lane == 0) s.worst[ct] = screen_bits(tv[k - 1]);
         }
         if (lane == src) alive = false;
       }
@@ -469,7 +499,7 @@ __device__ void drain_queue(const Select& s, int n, const G& g, int lane) {
           const float cv = __int_as_float(cb);
           if (lex_less(cv, cu, tv[k - 1], ti[k - 1])) {
             warp_insert(tv, ti, k, cv, cu, lane);
-            if (lane == 0) s.worst[ct] = __float_as_int(tv[k - 1]);
+            if (lane == 0) s.worst[ct] = screen_bits(tv[k - 1]);
           }
         }
       }
@@ -494,23 +524,25 @@ __device__ __forceinline__ void insert3(int* s, int x) {
 // where the row or the target takes no part); pass: bit e set
 // where vals[e] passed the screen against its list's worst value (for
 // PACKED3: where it is a key at all); t_of(e), u_of(e): its target in the
-// tile and its DB row.  parity: of the group's tile count.  block_ends,
-// block_base (PACKED3): the tile closes the 128-row block that starts at
-// that row.  The caller guarantees that a group barrier or more separates
-// two calls' queue writes from the reads of the call between them (the
-// ring's barrier in topk_partial; unlock() here for a warpgroup).
+// tile and its DB row.  The survivors are appended to the group's queue,
+// which is drained into the lists only when it holds drain_at entries or
+// more, when an entry found it full, or with `flush` (the group's last
+// tile): until then the screen reads worst values that are out of date,
+// which are larger and only let more through.  A tile that drains nothing
+// costs one barrier.  block_ends, block_base (PACKED3): the tile closes the
+// 128-row block that starts at that row; its three keys a target are queued
+// and drained at once, so the queue is empty whenever a block ends.
 template <int SEL, int TT, int N, typename G, typename TOf, typename UOf>
 __device__ __forceinline__ void sparse_select(const float (&vals)[N],
                                               unsigned long long pass, TOf t_of,
                                               UOf u_of, const Select& s,
-                                              const G& g, int parity,
+                                              const G& g, bool flush,
                                               bool block_ends, int block_base,
                                               int t0, int T, int lane) {
   constexpr bool KEYS = SEL == PACKED || SEL == PACKED3;
   static_assert(N <= 64, "one pending bit per value");
-  // the other parity's count is free: its last reader passed a barrier
-  if (g.tid == 0) s.qcount[parity ^ 1] = 0;
   unsigned long long pend = 0;
+  bool due = flush;
   if constexpr (SEL == PACKED3) {
     if (pass) {
 #pragma unroll
@@ -530,32 +562,34 @@ __device__ __forceinline__ void sparse_select(const float (&vals)[N],
         for (int j = 0; j < 3; ++j) {
           const int key = st[j];
           st[j] = KEY_EMPTY;
-          // 3 TT entries at most: the queue (empty here) cannot overflow
+          // 3 TT entries at most into an empty queue: it cannot overflow
           if (t0 + t < T && passes<true>(key, s.worst[t])) {
-            push(s, parity, key, t, block_base + (key & (BLOCK - 1)));
+            push(s, key, t, block_base + (key & (BLOCK - 1)));
           }
         }
       }
+      due = true;
     }
   } else {
     if (pass) {
 #pragma unroll
       for (int e = 0; e < N; ++e) {
-        if ((pass >> e & 1) && !push(s, parity, __float_as_int(vals[e]), t_of(e), u_of(e))) {
-          pend |= 1ull << e;
+        if (pass >> e & 1) {
+          const int slot = push(s, __float_as_int(vals[e]), t_of(e), u_of(e));
+          if (slot >= s.cap) pend |= 1ull << e;
+          due |= slot + 1 >= s.drain_at;
         }
       }
     }
   }
-  g.sync();                               // the queue is complete
-  int total = *reinterpret_cast<volatile int*>(s.qcount + parity);
-  if (total == 0) return;                 // uniform across the group
+  if (!g.any(due)) return;                // a barrier: the queue is complete
+  int total = *reinterpret_cast<volatile int*>(s.qcount);
   g.lock();
   while (true) {
     drain_queue<SEL>(s, min(total, s.cap), g, lane);
-    if (total <= s.cap) break;            // nothing was left pending
     g.sync();                             // drained, and every thread read total
-    if (g.tid == 0) s.qcount[parity] = 0;
+    if (g.tid == 0) *s.qcount = 0;
+    if (total <= s.cap) break;            // nothing was left pending
     g.sync();
     if (pend) {
 #pragma unroll
@@ -563,33 +597,37 @@ __device__ __forceinline__ void sparse_select(const float (&vals)[N],
         if (pend >> e & 1) {
           const int t = t_of(e);
           const int worst = *reinterpret_cast<volatile int*>(s.worst + t);
-          if (!passes<KEYS>(__float_as_int(vals[e]), worst) || push(s, parity, __float_as_int(vals[e]), t, u_of(e))) {
+          if (!passes<KEYS>(__float_as_int(vals[e]), worst) ||
+              push(s, __float_as_int(vals[e]), t, u_of(e)) < s.cap) {
             pend &= ~(1ull << e);
           }
         }
       }
     }
     g.sync();
-    total = *reinterpret_cast<volatile int*>(s.qcount + parity);
+    total = *reinterpret_cast<volatile int*>(s.qcount);
   }
-  g.unlock();
+  g.unlock();                             // a barrier: the count reads 0 again
 }
 
 // Every list of the CTA empty: (+inf, INT_MAX) in each slot, or
-// (KEY_EMPTY, INT_MAX) where the lists hold packed keys, the worst array
-// likewise; n3 ints of packed3
-// state all KEY_EMPTY; nq queue counters 0.
+// (KEY_EMPTY, INT_MAX) where the lists hold packed keys; the screen's
+// thresholds open (KEY_EMPTY; for scores FLT_MAX, and -inf for the n_tgt -
+// n_live targets past T); n3 ints of packed3 state all KEY_EMPTY; nq queue
+// counters 0.
 template <int SEL>
 __device__ void init_state(float* lv, int* li, int n_list, int* worst, int n_tgt,
-                           int* sB3, int n3, int* counters, int nq, int tid,
-                           int threads) {
+                           int n_live, int* sB3, int n3, int* counters, int nq,
+                           int tid, int threads) {
   constexpr bool KEYS = SEL == PACKED || SEL == PACKED3;
   const float none = KEYS ? __int_as_float(KEY_EMPTY) : pos_inf();
   for (int e = tid; e < n_list; e += threads) {
     lv[e] = none;
     li[e] = INT_MAX;
   }
-  for (int e = tid; e < n_tgt; e += threads) worst[e] = __float_as_int(none);
+  for (int e = tid; e < n_tgt; e += threads) {
+    worst[e] = KEYS ? KEY_EMPTY : e < n_live ? screen_bits(pos_inf()) : __float_as_int(-pos_inf());
+  }
   if constexpr (SEL == PACKED3) {
     for (int e = tid; e < n3; e += threads) sB3[e] = KEY_EMPTY;
   }
@@ -675,6 +713,14 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// One arrival on the mbarrier, made when every cp.async this thread has
+// issued so far has completed; counted among the barrier's expected arrivals.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(bar)))
+               : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -726,7 +772,7 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
   const int tid = threadIdx.x, lane = tid & 31;
   const CtaGroup grp = {tid, tid >> 5};
   const Select sel = {lv, li, sW, queue, queue + QCAP, queue + 2 * QCAP,
-                      queue + 3 * QCAP, sB3, k, QCAP};
+                      queue + 3 * QCAP, sB3, k, QCAP, QCAP / 2};
   const int t0 = blockIdx.x * TT;
   const int split = blockIdx.y;
   const int row_lo = split * rows_per_split;
@@ -746,8 +792,8 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
       sTM[e] = t < T ? tmeta[static_cast<size_t>(t) * META + e % META] : -1;
     }
   }
-  init_state<SEL>(lv, li, TT * k, sW, TT, sB3, TT * B3, queue + 3 * QCAP, 4, tid,
-                  THREADS);
+  init_state<SEL>(lv, li, TT * k, sW, TT, T - t0, sB3, TT * B3, queue + 3 * QCAP, 4,
+                  tid, THREADS);
 
   // Stage (tile jt, column block ck) into ring slot `slot`: thread tid
   // copies column (i / 4) * 8 + tid % 8 of rows tid / 8 + 32 * (i % 4),
@@ -842,28 +888,62 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
     const int base = row_lo + jt * R1;
     const int ts = jt % NS1;
     unsigned long long pass = 0;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int t = trow(i);
-      const bool t_ok = t0 + t < T;
-      const int worst = sW[t];
+    if constexpr (!KEYS && !MASKED) {
+      // the common case in two instructions a score: the score itself (a
+      // row past the split's end gets sqn +inf and so a +inf score) and one
+      // compare with the target's threshold, OR-ed into one flag; the mask
+      // of the scores that passed is built only where the flag is set
+      float sq[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int r = rrow(j);
-        const int u = base + r;
-        const float sc = fused_score<PART, LING>(
-            sSqn[ts * R1 + r] - 2.f * acc[i * 8 + j], sTM + t * META,
-            sDM + (ts * R1 + r) * META, pen);
-        const int b = ranked_bits<KEYS>(sc, u, t_ok && u < row_hi);
-        acc[i * 8 + j] = __int_as_float(b);
-        const bool ok = SEL == PACKED3 ? b != KEY_EMPTY : passes<KEYS>(b, worst);
-        pass |= static_cast<unsigned long long>(ok) << (i * 8 + j);
+        sq[j] = base + r < row_hi ? sSqn[ts * R1 + r] : pos_inf();
+      }
+      bool hit = false;
+#pragma unroll
+      for (int h = 0; h < TM / 4; ++h) {
+        const int4 w4 = *reinterpret_cast<const int4*>(sW + 64 * h + ty * 4);
+        const int w[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int e = (4 * h + i) * 8 + j;
+            acc[e] = fmaf(-2.f, acc[e], sq[j]);
+            hit |= acc[e] <= __int_as_float(w[i]);
+          }
+      }
+      if (hit) {
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          const bool ok = acc[e] <= __int_as_float(sW[trow(e >> 3)]);
+          pass |= static_cast<unsigned long long>(ok) << e;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int t = trow(i);
+        const bool t_ok = t0 + t < T;
+        const int worst = sW[t];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int r = rrow(j);
+          const int u = base + r;
+          const float sc = fused_score<PART, LING>(
+              sSqn[ts * R1 + r] - 2.f * acc[i * 8 + j], sTM + t * META,
+              sDM + (ts * R1 + r) * META, pen);
+          const int b = ranked_bits<KEYS>(sc, u, t_ok && u < row_hi);
+          acc[i * 8 + j] = __int_as_float(b);
+          const bool ok = SEL == PACKED3 ? b != KEY_EMPTY : passes<KEYS>(b, worst);
+          pass |= static_cast<unsigned long long>(ok) << (i * 8 + j);
+        }
       }
     }
     sparse_select<SEL, TT>(
         acc, pass, [&](int e) { return trow(e >> 3); },
-        [&](int e) { return base + rrow(e & 7); }, sel, grp, jt & 1, true, base,
-        t0, T, lane);
+        [&](int e) { return base + rrow(e & 7); }, sel, grp, jt == n_tiles - 1,
+        true, base, t0, T, lane);
     ++jt;
   }
   __syncthreads();
@@ -887,24 +967,24 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// Wait until the barrier's phase of this parity has completed.  A wait of
-// seconds means a lost arrival: trap, so that the launch fails instead of
-// hanging the card.
+// Wait until the barrier's phase of this parity has completed.  The loop
+// lives inside the asm statement, so that the compiler sees straight-line
+// code and keeps the warpgroup's wgmma in flight across it.  2^26 failed
+// tries (seconds) mean a lost arrival: trap, so that the launch fails
+// instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long t0 = clock64();
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 33)) __trap();
-  }
+  asm volatile(
+      "{\n.reg .pred p, q;\n.reg .u32 n;\nmov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.lt.u32 q, n, 0x4000000;\n"
+      "@q bra WAIT;\n"
+      "trap;\n"
+      "DONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 // Writes to shared memory by ordinary stores or cp.async, made visible to
@@ -937,12 +1017,45 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
 }
 
 // d (+)= a * b^T for a 64 x 16 tile a (DB rows) and an N x 16 tile b
-// (targets), both bf16 from shared memory, f32 sums in registers; scale_d 0
-// starts a new sum.  Thread (warp w of the group, g = lane / 4, q = lane % 4)
+// (targets), both bf16 from shared memory, f32 sums in registers.  FIRST:
+// d = a * b^T, the sums are written only (scale-d 0), so that they are not
+// live between two tiles and the epilogue's values can take their registers.
+// Thread (warp w of the group, g = lane / 4, q = lane % 4)
 // holds d[4 j + h] = (row 16 w + g + 8 (h / 2), column 8 j + 2 q + h % 2).
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                           int scale_d) {
-  asm volatile(
+template <bool FIRST>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
+  if constexpr (FIRST) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
+        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
+        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(da), "l"(db), "r"(0));
+  } else {
+    asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, "
@@ -970,12 +1083,32 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(1));
+  }
 }
 
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                           int scale_d) {
-  asm volatile(
+template <bool FIRST>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  if constexpr (FIRST) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+  } else {
+    asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, "
@@ -991,16 +1124,16 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t 
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(1));
+  }
 }
 
-template <int TT>
-__device__ __forceinline__ void wgmma_tile(float (&d)[TT / 2], uint32_t a, uint32_t b,
-                                           int scale_d) {
+template <int TT, bool FIRST>
+__device__ __forceinline__ void wgmma_tile(float (&d)[TT / 2], uint32_t a, uint32_t b) {
   if constexpr (TT == 128) {
-    wgmma_n128(d, wgmma_desc(a), wgmma_desc(b), scale_d);
+    wgmma_n128<FIRST>(d, wgmma_desc(a), wgmma_desc(b));
   } else {
-    wgmma_n64(d, wgmma_desc(a), wgmma_desc(b), scale_d);
+    wgmma_n64<FIRST>(d, wgmma_desc(a), wgmma_desc(b));
   }
 }
 
@@ -1017,13 +1150,12 @@ __device__ __forceinline__ void fence_sums(float (&d)[N]) {
 // bf16x2 words, the lower column in the low half.
 __device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
                                            uint32_t& lo) {
-  const __nv_bfloat16 h0 = __float2bfloat16_rn(x0), h1 = __float2bfloat16_rn(x1);
-  const __nv_bfloat16 l0 = __float2bfloat16_rn(x0 - __bfloat162float(h0));
-  const __nv_bfloat16 l1 = __float2bfloat16_rn(x1 - __bfloat162float(h1));
-  hi = static_cast<uint32_t>(__bfloat16_as_ushort(h0)) |
-       static_cast<uint32_t>(__bfloat16_as_ushort(h1)) << 16;
-  lo = static_cast<uint32_t>(__bfloat16_as_ushort(l0)) |
-       static_cast<uint32_t>(__bfloat16_as_ushort(l1)) << 16;
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);   // one conversion for both
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  // a bf16 is the upper half of its f32
+  const float h0 = __uint_as_float(hi << 16), h1 = __uint_as_float(hi & 0xffff0000u);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - h0, x1 - h1);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // Byte offset of 32-bit word w (columns 2 w, 2 w + 1) of row r in a
@@ -1077,7 +1209,6 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
   constexpr int QINTS = 3 * QCAP2 + 4;    // a queue: 3 x [QCAP2], then 4 counters
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nch = (kd + KC2 - 1) / KC2;   // stages a DB tile
-  const int ksteps_all = (kd + 15) / 16;  // wgmma steps a product
   unsigned char* p = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* sTh = p;                 // [nch][TT][128 B] targets hi, swizzled
   unsigned char* sTl = sTh + nch * TT * 128;            // lo
@@ -1099,6 +1230,10 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
   int* sB3 = sW + TT;                     // [2][TT][B3] if SEL == PACKED3
 
   const int tid = threadIdx.x, lane = tid & 31;
+  // the warpgroup's index, read from lane 0 so that the compiler knows the
+  // branches on it to be uniform within a warp (wgmma in a path it takes
+  // for divergent is serialized)
+  const int wgroup = __shfl_sync(FULL, tid >> 7, 0);
   const int t0 = blockIdx.x * TT;
   const int split = blockIdx.y;
   const int row_lo = split * rows_per_split;
@@ -1124,8 +1259,8 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
       sTM[e] = t < T ? tmeta[static_cast<size_t>(t) * META + e % META] : -1;
     }
   }
-  init_state<SEL>(lv, li, TT * k, sW, TT, sB3, 2 * TT * B3, queues + 3 * QCAP2, 4,
-                  tid, THREADS2);
+  init_state<SEL>(lv, li, TT * k, sW, TT, T - t0, sB3, 2 * TT * B3, queues + 3 * QCAP2,
+                  4, tid, THREADS2);
   if (tid < 4) queues[QINTS + 3 * QCAP2 + tid] = 0;     // the second queue's counters
   if (tid == 0) {
     for (int s = 0; s < ns; ++s) {
@@ -1139,7 +1274,7 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
   fence_async_proxy();                    // the target tile, for wgmma
   __syncthreads();
 
-  if (tid >= 256) {
+  if (wgroup == 2) {
     // ---- producer: stage g = (tile g / nch, column block g % nch) into
     // slot g % ns, after the consumer of stage g - ns released it
     const int ptid = tid - 256, pwarp = ptid >> 5;
@@ -1165,10 +1300,6 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
     if constexpr (PRESPLIT) {
       const __nv_bfloat16* pre = static_cast<const __nv_bfloat16*>(db);
       const int kp = (kd + KPAD - 1) / KPAD * KPAD;     // columns of a half
-      // stages in flight behind the newest: a consumer holds stage g - 1
-      // until stage g is full, so the arrival of g must not wait for the
-      // slot of g - 1
-      const int lag = ns - 2;
       int jt = 0, c = 0;
       for (int g = 0; g < n_stages; ++g) {
         const int slot = g % ns;
@@ -1191,26 +1322,24 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
               [&](float* d, const float* s, bool ok) { cp_async4(d, ok ? s : sqn, ok ? 4 : 0); },
               [&](int* d, const int* s, bool ok) { cp_async16(d, ok ? s : dmeta, ok ? 16 : 0); });
         }
-        cp_async_commit();
-        if (g >= lag) {                   // stage g - lag has landed
-          if (lag == 2) cp_async_wait<2>(); else if (lag == 1) cp_async_wait<1>(); else cp_async_wait<0>();
-          fence_async_proxy();
-          mbar_arrive(full_of(g - lag));
-        }
+        // this thread's arrival is made by the hardware when its copies have
+        // landed, so the producer never waits for data and a stage is handed
+        // over as soon as it is whole (the consumer makes it visible to
+        // wgmma: fence_async_proxy after its wait)
+        cp_async_arrive(full_of(g));
         if (++c == nch) {
           c = 0;
           ++jt;
         }
       }
-      cp_async_wait<0>();
-      fence_async_proxy();
-      for (int g = max(n_stages - lag, 0); g < n_stages; ++g) mbar_arrive(full_of(g));
     } else {
       // f32 rows: lane l loads columns 2 l, 2 l + 1 of the block (a warp
-      // reads 256 contiguous bytes of a row), rows pwarp + 4 i; the loads of
-      // the next stage are issued before this one is split and stored
+      // reads 256 contiguous bytes of a row), rows pwarp + 4 i.  Three sets
+      // of registers rotate, so that the loads of stages g + 1 and g + 2
+      // are in flight while stage g is split and stored
       const float* raw = static_cast<const float*>(db);
-      auto load = [&](int jt, int c, float (&x)[32]) {
+      auto load = [&](int g, float (&x)[32]) {
+        const int jt = g / nch, c = g - jt * nch;
         const int col = c * KC2 + 2 * lane;
 #pragma unroll
         for (int i = 0; i < 16; ++i) {
@@ -1220,26 +1349,21 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
           x[2 * i + 1] = (u < row_hi && col + 1 < kd) ? __ldg(src + 1) : 0.f;
         }
       };
-      float cur[32], nxt[32];
-      load(0, 0, cur);
-      int jt = 0, c = 0;
-      for (int g = 0; g < n_stages; ++g) {
+      auto emit = [&](int g, const float (&x)[32]) {
         const int slot = g % ns;
-        const int jn = c + 1 == nch ? jt + 1 : jt, cn = c + 1 == nch ? 0 : c + 1;
-        if (g + 1 < n_stages) load(jn, cn, nxt);
         mbar_wait(empty + slot, ((g / ns) & 1) ^ 1);
         unsigned char* stage = ring + slot * 2 * HALF2;
 #pragma unroll
         for (int i = 0; i < 16; ++i) {
           uint32_t hi, lo;
-          split_pair(cur[2 * i], cur[2 * i + 1], hi, lo);
+          split_pair(x[2 * i], x[2 * i + 1], hi, lo);
           const int off = swizzled_word(pwarp + 4 * i, lane);
           *reinterpret_cast<uint32_t*>(stage + off) = hi;
           *reinterpret_cast<uint32_t*>(stage + HALF2 + off) = lo;
         }
-        if (c == nch - 1) {
+        if (g % nch == nch - 1) {
           side_rows(
-              row_lo + jt * R2, slot,
+              row_lo + g / nch * R2, slot,
               [](float* d, const float* s, bool ok) { *d = ok ? __ldg(s) : 0.f; },
               [](int* d, const int* s, bool ok) {
                 *reinterpret_cast<int4*>(d) =
@@ -1248,88 +1372,139 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
         }
         fence_async_proxy();
         mbar_arrive(full_of(g));
-#pragma unroll
-        for (int i = 0; i < 32; ++i) cur[i] = nxt[i];
-        jt = jn;
-        c = cn;
+      };
+      float xa[32], xb[32], xc[32];
+      if (n_stages > 0) load(0, xa);
+      if (n_stages > 1) load(1, xb);
+      for (int g = 0; g < n_stages; g += 3) {
+        if (g + 2 < n_stages) load(g + 2, xc);
+        emit(g, xa);
+        if (g + 1 < n_stages) {
+          if (g + 3 < n_stages) load(g + 3, xa);
+          emit(g + 1, xb);
+        }
+        if (g + 2 < n_stages) {
+          if (g + 4 < n_stages) load(g + 4, xb);
+          emit(g + 2, xc);
+        }
       }
     }
   } else {
     // ---- consumers: warpgroup wg takes every other DB tile (with PACKED3
     // every other pair of tiles: a 128-row block stays in one group)
-    const int wg = tid >> 7, wtid = tid & 127, wwarp = wtid >> 5;
+    const int wg = wgroup, wtid = tid & 127, wwarp = wtid >> 5;
     const WarpGroup grp = {wtid, wwarp, wg, mutex};
     int* q = queues + wg * QINTS;
     const Select sel = {lv, li, sW, q, q + QCAP2, q + 2 * QCAP2, q + 3 * QCAP2,
-                        sB3 + wg * TT * B3, k, QCAP2};
+                        sB3 + wg * TT * B3, k, QCAP2, QCAP2 / 2};
     const int g8 = lane >> 2, q4 = lane & 3;
     const int r0 = wwarp * 16 + g8;       // this thread's DB rows: r0, r0 + 8
     float acc[NACC][N];
-    int mine = 0;                         // tiles this group has taken
     unsigned phases = 0;                  // bit s: parity of full[wg][s]'s next phase
     for (int jt = 0; jt < n_tiles; ++jt) {
       if ((SEL == PACKED3 ? jt >> 1 : jt) % 2 != wg) continue;
       const int base = row_lo + jt * R2;
       int slot = 0;
-      for (int c = 0; c < nch; ++c) {
+      // One stage: all four 16-column steps of its 64 columns, whatever kd
+      // (the columns past kd are zero on both sides and add exact zeros;
+      // with a step count that depends on kd the compiler takes the wgmma
+      // for conditional and waits for each where it is issued).  first: the
+      // tile's first stage, whose first step starts the sums.
+      auto stage = [&](int c, auto first) {
+        constexpr bool FIRST = decltype(first)::value;
         const int g = jt * nch + c;
         const int prev = slot;
         slot = g % ns;
         mbar_wait(full + wg * NS2 + slot, phases >> slot & 1);
         phases ^= 1u << slot;
+        if constexpr (PRESPLIT) fence_async_proxy();    // the copies, for wgmma
+        if constexpr (!FIRST) {
 #pragma unroll
-        for (int a = 0; a < NACC; ++a) fence_sums(acc[a]);
+          for (int a = 0; a < NACC; ++a) fence_sums(acc[a]);
+        }
         wgmma_fence();
         const uint32_t a_hi = smem_u32(ring + slot * 2 * HALF2), a_lo = a_hi + HALF2;
         const uint32_t b_hi = smem_u32(sTh + c * TT * 128);
         const uint32_t b_lo = smem_u32(sTl + c * TT * 128);
-        const int ksteps = min(KC2 / 16, ksteps_all - c * (KC2 / 16));
+        wgmma_tile<TT, FIRST>(acc[0], a_hi, b_hi);                   // db_hi . t_hi
+        wgmma_tile<TT, FIRST && NACC == 3>(acc[HL], a_hi, b_lo);     // db_hi . t_lo
+        wgmma_tile<TT, FIRST && NACC == 3>(acc[LH], a_lo, b_hi);     // db_lo . t_hi
 #pragma unroll
-        for (int ks = 0; ks < KC2 / 16; ++ks) {
-          if (ks < ksteps) {
-            const int go = c > 0 || ks > 0;       // 0: the tile's first step
-            wgmma_tile<TT>(acc[0], a_hi + 32 * ks, b_hi + 32 * ks, go);     // db_hi . t_hi
-            wgmma_tile<TT>(acc[HL], a_hi + 32 * ks, b_lo + 32 * ks,
-                           NACC == 3 ? go : 1);                            // db_hi . t_lo
-            wgmma_tile<TT>(acc[LH], a_lo + 32 * ks, b_hi + 32 * ks,
-                           NACC == 3 ? go : 1);                            // db_lo . t_hi
-          }
+        for (int ks = 1; ks < KC2 / 16; ++ks) {
+          wgmma_tile<TT, false>(acc[0], a_hi + 32 * ks, b_hi + 32 * ks);
+          wgmma_tile<TT, false>(acc[HL], a_hi + 32 * ks, b_lo + 32 * ks);
+          wgmma_tile<TT, false>(acc[LH], a_lo + 32 * ks, b_hi + 32 * ks);
         }
         wgmma_commit();
-        if (c > 0) {                      // the stage before this one is read
+        if constexpr (!FIRST) {           // the stage before this one is read
           wgmma_wait<1>();
           mbar_arrive(empty + prev);
         }
-      }
+      };
+      stage(0, std::true_type{});
+      for (int c = 1; c < nch; ++c) stage(c, std::false_type{});
       wgmma_wait<0>();
 #pragma unroll
       for (int a = 0; a < NACC; ++a) fence_sums(acc[a]);
       // scores and screen; sqn and metadata rows lie with the last stage
+      // (the ranked values get registers of their own: the sums stay
+      // untouched outside this straight-line code, or the compiler would
+      // wait for every wgmma where it is issued)
       unsigned long long pass = 0;
-      const float sq[2] = {sSqn[slot * R2 + r0], sSqn[slot * R2 + r0 + 8]};
+      float vals[N];
+      float sq[2] = {sSqn[slot * R2 + r0], sSqn[slot * R2 + r0 + 8]};
+      // the tile's last stage goes back to the producer before the scores
+      // are formed, unless they read its metadata rows
+      if constexpr (!MASKED) mbar_arrive(empty + slot);
+      if constexpr (!KEYS && !MASKED) {
+        // the common case in two instructions a score, as in topk_partial
+        if (base + r0 >= row_hi) sq[0] = pos_inf();
+        if (base + r0 + 8 >= row_hi) sq[1] = pos_inf();
+        bool hit = false;
 #pragma unroll
-      for (int e = 0; e < N; ++e) {
-        const int t = (e >> 2) * 8 + 2 * q4 + (e & 1);
-        const int h = (e >> 1) & 1;
-        const int u = base + r0 + 8 * h;
-        float cross = acc[0][e];
-        if constexpr (NACC == 3) cross = (acc[0][e] + acc[1][e]) + acc[2][e];
-        const float sc = fused_score<PART, LING>(
-            sq[h] - 2.f * cross, sTM + t * META,
-            sDM + (slot * R2 + r0 + 8 * h) * META, pen);
-        const int b = ranked_bits<KEYS>(sc, u, t0 + t < T && u < row_hi);
-        acc[0][e] = __int_as_float(b);
-        const int worst = sW[t];
-        const bool ok = SEL == PACKED3 ? b != KEY_EMPTY : passes<KEYS>(b, worst);
-        pass |= static_cast<unsigned long long>(ok) << e;
+        for (int j = 0; j < N / 4; ++j) {
+          const int2 w = *reinterpret_cast<const int2*>(sW + 8 * j + 2 * q4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int e = 4 * j + i;
+            float cross = acc[0][e];
+            if constexpr (NACC == 3) cross = (acc[0][e] + acc[1][e]) + acc[2][e];
+            vals[e] = fmaf(-2.f, cross, sq[i >> 1]);
+            hit |= vals[e] <= __int_as_float(i & 1 ? w.y : w.x);
+          }
+        }
+        if (hit) {
+#pragma unroll
+          for (int e = 0; e < N; ++e) {
+            const bool ok = vals[e] <= __int_as_float(sW[(e >> 2) * 8 + 2 * q4 + (e & 1)]);
+            pass |= static_cast<unsigned long long>(ok) << e;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          const int t = (e >> 2) * 8 + 2 * q4 + (e & 1);
+          const int h = (e >> 1) & 1;
+          const int u = base + r0 + 8 * h;
+          float cross = acc[0][e];
+          if constexpr (NACC == 3) cross = (acc[0][e] + acc[1][e]) + acc[2][e];
+          const float sc = fused_score<PART, LING>(
+              sq[h] - 2.f * cross, sTM + t * META,
+              sDM + (slot * R2 + r0 + 8 * h) * META, pen);
+          const int b = ranked_bits<KEYS>(sc, u, t0 + t < T && u < row_hi);
+          vals[e] = __int_as_float(b);
+          const int worst = sW[t];
+          const bool ok = SEL == PACKED3 ? b != KEY_EMPTY : passes<KEYS>(b, worst);
+          pass |= static_cast<unsigned long long>(ok) << e;
+        }
       }
-      mbar_arrive(empty + slot);          // the tile's last stage
+      if constexpr (MASKED) mbar_arrive(empty + slot);
       const bool block_ends = (jt & 1) == 1 || base + R2 >= row_hi;
       sparse_select<SEL, TT>(
-          acc[0], pass, [&](int e) { return (e >> 2) * 8 + 2 * q4 + (e & 1); },
+          vals, pass, [&](int e) { return (e >> 2) * 8 + 2 * q4 + (e & 1); },
           [&](int e) { return base + r0 + 8 * ((e >> 1) & 1); }, sel, grp,
-          mine & 1, block_ends, row_lo + (jt >> 1) * BLOCK, t0, T, lane);
-      ++mine;
+          SEL != PACKED3 && jt + 2 >= n_tiles, block_ends,
+          row_lo + (jt >> 1) * BLOCK, t0, T, lane);
     }
   }
   __syncthreads();

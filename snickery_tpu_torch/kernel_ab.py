@@ -23,6 +23,11 @@ cores' summation order may differ between designs and the digests are a
 record, not a gate.  To compare with an older tree, copy this file into
 that tree's package and run it there (``--label parent``), in the same
 command as the run on this tree.  Needs a CUDA card.
+
+:data:`FIRST_DESIGN_DIGESTS` records what the first design of the kernels
+(64 x 64 tiles, a dense selection after every tile) printed for the two
+"highest" cases on an NVIDIA H100 80GB HBM3; ``chip_smoke.py`` prints
+today's beside them.
 """
 
 from __future__ import annotations
@@ -49,29 +54,25 @@ CASES = (  # (name, T, tiles of the block, zero_transient, precision, k)
     ("dv_split3cat_chunk", 64, 1, False, "split3cat", 48),
     ("zt_split3_capacity", 2048, 8, True, "split3", 40),
 )
+# case: (ids_sha256, scores_sha256) of the first design
+FIRST_DESIGN_DIGESTS = {"zt_highest": ("42687863318a6959", "c62f05eb8d61ae14"),
+                        "dv_highest": ("8daee431bb4b3206", "0a6414f3590d49e4")}
 
 
 def digest(t: torch.Tensor) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--label", default="change")
-    ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--only", default="", help="comma list of case names (default: all)")
-    ap.add_argument("--out", default="", help="also append the JSON lines to this file")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("kernel_ab: no CUDA device", file=sys.stderr)
-        return 2
+def run_cases(label: str = "change", reps: int = 3, only=()) -> list[dict]:
+    """Time and digest the cases named in ``only`` (all if empty) on the
+    current CUDA device; one dict a case (the JSON lines of the module)."""
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     tg_np, raw_np, aff_np = sweep_topk.make_data(65536, UNITS, KD, 0, 0, False)
     tg, raw = torch.from_numpy(tg_np).to(dev), torch.from_numpy(raw_np).to(dev)
     aff = tuple(torch.from_numpy(a).to(dev) for a in aff_np)
-    only = set(filter(None, args.only.split(",")))
+    lines = []
     for name, T, tiles, zt, precision, k in CASES:
         if only and name not in only:
             continue
@@ -87,17 +88,30 @@ def main(argv=None) -> int:
         def call():
             return cuda_topk_preselect(x, block, k, m_rows=m_rows, precision=precision, **kw)
 
-        ms, (ids, scores) = sweep_topk.time_call(call, args.reps, dev)
-        line = json.dumps({"label": args.label, "case": name, "T": T, "m_rows": m_rows,
-                           "kd": KD, "k": k, "precision": precision, "ms": ms,
-                           "ids_sha256": digest(ids), "scores_sha256": digest(scores),
-                           "card": card})
-        print(line, flush=True)
-        if args.out:
-            with open(args.out, "a") as f:
-                f.write(line + "\n")
+        ms, (ids, scores) = sweep_topk.time_call(call, reps, dev)
+        lines.append({"label": label, "case": name, "T": T, "m_rows": m_rows, "kd": KD, "k": k,
+                      "precision": precision, "ms": ms, "ids_sha256": digest(ids),
+                      "scores_sha256": digest(scores), "card": card})
         del block, kw
         torch.cuda.empty_cache()
+    return lines
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--label", default="change")
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--only", default="", help="comma list of case names (default: all)")
+    ap.add_argument("--out", default="", help="also append the JSON lines to this file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    for line in run_cases(args.label, args.reps, set(filter(None, args.only.split(",")))):
+        print(json.dumps(line), flush=True)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(json.dumps(line) + "\n")
     return 0
 
 

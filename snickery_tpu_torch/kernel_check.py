@@ -16,6 +16,13 @@ tests (``tests/test_torch_cuda_kernel.py``).
   rules of "stream"; the packed forms with :func:`packed_slack` added, 127
   ulp of the ranked score (their keys drop 7 bits of it), and for
   "packed3diag" the overflow flags too.
+- :data:`EDGE_CASES` and :func:`run_edge_case`: the kernel against its twin
+  at the edges of its tiles (target and DB row counts that are no multiples
+  of a tile, one DB split and several, kd 453 with its narrower target tile,
+  k = 64) and of its screened epilogue (scores that fall with the row index,
+  so that every score passes the screen and the queue overflows on every
+  tile; scores that rise, so that nothing passes after the first k rows;
+  bit-identical rows; a partition that starves a voice).
 - :func:`pileup_block`: a run of near-duplicate rows inside one 128-row
   block, and targets that sit on them: more than three rows of one block
   in a target's top-k, the case that makes "packed3" raise its flag.
@@ -36,7 +43,8 @@ import numpy as np
 import torch
 
 from snickery_tpu_torch.const import ID_RANK_PENALTY
-from snickery_tpu_torch.ops.cuda_topk import (BLOCK_ROWS, _prescale, cuda_topk_preselect,
+from snickery_tpu_torch.ops.cuda_topk import (BLOCK_ROWS, MAX_K, _prescale,
+                                              cuda_topk_preselect, derive_operand, pack_meta,
                                               penalty_constants, presplit_halves,
                                               split_cross64, split_scores64,
                                               topk_preselect_dv_plain,
@@ -46,7 +54,7 @@ SCORE_ATOL = 1e-3        # |kernel - plain| on scores of ~1e2: f32 sums of
                          # kd products taken in another order
 TIE_RTOL = 1e-5          # a differing id must be an f32 near-tie of the k-th
 F32_EPS = float(np.finfo(np.float32).eps)
-MMA_DEPTH = 16           # bf16 products an mma.sync m16n8k16 step adds
+MMA_DEPTH = 16           # bf16 products a wgmma m64nNk16 step adds
 PROBE_RTOL = 1e-6        # split probe: |score - f64 score| / (2 sum |t| |u|)
 PACKED_ULPS = BLOCK_ROWS - 1   # a packed key replaces the score's low 7 bits
 FLAG_ROWS = 0.01         # split precision: share of targets whose packed3 flags
@@ -237,6 +245,81 @@ def judge(got, want, targets, raw, aff, m_rows, precision="highest", sqn=None, n
         counted = bad[(fk[0][bad] == 0) & (fp[0][bad] == 0)] if fk else bad
         check(len(counted) <= 0.01 * targets.shape[0], f"{len(counted)} rows differ")
     return err, int(len(bad)), int(dead_k.sum())
+
+
+# name: (T, m_rows, kd, k or None for the precision's own, what is special)
+EDGE_CASES = {
+    "ragged": (300, 8229, 151, None, None),          # one DB split, partial tiles
+    "ragged_splits": (300, 65573, 151, None, None),  # several, the last one partial
+    "kd453_k64": (300, 8229, 453, MAX_K, None),      # the narrower target tile
+    "falling": (300, 8229, 151, None, "falling"),    # every score passes the screen
+    "falling_splits": (200, 33000, 151, None, "falling"),
+    "rising": (300, 8229, 151, None, "rising"),      # none after the first k rows
+    "identical": (300, 8229, 151, None, "identical"),   # the lowest k rows must win
+    "starved": (300, 8229, 151, None, "starved"),    # a voice of k // 2 rows, one of none
+}
+EDGE_K = {"highest": 40, "split3": 40, "split3cat": 48}
+
+
+def run_edge_case(name: str, device, precision: str = "highest", zero_transient: bool = True,
+                  seed: int = 0):
+    """One of :data:`EDGE_CASES` through :func:`compare`, in either operand
+    form.  "falling" / "rising": rows of small features whose squared norm
+    is set to ``m_rows - u`` / ``u + 1``, so that for every target the score
+    falls / rises with the row index u (the products stay below the step of
+    1 between neighbours).  "identical": every row a copy of one, so all
+    scores of a target tie and rows 0 .. k - 1 must come back, in order.
+    "starved": the partition mask with a voice of k // 2 rows and one of
+    none.  Returns what :func:`compare` returns."""
+    from snickery_tpu_torch.voicedb.device_layout import build_raw_blocks
+    T, M, kd, k, special = EDGE_CASES[name]
+    k = k or EDGE_K[precision]
+    rng = np.random.default_rng(seed + T + M + kd)
+    feats = rng.standard_normal((M, kd), dtype=np.float32)
+    if special in ("falling", "rising"):
+        feats *= np.float32(0.002)
+    elif special == "identical":
+        feats[:] = feats[0]
+    aff = ((0.1 * rng.standard_normal(kd)).astype(np.float32),
+           rng.uniform(0.5, 2.0, kd).astype(np.float32),
+           rng.uniform(0.2, 1.0, kd).astype(np.float32))
+    jr = np.zeros_like(feats)
+    jr[:-1] = feats[1:]
+    raw = torch.from_numpy(build_raw_blocks(feats, jr, M, affine=aff)[0]).to(device)
+    aff = tuple(torch.from_numpy(a).to(device) for a in aff)
+    tg = torch.from_numpy(rng.standard_normal((T, kd), dtype=np.float32)).to(device)
+    ramp = None
+    if special == "falling":
+        ramp = torch.arange(M, 0, -1, device=device, dtype=torch.float32)
+    elif special == "rising":
+        ramp = torch.arange(1, M + 1, device=device, dtype=torch.float32)
+    masks = {}
+    if special == "starved":
+        tv = rng.integers(0, 7, T).astype(np.int32)
+        tv[16:48], tv[48:56] = 7, 9
+        dv = rng.integers(0, 7, M).astype(np.int32)
+        dv[rng.choice(M, k // 2, replace=False)] = 7
+        zeros = lambda n: torch.zeros(n, dtype=torch.int32, device=device)
+        masks = dict(
+            tgt_meta=pack_meta(zeros(T), zeros((T, 5)), torch.from_numpy(tv).to(device)),
+            db_meta=pack_meta(zeros(M), zeros((M, 5)), torch.from_numpy(dv).to(device)),
+            partition=True, ling_weights=None)
+    if zero_transient:
+        if ramp is not None:
+            raw[:M, kd] = ramp
+        args, kw = (tg, raw, aff, M, k, precision), {}
+    else:
+        op, sqn = derive_operand(raw, aff, M, M, precision)
+        args, kw = (tg, op, None, M, k, precision), dict(sqn=sqn if ramp is None else ramp)
+    out = compare(*args, **kw, **masks)
+    if special == "identical":
+        ids = cuda_topk_preselect(args[0], args[1], k, args[2], M, precision=precision,
+                                  zero_transient=zero_transient, sqn=kw.get("sqn"))[0]
+        check(bool((ids == torch.arange(k, device=ids.device)[None, :]).all()),
+              "bit-identical rows: the lowest k indices must win, in order")
+    if special == "starved":
+        check(out[2] == 32 * (k - k // 2) + 8 * k, f"starved slots missing ({out[2]})")
+    return out
 
 
 def split_probe_operands(T: int = 16, n: int = 64, kd: int = 8, seed: int = 5):

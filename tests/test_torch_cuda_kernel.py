@@ -20,8 +20,8 @@ from snickery_tpu_torch.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
 from snickery_tpu_torch.voicedb.build import UtteranceData, build_voicedb
 from snickery_tpu_torch.voicedb.device_layout import build_raw_blocks
 from snickery_tpu_torch.voicedb.multivoice import merge_voicedbs
-from snickery_tpu_torch.kernel_check import (PROBE_RTOL, compare, pileup_block,
-                                             split_probe_error)
+from snickery_tpu_torch.kernel_check import (EDGE_CASES, PROBE_RTOL, compare, pileup_block,
+                                             run_edge_case, split_probe_error)
 from snickery_tpu_torch.ops import cuda_topk
 from snickery_tpu_torch.ops.cuda_topk import (cuda_topk_preselect, derive_operand, pack_meta,
                                               topk_preselect_zt_plain)
@@ -76,6 +76,21 @@ def test_kernel_matches_plain(cuda_device, T, M, dup):
     torch.testing.assert_close(torch.gather(kv, 1, ko), torch.gather(pv, 1, po),
                                rtol=0, atol=1e-3)
     assert bool((kv[:, 1:] >= kv[:, :-1]).all()), "kernel output ascending"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zt", [True, False], ids=["zt", "dv"])
+@pytest.mark.parametrize("edge", sorted(EDGE_CASES))
+def test_kernel_matches_plain_at_the_edges(cuda_device, edge, zt):
+    """The 128 x 128 tiles' edges and the screened epilogue's at "highest"
+    (kernel_check.EDGE_CASES: ragged T and M over one split and several,
+    kd 453 at k 64 with the 64-target tile, scores falling with the row index
+    so that the survivor queue overflows on every tile, rising scores,
+    bit-identical rows, a starved voice): the rule of kernel_check.compare."""
+    name = cuda_topk.kernel_name(edge == "starved", False, "highest", zt)
+    before = cuda_topk.LAUNCH_COUNTS[name]
+    run_edge_case(edge, cuda_device, "highest", zt)
+    assert cuda_topk.LAUNCH_COUNTS[name] > before
 
 
 @pytest.mark.cuda
@@ -213,6 +228,20 @@ def test_split_kernel_matches_plain(cuda_device, precision, k, T, M):
     before = cuda_topk.LAUNCH_COUNTS[name]
     compare(tg, R, A, M, k, precision)
     assert cuda_topk.LAUNCH_COUNTS[name] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zt", [True, False], ids=["zt", "dv"])
+@pytest.mark.parametrize("precision", ["split3cat", "split3"])
+@pytest.mark.parametrize("edge", sorted(EDGE_CASES))
+def test_split_kernel_matches_plain_at_the_edges(cuda_device, edge, precision, zt):
+    """The same edges at the split precisions (the wgmma tiles of 64 DB rows
+    x 128 or 64 targets, two consumer warpgroups sharing the lists): the
+    rule of kernel_check.compare."""
+    name = cuda_topk.kernel_name(edge == "starved", False, precision, zt)
+    before = cuda_topk.LAUNCH_COUNTS[name]
+    run_edge_case(edge, cuda_device, precision, zt)
+    assert cuda_topk.LAUNCH_COUNTS[name] > before
 
 
 @pytest.mark.cuda
@@ -398,10 +427,13 @@ def test_derived_kernel_matches_plain(cuda_device, variant, precision, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("precision,kd", [("highest", 1200), ("split3cat", 3000)])
+@pytest.mark.parametrize("precision,kd", [("highest", 737), ("split3", 705),
+                                          ("split3cat", 705), ("split3cat", 3000)])
 def test_derived_kernel_refuses_a_shape_without_room(cuda_device, precision, kd):
     """A kd whose pass 1 needs more than a block's 227 KB of shared memory
-    (partial_smem) is refused before any launch."""
+    even at its 64-target tile (partial_smem: at k 8 the resident targets
+    and, at a split precision, a ring of two stages) is refused before any
+    launch."""
     rng, raw, aff = _block(kd, 256, False, kd)
     D = lambda a: torch.from_numpy(a).to(cuda_device)
     op, sqn = derive_operand(D(raw), tuple(map(D, aff)), 256, 256, precision)
@@ -411,6 +443,18 @@ def test_derived_kernel_refuses_a_shape_without_room(cuda_device, precision, kd)
         cuda_topk_preselect(tg, op, 8, None, 256, precision=precision, zero_transient=False,
                             sqn=sqn)
     assert dict(cuda_topk.LAUNCH_COUNTS) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,kd", [("highest", 736), ("split3", 704), ("split3cat", 704)])
+def test_derived_kernel_at_the_widest_kd_with_room(cuda_device, precision, kd):
+    """The widest kd that still finds room (the 64-target tile; at a split
+    precision a ring of only two stages) runs and agrees with the twin."""
+    rng, raw, aff = _block(kd, 1000, True, kd)
+    D = lambda a: torch.from_numpy(a).to(cuda_device)
+    op, sqn = derive_operand(D(raw), tuple(map(D, aff)), 1000, 1000, precision)
+    tg = D(rng.standard_normal((100, kd)).astype(np.float32))
+    compare(tg, op, None, 1000, 8, precision, sqn=sqn)
 
 
 @pytest.mark.cuda

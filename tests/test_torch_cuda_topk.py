@@ -246,11 +246,32 @@ def test_cpu_tensors_take_the_plain_twin(variant):
     assert dict(cuda_topk.LAUNCH_COUNTS) == before
 
 
+@pytest.mark.parametrize("tile_rows,db_tile_rows", [(128, 128), (64, 128), (128, 64), (64, 64)],
+                         ids=["highest128", "highest64", "split128", "split64"])
 @pytest.mark.parametrize("T,m_rows", [(128, 1_056_768), (2048, 1_056_768),
-                                      (65536, 1_056_768), (300, 8229), (1, 40)])
-def test_split_plan_covers_the_db(T, m_rows):
-    splits, rows = split_plan(T, m_rows, n_sm=132, tile_rows=64, db_tile_rows=64)
-    assert rows % 64 == 0
+                                      (65536, 1_056_768), (300, 8229), (1, 40),
+                                      (64, 1_048_576), (300, 65573), (2048, 8_388_624)])
+def test_split_plan_covers_the_db(T, m_rows, tile_rows, db_tile_rows):
+    """The kernel's tile shapes: 128 or 64 targets a CTA, DB tiles of 128
+    rows at "highest" and 64 at the split precisions."""
+    splits, rows = split_plan(T, m_rows, n_sm=132, tile_rows=tile_rows,
+                              db_tile_rows=db_tile_rows)
+    assert rows % db_tile_rows == 0
     assert (splits - 1) * rows < m_rows <= splits * rows    # none empty
-    tiles = -(-T // 64)
-    assert tiles * splits >= min(2 * 132, tiles * -(-m_rows // 64))   # a full wave
+    tiles = -(-T // tile_rows)
+    # the card is filled, as far as splits of MIN_SPLIT_ROWS or more allow
+    most = max(1, m_rows // cuda_topk.MIN_SPLIT_ROWS)
+    assert tiles * splits >= min(2 * 132, tiles * most * 0.99)
+    assert splits == 1 or rows >= cuda_topk.MIN_SPLIT_ROWS
+
+
+@pytest.mark.parametrize("T,m_rows", [(300, 8229), (128, 1_056_768), (65536, 1_048_576),
+                                      (1, 40), (64, 129)])
+def test_split_plan_of_packed3_is_whole_blocks(T, m_rows):
+    """A packed3 split is a whole number of 128-row blocks (the wrapper plans
+    it with BLOCK_ROWS as the DB tile), at either target tile."""
+    for tile_rows in (128, 64):
+        splits, rows = split_plan(T, m_rows, n_sm=132, tile_rows=tile_rows,
+                                  db_tile_rows=cuda_topk.BLOCK_ROWS)
+        assert rows % 128 == 0 and rows % 64 == 0
+        assert (splits - 1) * rows < m_rows <= splits * rows
