@@ -53,7 +53,9 @@
 // kernel: "split3cat" keeps one accumulator over the 3 * kd pairs (the
 // TPU's one K = 3d pass), "split3" three, combined as (hh + hl) + lh (its
 // three passes).  A wgmma adds 16 products, as the warp-level mma of the
-// first design did; columns past kd are zero on both sides and add exact zeros.
+// first design did; a product always runs over whole stages of 64 columns
+// (columns past kd are zero on both sides and add exact zeros: a step count
+// that depends on kd makes the compiler wait for every wgmma in turn).
 //
 // Fused masks, at every precision, applied to the score after the product in
 // the Pallas order (so at "highest" the plain twin agrees bit for bit):
@@ -91,25 +93,31 @@
 //     and the float4 reads along the rows stay 16-byte aligned and free of
 //     conflicts; the global reads are runs of 32 bytes along a row.
 //     topk_partial_split (split precisions): 384 threads.  One producer
-//     warpgroup fills a ring of four stages, each 64 DB rows x 64 columns
-//     of bf16 hi and lo in the 128-byte-swizzled K-major layout wgmma
-//     reads (a row is 128 bytes, its 16-byte chunk c sits at chunk
-//     c ^ (row % 8); tiles are 1,024-byte aligned): pre-split rows by
-//     16-byte cp.async; f32 rows by loads along the row, split in
-//     registers (one cvt.rn.bf16x2 a pair and half) and stored as packed
-//     bf16x2 words, the loads of the next two stages in flight while the
-//     current one is split.  Two consumer
-//     warpgroups take alternate 64-row DB tiles and multiply them (M = 64
-//     DB rows) by the resident target tile (N = TT targets, bf16 hi and lo
-//     in the same layout) with wgmma, the f32 sums in registers, so one
-//     warpgroup's epilogue runs under the other's products.  Stages are
-//     handed over with mbarriers (full: the producer's 128 arrivals after a
-//     fence.proxy.async, on the barrier of the warpgroup that takes the
-//     tile, so that each group sees every phase of the barriers it waits on
-//     and a parity names one phase; empty: the consumer's 128 after the
-//     wgmma that read the stage completed); a tile's sqn and metadata rows
-//     travel with its last stage.  "split3" runs at TT = 64 (three
-//     accumulators).
+//     warpgroup fills a ring of four stages, each 64 DB rows x 64 columns of
+//     bf16 hi and lo in the 128-byte-swizzled K-major layout wgmma reads (a
+//     row is 128 bytes, its 16-byte chunk c sits at chunk c ^ (row % 8); tiles
+//     are 1,024-byte aligned): pre-split rows by 16-byte cp.async whose
+//     completion itself arrives on the stage's barrier
+//     (cp.async.mbarrier.arrive; the consumer issues the fence.proxy.async);
+//     f32 rows by loads along the row, split in registers (one cvt.rn.bf16x2 a
+//     pair and half) and stored as packed bf16x2 words, the loads of the next
+//     two stages in flight while the current one is split.  Two consumer
+//     warpgroups take alternate 64-row DB tiles and multiply them (M = 64 DB
+//     rows) by the resident target tile (N = TT targets, bf16 hi and lo in the
+//     same layout) with wgmma, the f32 sums in registers, so one warpgroup's
+//     epilogue runs under the other's products.  A tile's first wgmma writes
+//     the sums without reading them, so they are not live across the epilogue,
+//     and the epilogue keeps its values in registers of their own: sums
+//     touched in conditional code make the compiler serialize the wgmma.
+//     Stages are handed over with mbarriers (full: the producer's 128
+//     arrivals, after a fence.proxy.async where it stored the stage itself, on
+//     the barrier of the warpgroup that takes the tile, so that each group
+//     sees every phase of the barriers it waits on and a parity names one
+//     phase; empty: the consumer's 128 after the wgmma that read the stage
+//     completed); a tile's sqn and metadata rows travel with its last stage,
+//     which goes back to the producer as soon as the sqn are in registers
+//     (after the scores in the masked variants).  "split3" runs at TT = 64
+//     (three accumulators).
 //   pass 2 (topk_merge): one warp per target merges the S sorted partial
 //     lists under the same (score, index) order and adds comp (the
 //     zero-transient form only).
@@ -118,8 +126,10 @@
 // (one utterance: 1 to 16 target tiles) as well as at large T.
 //
 // The sparse epilogue.  A finished score is compared in registers with its
-// target's worst kept score (slot k - 1 of the list; `<=`, so a tie still
-// reaches the exact compare) and only the survivors are appended, as
+// target's threshold, the worst kept (score, row) pair (slot k - 1 of the
+// list), under the lists' own order, so that of many rows with one score
+// (padding rows, duplicates) only those pass that can still win; and only
+// the survivors are appended, as
 // (value, target, row), to a queue of QCAP entries in shared memory
 // (QCAP = 1024 in topk_partial, QCAP2 = 512 for each consumer warpgroup of
 // topk_partial_split).  The queue is drained into the lists, each entry
@@ -136,7 +146,13 @@
 // appended again, until none is pending (cold lists at the start of a
 // split, a DB sorted by falling score).  A warm list takes k / rows_seen of
 // a tile's scores, so after the first few tiles a tile adds a handful of
-// entries and the epilogue is 64 compares a thread.  In topk_partial_split
+// entries.  Without masks and with score lists (STREAM, PHASE) the screen is
+// two instructions a score: one fmaf forms it (a row past the split's end
+// has sqn +inf) and one `<=` with the threshold's score is OR-ed into a
+// flag; the threshold's score is the worst kept score but FLT_MAX at most (a
+// +inf score fails) and -inf for a target past T; the mask of the survivors
+// is built, with the exact pair compare, only by the threads whose flag is
+// set.  In topk_partial_split
 // both consumer warpgroups insert into the same lists, so a warpgroup
 // drains its own queue while it holds the CTA's list lock.
 //
@@ -168,11 +184,15 @@
 // Shared memory of pass 1 (partial_smem), one CTA an SM.  "highest":
 // 4 * (TT * kd16 + 3 * 16 * 132 + 3 * 128 + 2 * TT * k) + 12 KB of queue,
 // kd16 = kd rounded up to 16, plus 12 KB + 32 TT of metadata in the masked
-// variants: 177 KB at kd 151, k 40, TT 128; at kd 453 TT 128 would need
-// 232 KB for the targets alone, so TT is 64 there (about 185 KB).  Split
+// variants: 159 KB at kd 151, k 40, TT 128; at kd 453 TT 128 would need
+// 232 KB for the targets alone, so TT is 64 there (about 175 KB).  Split
 // precisions: the target tile 2 * TT * 128 * ceil(kd / 64) bytes (96 KB at
-// kd 151 and TT 128, 128 KB at kd 453 and TT 64), the ring 64 KB, the
-// lists 8 TT k, two queues of 6 KB: 222 KB at kd 151, k 48, TT 128.
+// kd 151 and TT 128, 128 KB at kd 453 and TT 64), the ring 16 KB a stage
+// (four where they fit, two at the least: split_stages), the lists 8 TT k,
+// two queues of 6 KB: 223 KB at kd 151, k 48, TT 128 with four stages.  The
+// ring is what is short: four stages are one tile and a third, so a
+// warpgroup's next tile is fetched only as the other's is consumed, and the
+// latency of L2 is not hidden (PERF.md).
 //
 // Bound: at the config-3 batch shape (65,536 targets x 1,048,576 units x
 // kd = 151) "highest" is 2.1e13 FLOP of FP32 FMA against 640 MB of DB, so
@@ -180,10 +200,13 @@
 // the FMA pipe idle: shared-memory operand traffic (8 x 8 tile), exposed
 // load latency and barriers (the ring), the dense score tile and its idle
 // selection phase (the screen).  The split variants do 3x the products at
-// the bf16 tensor-core rate and are bound by it once wgmma feeds the tensor
-// cores; beside it stand the L2 traffic of the DB stream (each target tile
-// streams the whole operand: halved by TT = 128) and, for f32 rows, the
-// producer's split arithmetic.
+// the bf16 tensor-core rate; with wgmma the products alone run near that
+// rate, and what stands beside them is the L2 stream of the DB (each target
+// tile streams the whole operand: halved by TT = 128; about 390 GB a call,
+// near what L2 delivers in the tensor cores' time), its latency behind a
+// ring of four stages, the epilogue's instructions (the sums live in the
+// register file, so they do not run under the other warpgroup's wgmma for
+// free) and, for f32 rows, the producer's loads and split arithmetic.
 
 #pragma once
 
@@ -345,7 +368,8 @@ __device__ void warp_offer_key(int* lk, int* li, int k, int key, int i, bool ok,
 struct Select {
   float* lv;
   int* li;
-  int* worst;                             // [TT] the screen's thresholds (screen_bits)
+  int2* worst;                            // [TT] the screen's thresholds: (screen_bits of
+                                          //   the worst kept score, or the worst key; its row)
   int* qbits;
   int* qtgt;
   int* qrow;
@@ -416,6 +440,16 @@ __device__ __forceinline__ int screen_bits(float worst) {
   return __float_as_int(fminf(worst, 3.402823466e+38f));
 }
 
+// Does the score v at DB row u pass the screen of a list whose threshold
+// pair is w?  The exact (score, row) order, so that of many rows with one
+// and the same score (padding rows, duplicates) only those pass that can
+// still win.  The pair may be out of date: it is then larger, and lets more
+// through.
+__device__ __forceinline__ bool passes_pair(float v, int u, int2 w) {
+  const float wv = __int_as_float(w.x);
+  return v < wv || (v == wv && u < w.y);
+}
+
 // Does the ranked value (score bits, or a packed key) pass the screen of a
 // list whose threshold (scores) or worst key is `worst`?  Finite scores only; `<=` so that an
 // equal score still reaches the exact (score, row) compare of the drain.
@@ -475,7 +509,7 @@ __device__ void drain_queue(const Select& s, int n, const G& g, int lane) {
         int* ti = s.li + ct * k;
         if (lex_less(v, imin, tv[k - 1], ti[k - 1])) {
           warp_insert(tv, ti, k, v, imin, lane);
-          if (lane == 0) s.worst[ct] = screen_bits(tv[k - 1]);
+          if (lane == 0) s.worst[ct] = make_int2(screen_bits(tv[k - 1]), ti[k - 1]);
         }
         if (lane == src) alive = false;
       }
@@ -492,14 +526,14 @@ __device__ void drain_queue(const Select& s, int n, const G& g, int lane) {
           int* tk = reinterpret_cast<int*>(s.lv) + ct * k;
           if (lex_less(cb, cu, tk[k - 1], ti[k - 1])) {
             warp_insert(tk, ti, k, cb, cu, lane);
-            if (lane == 0) s.worst[ct] = tk[k - 1];
+            if (lane == 0) s.worst[ct] = make_int2(tk[k - 1], ti[k - 1]);
           }
         } else {
           float* tv = s.lv + ct * k;
           const float cv = __int_as_float(cb);
           if (lex_less(cv, cu, tv[k - 1], ti[k - 1])) {
             warp_insert(tv, ti, k, cv, cu, lane);
-            if (lane == 0) s.worst[ct] = screen_bits(tv[k - 1]);
+            if (lane == 0) s.worst[ct] = make_int2(screen_bits(tv[k - 1]), ti[k - 1]);
           }
         }
       }
@@ -563,7 +597,7 @@ __device__ __forceinline__ void sparse_select(const float (&vals)[N],
           const int key = st[j];
           st[j] = KEY_EMPTY;
           // 3 TT entries at most into an empty queue: it cannot overflow
-          if (t0 + t < T && passes<true>(key, s.worst[t])) {
+          if (t0 + t < T && passes<true>(key, s.worst[t].x)) {
             push(s, key, t, block_base + (key & (BLOCK - 1)));
           }
         }
@@ -596,9 +630,11 @@ __device__ __forceinline__ void sparse_select(const float (&vals)[N],
       for (int e = 0; e < N; ++e) {
         if (pend >> e & 1) {
           const int t = t_of(e);
-          const int worst = *reinterpret_cast<volatile int*>(s.worst + t);
-          if (!passes<KEYS>(__float_as_int(vals[e]), worst) ||
-              push(s, __float_as_int(vals[e]), t, u_of(e)) < s.cap) {
+          const long long raw = *reinterpret_cast<volatile long long*>(s.worst + t);
+          const int2 w = make_int2(static_cast<int>(raw), static_cast<int>(raw >> 32));
+          const bool still = KEYS ? passes<true>(__float_as_int(vals[e]), w.x)
+                                  : passes_pair(vals[e], u_of(e), w);
+          if (!still || push(s, __float_as_int(vals[e]), t, u_of(e)) < s.cap) {
             pend &= ~(1ull << e);
           }
         }
@@ -616,7 +652,7 @@ __device__ __forceinline__ void sparse_select(const float (&vals)[N],
 // n_live targets past T); n3 ints of packed3 state all KEY_EMPTY; nq queue
 // counters 0.
 template <int SEL>
-__device__ void init_state(float* lv, int* li, int n_list, int* worst, int n_tgt,
+__device__ void init_state(float* lv, int* li, int n_list, int2* worst, int n_tgt,
                            int n_live, int* sB3, int n3, int* counters, int nq,
                            int tid, int threads) {
   constexpr bool KEYS = SEL == PACKED || SEL == PACKED3;
@@ -626,7 +662,10 @@ __device__ void init_state(float* lv, int* li, int n_list, int* worst, int n_tgt
     li[e] = INT_MAX;
   }
   for (int e = tid; e < n_tgt; e += threads) {
-    worst[e] = KEYS ? KEY_EMPTY : e < n_live ? screen_bits(pos_inf()) : __float_as_int(-pos_inf());
+    worst[e] = make_int2(KEYS ? KEY_EMPTY
+                              : e < n_live ? screen_bits(pos_inf())
+                                           : __float_as_int(-pos_inf()),
+                         INT_MAX);
   }
   if constexpr (SEL == PACKED3) {
     for (int e = tid; e < n3; e += threads) sB3[e] = KEY_EMPTY;
@@ -732,7 +771,7 @@ __device__ __forceinline__ void cp_async_wait() {
 size_t partial_smem_highest(int TT, int kd, int k, bool masked, int sel) {
   const size_t kd16 = static_cast<size_t>((kd + KC1 - 1) / KC1 * KC1);
   return (kd16 * TT + NS1 * KC1 * SD + NS1 * R1 + 2 * static_cast<size_t>(TT) * k) * 4 +
-         (masked ? (NS1 * R1 + TT) * META * 4 : 0) + (3 * QCAP + 4 + TT) * 4 +
+         (masked ? (NS1 * R1 + TT) * META * 4 : 0) + (3 * QCAP + 4 + 2 * TT) * 4 +
          (sel == PACKED3 ? TT * B3 * 4 : 0);
 }
 
@@ -766,8 +805,8 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
                                           // [TT][k] list values or keys
   int* li = reinterpret_cast<int*>(lv + TT * k);        // [TT][k] list rows
   int* queue = li + TT * k;               // 3 x [QCAP], then 4 counters
-  int* sW = queue + 3 * QCAP + 4;         // [TT] the lists' worst values
-  int* sB3 = sW + TT;                     // [TT][B3] if SEL == PACKED3
+  int2* sW = reinterpret_cast<int2*>(queue + 3 * QCAP + 4);   // [TT] thresholds
+  int* sB3 = reinterpret_cast<int*>(sW + TT);                 // [TT][B3] if PACKED3
 
   const int tid = threadIdx.x, lane = tid & 31;
   const CtaGroup grp = {tid, tid >> 5};
@@ -902,8 +941,9 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
       bool hit = false;
 #pragma unroll
       for (int h = 0; h < TM / 4; ++h) {
-        const int4 w4 = *reinterpret_cast<const int4*>(sW + 64 * h + ty * 4);
-        const int w[4] = {w4.x, w4.y, w4.z, w4.w};
+        const int4 wa = *reinterpret_cast<const int4*>(sW + 64 * h + ty * 4);
+        const int4 wb = *reinterpret_cast<const int4*>(sW + 64 * h + ty * 4 + 2);
+        const int w[4] = {wa.x, wa.z, wb.x, wb.z};
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -916,7 +956,7 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
       if (hit) {
 #pragma unroll
         for (int e = 0; e < N; ++e) {
-          const bool ok = acc[e] <= __int_as_float(sW[trow(e >> 3)]);
+          const bool ok = passes_pair(acc[e], base + rrow(e & 7), sW[trow(e >> 3)]);
           pass |= static_cast<unsigned long long>(ok) << e;
         }
       }
@@ -925,7 +965,7 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
       for (int i = 0; i < TM; ++i) {
         const int t = trow(i);
         const bool t_ok = t0 + t < T;
-        const int worst = sW[t];
+        const int2 worst = sW[t];
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int r = rrow(j);
@@ -935,7 +975,9 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
               sDM + (ts * R1 + r) * META, pen);
           const int b = ranked_bits<KEYS>(sc, u, t_ok && u < row_hi);
           acc[i * 8 + j] = __int_as_float(b);
-          const bool ok = SEL == PACKED3 ? b != KEY_EMPTY : passes<KEYS>(b, worst);
+          const bool ok = SEL == PACKED3 ? b != KEY_EMPTY
+                          : KEYS         ? passes<true>(b, worst.x)
+                                         : passes_pair(__int_as_float(b), u, worst);
           pass |= static_cast<unsigned long long>(ok) << (i * 8 + j);
         }
       }
@@ -1170,7 +1212,7 @@ size_t partial_smem_split(int TT, int kd, int k, bool masked, int sel, int ns) {
   const size_t nch = static_cast<size_t>((kd + KC2 - 1) / KC2);
   return 1024 + 2 * nch * TT * 128 + ns * 2 * HALF2 + 3 * NS2 * 8 + 16 +
          ns * R2 * 4 + (masked ? (ns * R2 + TT) * META * 4 : 0) +
-         2 * static_cast<size_t>(TT) * k * 4 + 2 * (3 * QCAP2 + 4) * 4 + TT * 4 +
+         2 * static_cast<size_t>(TT) * k * 4 + 2 * (3 * QCAP2 + 4) * 4 + TT * 8 +
          (sel == PACKED3 ? 2 * TT * B3 * 4 : 0);
 }
 
@@ -1226,8 +1268,8 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
   float* lv = reinterpret_cast<float*>(sTM + (MASKED ? TT * META : 0));
   int* li = reinterpret_cast<int*>(lv + TT * k);
   int* queues = li + TT * k;              // one per consumer warpgroup
-  int* sW = queues + 2 * QINTS;           // [TT] the lists' worst values
-  int* sB3 = sW + TT;                     // [2][TT][B3] if SEL == PACKED3
+  int2* sW = reinterpret_cast<int2*>(queues + 2 * QINTS);     // [TT] thresholds
+  int* sB3 = reinterpret_cast<int*>(sW + TT);                 // [2][TT][B3] if PACKED3
 
   const int tid = threadIdx.x, lane = tid & 31;
   // the warpgroup's index, read from lane 0 so that the compiler knows the
@@ -1463,20 +1505,21 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
         bool hit = false;
 #pragma unroll
         for (int j = 0; j < N / 4; ++j) {
-          const int2 w = *reinterpret_cast<const int2*>(sW + 8 * j + 2 * q4);
+          const int4 w = *reinterpret_cast<const int4*>(sW + 8 * j + 2 * q4);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int e = 4 * j + i;
             float cross = acc[0][e];
             if constexpr (NACC == 3) cross = (acc[0][e] + acc[1][e]) + acc[2][e];
             vals[e] = fmaf(-2.f, cross, sq[i >> 1]);
-            hit |= vals[e] <= __int_as_float(i & 1 ? w.y : w.x);
+            hit |= vals[e] <= __int_as_float(i & 1 ? w.z : w.x);
           }
         }
         if (hit) {
 #pragma unroll
           for (int e = 0; e < N; ++e) {
-            const bool ok = vals[e] <= __int_as_float(sW[(e >> 2) * 8 + 2 * q4 + (e & 1)]);
+            const bool ok = passes_pair(vals[e], base + r0 + 8 * ((e >> 1) & 1),
+                                        sW[(e >> 2) * 8 + 2 * q4 + (e & 1)]);
             pass |= static_cast<unsigned long long>(ok) << e;
           }
         }
@@ -1493,8 +1536,10 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
               sDM + (slot * R2 + r0 + 8 * h) * META, pen);
           const int b = ranked_bits<KEYS>(sc, u, t0 + t < T && u < row_hi);
           vals[e] = __int_as_float(b);
-          const int worst = sW[t];
-          const bool ok = SEL == PACKED3 ? b != KEY_EMPTY : passes<KEYS>(b, worst);
+          const int2 worst = sW[t];
+          const bool ok = SEL == PACKED3 ? b != KEY_EMPTY
+                          : KEYS         ? passes<true>(b, worst.x)
+                                         : passes_pair(__int_as_float(b), u, worst);
           pass |= static_cast<unsigned long long>(ok) << e;
         }
       }

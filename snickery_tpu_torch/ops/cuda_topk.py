@@ -72,15 +72,25 @@ sides describe themselves with one int32 row of :data:`META_WIDTH` columns,
 score reaches (a voice with fewer than k rows) reads (+inf, index 0), the
 Pallas contract.
 
-Cost on Hopper (either form): at the config-3 batch shape (65,536 target rows x 1,048,576
-units x kd = 151) one "highest" call is about 2.1e13 FLOP, done as FP32 FMAs
-on the CUDA cores, so the kernel is bound by FP32 FMA throughput; the DB
-block (about 640 MB) is read once per group of target tiles resident
-together, the rest of its reads hitting L2.  The split precisions do three
-times the products on the bf16 tensor cores, where the DB staging and the
-selection bound them instead.  The fused masks add 8 integer compares per
-score against metadata staged in shared memory beside the tile, small
-beside the kd FMAs behind each score.
+Cost on Hopper (either form), and what the kernels do about it
+(``csrc/topk_preselect.cuh`` has the details): at the config-3 batch shape
+(65,536 target rows x 1,048,576 units x kd = 151) one "highest" call is about
+2.1e13 FLOP of FP32 FMAs on the CUDA cores, so it is bound by their rate.
+Pass 1 gives a CTA 128 targets (64 where 128 do not fit in shared memory)
+and streams its DB split in 128-row tiles through a three-stage ``cp.async``
+ring; each thread keeps an 8 x 8 register tile, every score is one ascending
+``fmaf`` chain over the columns.  The split precisions do three times the
+products on the bf16 tensor cores with ``wgmma`` (64 DB rows x 128 or 64
+targets a step) from a ring that one producer warpgroup fills for two
+consumer warpgroups; there the DB stream from L2 behind a ring of four
+stages, and for f32 rows the producer's loads and split arithmetic, stand
+beside the tensor cores' time.  Neither kernel writes its scores anywhere:
+a score is compared in registers with its target's threshold (the worst kept
+score) and only the survivors are queued and inserted into the k-slot lists
+(:data:`MAX_K` slots at most); ``tests/test_torch_screen.py`` models that
+epilogue.  The fused masks add 8 integer compares per score against
+metadata that rides in the ring beside the tile.  The DB is cut into splits
+(:func:`split_plan`) so that small T fills the card as well.
 
 :func:`cuda_topk_preselect` dispatches on the DB tensor's device: a CUDA
 tensor goes through the kernel, a CPU tensor through the plain twin, and
@@ -126,8 +136,9 @@ LAUNCH_COUNTS: collections.Counter = collections.Counter()
 _LOCK = threading.Lock()
 MAX_K = 64                 # list slots the kernel keeps per target
 SMEM_LIMIT = 227 * 1024    # shared memory a block may use on the card
-_TARGET_CTAS_PER_SM = 4    # one resident CTA per SM, four waves at the least
-MIN_SPLIT_ROWS = 8192      # DB rows of a split, at the least (split_plan)
+_MAX_WAVES = 4             # split_plan looks no further than this many waves of CTAs
+MIN_SPLIT_ROWS = 1024      # DB rows of a split, at the least (split_plan)
+COLD_ROWS = 2048           # what a CTA's start costs, in DB rows at kd 151 (split_plan)
 
 
 def kernel_name(partition: bool, linguistic: bool, precision: str = "highest",
@@ -557,20 +568,31 @@ def _bound_library():
     return lib
 
 
+@functools.lru_cache(maxsize=512)
 def split_plan(T: int, m_rows: int, n_sm: int, tile_rows: int,
-               db_tile_rows: int) -> tuple[int, int]:
-    """(splits S, rows per split) for the kernel's first pass: enough
-    (target tile x DB split) blocks to fill ``n_sm`` SMs, each split a
-    whole number of DB tiles and none empty, and no split shorter than
-    :data:`MIN_SPLIT_ROWS` while the DB has that many rows: every block
-    starts with empty lists, which take the first rows it sees whatever
-    their scores, so a short split is all start-up."""
+               db_tile_rows: int, cold_rows: int = COLD_ROWS) -> tuple[int, int]:
+    """(splits S, rows per split) for the kernel's first pass, which runs
+    one CTA an SM on a grid of (target tiles) x S: each split a whole number
+    of DB tiles, none empty, and none shorter than :data:`MIN_SPLIT_ROWS`
+    while the DB has that many rows.  Every CTA starts with empty lists,
+    which take the first rows it sees whatever their scores, and that start
+    costs about what ``cold_rows`` rows of the stream cost.  So S is the one
+    that makes ``waves x (rows per split + cold_rows)`` least, ``waves`` the
+    number of rounds the card needs for the grid: one full wave where the
+    target tiles alone do not fill the card, and no needless splits where
+    they do."""
     n_tiles = -(-T // tile_rows)
-    want = -(-_TARGET_CTAS_PER_SM * n_sm // n_tiles)
-    splits = max(1, min(want, -(-m_rows // db_tile_rows), m_rows // MIN_SPLIT_ROWS))
-    rows = -(-m_rows // splits)
-    rows = -(-rows // db_tile_rows) * db_tile_rows
-    return -(-m_rows // rows), rows
+    most = max(1, min(-(-m_rows // db_tile_rows), m_rows // MIN_SPLIT_ROWS,
+                      -(-_MAX_WAVES * n_sm // n_tiles)))
+    best = None
+    for want in range(1, most + 1):
+        rows = -(-m_rows // want)
+        rows = -(-rows // db_tile_rows) * db_tile_rows
+        splits = -(-m_rows // rows)
+        cost = -(-n_tiles * splits // n_sm) * (rows + cold_rows)
+        if best is None or cost < best[0]:
+            best = (cost, splits, rows)
+    return best[1], best[2]
 
 
 def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
@@ -638,7 +660,8 @@ def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     splits, rows = split_plan(
         T, m_rows, n_sm, lib.snk_topk_tile_rows(kd, k, int(masked), prec_code, sel_code, T),
-        BLOCK_ROWS if three else lib.snk_topk_db_tile_rows(prec_code))
+        BLOCK_ROWS if three else lib.snk_topk_db_tile_rows(prec_code),
+        max(256, COLD_ROWS * 151 // kd))
     if zero_transient:
         t2, extra = _prescale(targets, db_affine)      # the third pointer: comp
         t2 = t2.contiguous()

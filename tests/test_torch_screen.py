@@ -3,8 +3,8 @@ numpy, against the plain twin's exact selection.
 
 The kernels (``snickery_tpu_torch/csrc/topk_preselect.cuh``) no longer offer
 every score of a tile to the k-slot lists.  A finished score is compared
-with its target's worst kept score (``<=``, so that a tie still reaches the
-exact (score, row) compare) and only the survivors go to a bounded queue,
+with its target's worst kept score (``<=`` in the cheap test, the exact
+(score, row) order where that hits) and only the survivors go to a bounded queue,
 which the warps drain in whatever order the entries landed; entries that
 find the queue full stay pending, are screened again against the lowered
 worst and queued again, until none is left.  That is exact only if the
@@ -28,10 +28,12 @@ from snickery_tpu_torch.ops import cuda_topk
 INT_MAX = np.iinfo(np.int32).max
 
 
-def screened_topk(scores, k, tile_rows, cap, seed, stale=False, splits=1):
+def screened_topk(scores, k, tile_rows, cap, seed, stale=False, splits=1, pair=False):
     """(ids (T, k) int32, values (T, k) f32) of the model: per DB split a
     list of k (score, row) pairs a target, (+inf, INT_MAX) when empty; the
-    splits' lists merged under the same order; dead slots read (+inf, 0)."""
+    splits' lists merged under the same order; dead slots read (+inf, 0).
+    ``pair``: the screen compares (score, row) with the worst kept pair, as
+    the kernels do, instead of ``score <= worst score``."""
     rng = np.random.default_rng(seed)
     T, M = scores.shape
     rows_per_split = -(-M // splits)
@@ -40,6 +42,7 @@ def screened_topk(scores, k, tile_rows, cap, seed, stale=False, splits=1):
         lv = np.full((T, k), np.inf, np.float32)
         li = np.full((T, k), INT_MAX, np.int64)
         seen = lv[:, k - 1].copy()          # the worst scores the screen reads
+        seen_i = li[:, k - 1].copy()        # and their rows
 
         def insert(t, v, u):
             if not (v < lv[t, k - 1] or (v == lv[t, k - 1] and u < li[t, k - 1])):
@@ -52,9 +55,16 @@ def screened_topk(scores, k, tile_rows, cap, seed, stale=False, splits=1):
         for r0 in range(lo, hi, tile_rows):
             tile = scores[:, r0:min(r0 + tile_rows, hi)]
             worst = seen if stale else lv[:, k - 1]
-            tt, rr = np.nonzero(np.isfinite(tile) & (tile <= worst[:, None]))
+            worst_i = seen_i if stale else li[:, k - 1]
+            if pair:
+                rows = np.arange(r0, r0 + tile.shape[1])[None, :]
+                ok = (tile < worst[:, None]) | ((tile == worst[:, None])
+                                                & (rows < worst_i[:, None]))
+            else:
+                ok = tile <= worst[:, None]
+            tt, rr = np.nonzero(np.isfinite(tile) & ok)
             pending = [(int(t), float(tile[t, r]), r0 + int(r)) for t, r in zip(tt, rr)]
-            seen = lv[:, k - 1].copy()
+            seen, seen_i = lv[:, k - 1].copy(), li[:, k - 1].copy()
             while pending:
                 order = rng.permutation(len(pending))
                 queue = [pending[i] for i in order[:cap]]
@@ -62,7 +72,9 @@ def screened_topk(scores, k, tile_rows, cap, seed, stale=False, splits=1):
                 for t, v, u in queue:
                     insert(t, np.float32(v), u)
                 # what did not fit is screened again, against the lowered worst
-                pending = [(t, v, u) for t, v, u in rest if v <= lv[t, k - 1]]
+                pending = [(t, v, u) for t, v, u in rest
+                           if v < lv[t, k - 1] or (v == lv[t, k - 1]
+                                                   and (u < li[t, k - 1] or not pair))]
         lists.append((lv, li))
     lv = np.concatenate([a for a, _ in lists], 1)
     li = np.concatenate([b for _, b in lists], 1)
@@ -104,10 +116,11 @@ def make_scores(kind, T, M, seed):
 KINDS = ["random", "ties", "duplicates", "inf_rows", "falling", "rising", "identical"]
 
 
+@pytest.mark.parametrize("pair", [False, True], ids=["score", "pair"])
 @pytest.mark.parametrize("stale", [False, True], ids=["fresh", "stale"])
 @pytest.mark.parametrize("cap", [3, 16, 10 ** 6], ids=["cap3", "cap16", "no_overflow"])
 @pytest.mark.parametrize("kind", KINDS)
-def test_screened_epilogue_is_the_exact_topk(kind, cap, stale):
+def test_screened_epilogue_is_the_exact_topk(kind, cap, stale, pair):
     """Tiles offered in turn, survivors drained in a shuffled order and in
     parts when the queue overflows: exactly the twin's ids and scores."""
     T, M, k = 9, 157, 6
@@ -116,7 +129,7 @@ def test_screened_epilogue_is_the_exact_topk(kind, cap, stale):
     for seed in range(3):
         for splits in (1, 3):
             got_i, got_v = screened_topk(scores, k, tile_rows=16, cap=cap, seed=seed,
-                                         stale=stale, splits=splits)
+                                         stale=stale, splits=splits, pair=pair)
             np.testing.assert_array_equal(got_i, want_i)
             np.testing.assert_array_equal(got_v, want_v)
 
@@ -137,9 +150,9 @@ def test_screen_lets_through_what_its_name_says(kind):
 @given(T=st.integers(1, 5), M=st.integers(1, 70), k=st.integers(1, 8),
        tile=st.sampled_from([1, 4, 16]), cap=st.integers(1, 40), splits=st.integers(1, 4),
        levels=st.integers(1, 6), inf_share=st.sampled_from([0.0, 0.3, 0.9]),
-       stale=st.booleans(), seed=st.integers(0, 2 ** 16))
+       stale=st.booleans(), pair=st.booleans(), seed=st.integers(0, 2 ** 16))
 def test_screened_epilogue_hypothesis(T, M, k, tile, cap, splits, levels, inf_share, stale,
-                                      seed):
+                                      pair, seed):
     """Small shapes with few score levels (ties everywhere), masked rows,
     any queue size, any number of splits, any drain order."""
     k = min(k, M)
@@ -148,7 +161,7 @@ def test_screened_epilogue_hypothesis(T, M, k, tile, cap, splits, levels, inf_sh
     scores[rng.random((T, M)) < inf_share] = np.inf
     want_i, want_v = twin_topk(scores, k)
     got_i, got_v = screened_topk(scores, k, tile, cap, seed, stale=stale,
-                                 splits=min(splits, M))
+                                 splits=min(splits, M), pair=pair)
     np.testing.assert_array_equal(got_i, want_i)
     np.testing.assert_array_equal(got_v, want_v)
 
