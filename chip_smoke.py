@@ -119,7 +119,19 @@ Phases, each timed, any failure ending the run with a non-zero exit:
     kernel of the same run; the overflow count on the voice and on a copy
     with planted runs of 6 near-duplicates; at "highest" the packed
     top-(30 + margin) must hold the stream top-30 of every target (these
-    checks run inside phases 5 and 10).
+    checks run inside phases 5 and 10);
+25. the edges of the kernels' tiles and of their screened epilogue
+    (``kernel_check.EDGE_CASES``) against the twins at "highest" and
+    split3cat in both operand forms: target and DB row counts that are no
+    multiples of a tile over one split and several, kd 453 at k 64 (the
+    narrower target tile), scores that fall with the row index (every score
+    passes the screen and the survivor queue overflows on every tile) and
+    that rise (nothing passes after the first k rows), bit-identical rows
+    (the lowest k indices must win) and a starved voice (this check runs
+    after phase 22's);
+26. the SHA-256 of the "highest" kernels' ids and scores on the seeded
+    65,536 x 1,048,578 case of ``snickery_tpu_torch.kernel_ab``, printed
+    beside the digests of the kernels' first design.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after; the kernel it needs must have launched.  Standard output ends

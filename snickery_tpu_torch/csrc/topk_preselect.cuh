@@ -98,7 +98,7 @@
 //     row is 128 bytes, its 16-byte chunk c sits at chunk c ^ (row % 8); tiles
 //     are 1,024-byte aligned): pre-split rows by 16-byte cp.async whose
 //     completion itself arrives on the stage's barrier
-//     (cp.async.mbarrier.arrive; the consumer issues the fence.proxy.async);
+//     (cp.async.mbarrier.arrive; the consumer makes the fence.proxy.async);
 //     f32 rows by loads along the row, split in registers (one cvt.rn.bf16x2 a
 //     pair and half) and stored as packed bf16x2 words, the loads of the next
 //     two stages in flight while the current one is split.  Two consumer
@@ -129,30 +129,29 @@
 // target's threshold, the worst kept (score, row) pair (slot k - 1 of the
 // list), under the lists' own order, so that of many rows with one score
 // (padding rows, duplicates) only those pass that can still win; and only
-// the survivors are appended, as
-// (value, target, row), to a queue of QCAP entries in shared memory
-// (QCAP = 1024 in topk_partial, QCAP2 = 512 for each consumer warpgroup of
-// topk_partial_split).  The queue is drained into the lists, each entry
-// inserted by the warp that owns its target under the exact (score, index)
-// order, only when it is half full, when an entry found it full, or after
-// the last tile; a tile that drains nothing costs one barrier.  The exact
-// top-k under a total order does not depend on the order of insertion, and
-// a pair of the final top-k beats every worst pair its list ever had, so it
-// passes the screen whenever it is computed, against a worst value that is
-// out of date too (it is larger and only lets more through): the result is
-// that of offering every score.  Overflow rule: an entry that finds the
-// queue full stays pending in its thread's registers; the queue is drained,
-// the pending scores are screened again against the lowered worst and
-// appended again, until none is pending (cold lists at the start of a
-// split, a DB sorted by falling score).  A warm list takes k / rows_seen of
-// a tile's scores, so after the first few tiles a tile adds a handful of
-// entries.  Without masks and with score lists (STREAM, PHASE) the screen is
-// two instructions a score: one fmaf forms it (a row past the split's end
-// has sqn +inf) and one `<=` with the threshold's score is OR-ed into a
-// flag; the threshold's score is the worst kept score but FLT_MAX at most (a
-// +inf score fails) and -inf for a target past T; the mask of the survivors
-// is built, with the exact pair compare, only by the threads whose flag is
-// set.  In topk_partial_split
+// the survivors are appended, as (value, target, row), to a queue of QCAP
+// entries in shared memory (QCAP = 1024 in topk_partial, QCAP2 = 512 for
+// each consumer warpgroup of topk_partial_split).  The queue is drained into
+// the lists, each entry inserted by the warp that owns its target under the
+// exact (score, index) order, only when it is half full, when an entry found
+// it full, or after the last tile; a tile that drains nothing costs one
+// barrier.  The exact top-k under a total order does not depend on the
+// order of insertion, and a pair of the final top-k beats every worst pair
+// its list ever had, so it passes the screen whenever it is computed,
+// against a worst value that is out of date too (it is larger and only lets
+// more through): the result is that of offering every score.  Overflow
+// rule: an entry that finds the queue full stays pending in its thread's
+// registers; the queue is drained, the pending scores are screened again
+// against the lowered worst and appended again, until none is pending (cold
+// lists at the start of a split, a DB sorted by falling score).  A warm
+// list takes k / rows_seen of a tile's scores, so after the first few tiles
+// a tile adds a handful of entries.  Without masks and with score lists
+// (STREAM, PHASE) the screen is two instructions a score: one fmaf forms it
+// (a row past the split's end has sqn +inf) and one `<=` with the
+// threshold's score is OR-ed into a flag; the threshold's score is the
+// worst kept score but FLT_MAX at most (a +inf score fails) and -inf for a
+// target past T; the mask of the survivors is built, with the exact pair
+// compare, only by the threads whose flag is set.  In topk_partial_split
 // both consumer warpgroups insert into the same lists, so a warpgroup
 // drains its own queue while it holds the CTA's list lock.
 //
@@ -360,11 +359,10 @@ __device__ void warp_offer_key(int* lk, int* li, int k, int key, int i, bool ok,
 
 // ---------------------------------------------------------------- selection
 // What the sparse epilogue of one group of threads works on: the CTA's
-// lists (values or keys, and rows; the worst kept value of each once more
+// lists (values or keys, and rows; the worst kept pair of each once more
 // in an array of its own, which the screen reads free of bank conflicts),
-// the group's queue (ranked value bits,
-// target of the tile, DB row; one count) and, for PACKED3,
-// the group's per-target block state [TT][B3].
+// the group's queue (ranked value bits, target of the tile, DB row; one
+// count) and, for PACKED3, the group's per-target block state [TT][B3].
 struct Select {
   float* lv;
   int* li;
@@ -376,8 +374,7 @@ struct Select {
   int* qcount;
   int* sB3;
   int k;
-  int cap;                                // queue entries
-  int drain_at;                           // entries at which the queue is drained
+  int cap;                                // queue entries; drained when half full
 };
 
 // The group that runs an epilogue together.  topk_partial: the whole CTA;
@@ -450,17 +447,11 @@ __device__ __forceinline__ bool passes_pair(float v, int u, int2 w) {
   return v < wv || (v == wv && u < w.y);
 }
 
-// Does the ranked value (score bits, or a packed key) pass the screen of a
-// list whose threshold (scores) or worst key is `worst`?  Finite scores only; `<=` so that an
-// equal score still reaches the exact (score, row) compare of the drain.
-template <bool KEYS>
-__device__ __forceinline__ bool passes(int bits, int worst) {
-  if constexpr (KEYS) {
-    return bits != KEY_EMPTY && bits <= worst;
-  } else {
-    const float v = __int_as_float(bits);
-    return v < pos_inf() && v <= __int_as_float(worst);
-  }
+// Does the packed key pass the screen of a list whose worst key is `worst`?
+// `<=` so that an equal key still reaches the exact (key, row) compare of
+// the drain.
+__device__ __forceinline__ bool passes_key(int key, int worst) {
+  return key != KEY_EMPTY && key <= worst;
 }
 
 // Append one entry and return its slot; at slot >= cap the queue was full and
@@ -559,8 +550,7 @@ __device__ __forceinline__ void insert3(int* s, int x) {
 // where vals[e] passed the screen against its list's worst value (for
 // PACKED3: where it is a key at all); t_of(e), u_of(e): its target in the
 // tile and its DB row.  The survivors are appended to the group's queue,
-// which is drained into the lists only when it holds drain_at entries or
-// more, when an entry found it full, or with `flush` (the group's last
+// which is drained into the lists only when it is half full, when an entry found it full, or with `flush` (the group's last
 // tile): until then the screen reads worst values that are out of date,
 // which are larger and only let more through.  A tile that drains nothing
 // costs one barrier.  block_ends, block_base (PACKED3): the tile closes the
@@ -597,7 +587,7 @@ __device__ __forceinline__ void sparse_select(const float (&vals)[N],
           const int key = st[j];
           st[j] = KEY_EMPTY;
           // 3 TT entries at most into an empty queue: it cannot overflow
-          if (t0 + t < T && passes<true>(key, s.worst[t].x)) {
+          if (t0 + t < T && passes_key(key, s.worst[t].x)) {
             push(s, key, t, block_base + (key & (BLOCK - 1)));
           }
         }
@@ -611,7 +601,7 @@ __device__ __forceinline__ void sparse_select(const float (&vals)[N],
         if (pass >> e & 1) {
           const int slot = push(s, __float_as_int(vals[e]), t_of(e), u_of(e));
           if (slot >= s.cap) pend |= 1ull << e;
-          due |= slot + 1 >= s.drain_at;
+          due |= slot + 1 >= s.cap / 2;
         }
       }
     }
@@ -632,7 +622,7 @@ __device__ __forceinline__ void sparse_select(const float (&vals)[N],
           const int t = t_of(e);
           const long long raw = *reinterpret_cast<volatile long long*>(s.worst + t);
           const int2 w = make_int2(static_cast<int>(raw), static_cast<int>(raw >> 32));
-          const bool still = KEYS ? passes<true>(__float_as_int(vals[e]), w.x)
+          const bool still = KEYS ? passes_key(__float_as_int(vals[e]), w.x)
                                   : passes_pair(vals[e], u_of(e), w);
           if (!still || push(s, __float_as_int(vals[e]), t, u_of(e)) < s.cap) {
             pend &= ~(1ull << e);
@@ -753,7 +743,7 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 
 // One arrival on the mbarrier, made when every cp.async this thread has
-// issued so far has completed; counted among the barrier's expected arrivals.
+// started so far has completed; counted among the barrier's expected arrivals.
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
                    static_cast<uint32_t>(__cvta_generic_to_shared(bar)))
@@ -811,7 +801,7 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
   const int tid = threadIdx.x, lane = tid & 31;
   const CtaGroup grp = {tid, tid >> 5};
   const Select sel = {lv, li, sW, queue, queue + QCAP, queue + 2 * QCAP,
-                      queue + 3 * QCAP, sB3, k, QCAP, QCAP / 2};
+                      queue + 3 * QCAP, sB3, k, QCAP};
   const int t0 = blockIdx.x * TT;
   const int split = blockIdx.y;
   const int row_lo = split * rows_per_split;
@@ -838,7 +828,7 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
   // copies column (i / 4) * 8 + tid % 8 of rows tid / 8 + 32 * (i % 4),
   // i = 0..7; the tile's sqn (and metadata rows) go with its first stage
   // into slot jt % NS1 of their own rings.
-  auto issue = [&](int jt, int ck, int slot) {
+  auto fill = [&](int jt, int ck, int slot) {
     const int base = row_lo + jt * R1;
     const int c0 = ck * KC1;
     float* buf = sD + slot * KC1 * SD;
@@ -870,11 +860,11 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
     }
   };
 
-  // the ring runs NS1 - 1 stages ahead: (ij, ik) is the next stage to issue
+  // the ring runs NS1 - 1 stages ahead: (ij, ik) is the next stage to fill
   int ij = 0, ik = 0, is = 0;
-  auto issue_next = [&]() {
+  auto fill_next = [&]() {
     if (is < n_stages) {
-      issue(ij, ik, is % NS1);
+      fill(ij, ik, is % NS1);
       if (++ik == nk) {
         ik = 0;
         ++ij;
@@ -884,7 +874,7 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
     cp_async_commit();                    // one group a stage, empty past the end
   };
 #pragma unroll
-  for (int s = 0; s < NS1 - 1; ++s) issue_next();
+  for (int s = 0; s < NS1 - 1; ++s) fill_next();
 
   const int tx = tid & 15, ty = tid >> 4;
   auto trow = [&](int i) { return i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4); };
@@ -894,7 +884,7 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
   for (int s = 0; s < n_stages; ++s) {
     cp_async_wait<NS1 - 2>();             // this thread's part of stage s landed
     __syncthreads();                      // everyone's did; stage s - 1 is consumed
-    issue_next();                         // into the slot of stage s - 1
+    fill_next();                          // into the slot of stage s - 1
     if (ck == 0) {
 #pragma unroll
       for (int i = 0; i < TM; ++i)
@@ -976,7 +966,7 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
           const int b = ranked_bits<KEYS>(sc, u, t_ok && u < row_hi);
           acc[i * 8 + j] = __int_as_float(b);
           const bool ok = SEL == PACKED3 ? b != KEY_EMPTY
-                          : KEYS         ? passes<true>(b, worst.x)
+                          : KEYS         ? passes_key(b, worst.x)
                                          : passes_pair(__int_as_float(b), u, worst);
           pass |= static_cast<unsigned long long>(ok) << (i * 8 + j);
         }
@@ -1207,7 +1197,8 @@ __device__ __forceinline__ int swizzled_word(int r, int w) {
 }
 
 // Bytes of shared memory topk_partial_split<TT> needs with a ring of ns
-// stages (1,024 of them to align the tiles); the kernel carves the same regions in the same order.
+// stages (1,024 of them to align the tiles); the kernel carves the same
+// regions in the same order.
 size_t partial_smem_split(int TT, int kd, int k, bool masked, int sel, int ns) {
   const size_t nch = static_cast<size_t>((kd + KC2 - 1) / KC2);
   return 1024 + 2 * nch * TT * 128 + ns * 2 * HALF2 + 3 * NS2 * 8 + 16 +
@@ -1438,7 +1429,7 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
     const WarpGroup grp = {wtid, wwarp, wg, mutex};
     int* q = queues + wg * QINTS;
     const Select sel = {lv, li, sW, q, q + QCAP2, q + 2 * QCAP2, q + 3 * QCAP2,
-                        sB3 + wg * TT * B3, k, QCAP2, QCAP2 / 2};
+                        sB3 + wg * TT * B3, k, QCAP2};
     const int g8 = lane >> 2, q4 = lane & 3;
     const int r0 = wwarp * 16 + g8;       // this thread's DB rows: r0, r0 + 8
     float acc[NACC][N];
@@ -1450,7 +1441,7 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
       // One stage: all four 16-column steps of its 64 columns, whatever kd
       // (the columns past kd are zero on both sides and add exact zeros;
       // with a step count that depends on kd the compiler takes the wgmma
-      // for conditional and waits for each where it is issued).  first: the
+      // for conditional and waits for each where it is started).  first: the
       // tile's first stage, whose first step starts the sums.
       auto stage = [&](int c, auto first) {
         constexpr bool FIRST = decltype(first)::value;
@@ -1491,7 +1482,7 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
       // scores and screen; sqn and metadata rows lie with the last stage
       // (the ranked values get registers of their own: the sums stay
       // untouched outside this straight-line code, or the compiler would
-      // wait for every wgmma where it is issued)
+      // wait for every wgmma where it is started)
       unsigned long long pass = 0;
       float vals[N];
       float sq[2] = {sSqn[slot * R2 + r0], sSqn[slot * R2 + r0 + 8]};
@@ -1538,7 +1529,7 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
           vals[e] = __int_as_float(b);
           const int2 worst = sW[t];
           const bool ok = SEL == PACKED3 ? b != KEY_EMPTY
-                          : KEYS         ? passes<true>(b, worst.x)
+                          : KEYS         ? passes_key(b, worst.x)
                                          : passes_pair(__int_as_float(b), u, worst);
           pass |= static_cast<unsigned long long>(ok) << e;
         }

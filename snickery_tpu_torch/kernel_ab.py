@@ -1,5 +1,5 @@
 """Times and checksums of the stream preselect kernels at the main-path
-shapes, for comparing two trees of this package on one card in one session.
+shapes, for comparing two trees of this package on one card in one run.
 
     python -m snickery_tpu_torch.kernel_ab [--label NAME] [--reps 3] [--out FILE]
 
