@@ -131,7 +131,24 @@ Phases, each timed, any failure ending the run with a non-zero exit:
     after phase 22's);
 26. the SHA-256 of the "highest" kernels' ids and scores on the seeded
     65,536 x 1,048,578 case of ``snickery_tpu_torch.kernel_ab``, printed
-    beside the digests of the kernels' first design.
+    beside the digests of the kernels' first design;
+27. voice building, natural synthesis, resynthesis and the quality report:
+    64 speech-like utterances of 6 s (``synthetic_voices.synth_utterance``,
+    about 49,000 epoch units; mag 60, real 45, imag 45, lf0 1) and a
+    held-out one as 16 kHz wavs; the port's native epoch library must load;
+    ``python -m snickery_tpu_torch.cli train --device cuda`` in a subprocess
+    (its stage split); ``magphase_analysis`` and ``world_analysis`` at
+    120,000 epochs x 1,024-point frames (the corpus joined with 2,048-sample
+    gaps and repeated), timed, held to the port's CPU analysis of the same
+    frames and, by rules (a) and (b), to a float64 numpy analysis of the
+    first 4,096 epochs (``tests/analysis64.py``); natural-mode ``synth`` of
+    a training and the held-out utterance (the preselect kernel, counted,
+    then held to its twin on both utterances' targets): the training
+    utterance comes back as its own units, each run of them its corpus audio
+    sample for sample; ``resynth_magphase`` of those units correlates above
+    0.90 with the original on the resynthesis epoch grid; ``python -m
+    snickery_tpu_torch.cli evaluate`` (subprocess): strict JSON, copy MCD
+    below 0.5 dB, every held-out field finite.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after; the kernel it needs must have launched.  Standard output ends
@@ -145,8 +162,10 @@ from __future__ import annotations
 
 import argparse
 import base64
+import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -1893,6 +1912,337 @@ def cli_phase(run: Run, db, synth5, feats):
     log("CLI: 8 of 8 units.npy equal a direct synth_batch")
 
 
+# ------------------------------------------------- voice building (analysis)
+VOICE_UTTS = 64          # BASELINE config #1's size: 64 x 6 s, ~6.4 min of 16 kHz speech
+VOICE_SEED = 7000        # the corpus seeds 7000..7063; 7999 is held out
+VOICE_MIN_UNITS = 40_000     # about 760 epoch units an utterance
+ANALYSIS_EPOCHS = 120_000    # bench.py's bulk_analyse group: 120,000 x 1,024-point frames
+ANALYSIS_REF_EPOCHS = 4096   # the float64 numpy reference's slice of it
+PCM_ATOL = 1.5 / 32768.0     # wavs are 16-bit PCM of audio equal to f32 rounding
+STAGE_LINE = re.compile(r"\btrain (\w+)\s+([\d.]+s) \(n=\d+\)")
+VOICE_MIN_COVERED = 0.9      # share of the copy's samples held to the corpus spans
+
+
+def natural_copy_checks(db, ids, audio, wav, taper: int):
+    """Natural synthesis of a corpus utterance reconstructs it: the ids are
+    its consecutive units, except where the search took a feature-identical
+    twin (the preselection ranks equal rows by index), which must be an
+    all-silent unit standing for an all-silent one; the audio equals the
+    float64 overlap-add of the ids to f32 rounding (the written wav to PCM
+    rounding).  Over the whole utterance, each run of its own units equals
+    its corpus span sample for sample and each twin is silent (the output
+    offset by the twins' lengths, which may differ from the units' they
+    stand for), all but the crossfades at the ends of runs, which must
+    leave at least VOICE_MIN_COVERED of the samples checked.  Returns (the
+    corpus span from the first unit, as long as the audio; the number of
+    twins; the share of samples checked; the largest distance there; the
+    audio's distance from the overlap-add)."""
+    from snickery_tpu_torch.oracle import overlap_add
+    natural = ids[0] + np.arange(len(ids))
+    twin = ids != natural
+    check(bool((db.utt_index[ids] == db.utt_index[ids[0]]).all()),
+          "the ids reach into other utterances")
+    check(db.unit_features[ids].tobytes() == db.unit_features[natural].tobytes(),
+          "the ids are neither consecutive units nor feature-identical twins")
+    cut = db.cutpoints
+    for j in np.nonzero(twin)[0]:
+        for u in (ids[j], natural[j]):
+            check(not np.any(db.waves[cut[u, 0]:cut[u, 2]]), f"twin unit {u} is not silent")
+    ola = overlap_add(np.asarray(db.waves, np.float64), cut[ids, 1], cut[ids, 2], taper)
+    check(len(audio) == len(wav) == len(ola), "audio lengths differ")
+    ola_err = float(np.abs(audio - ola).max())
+    check(ola_err <= 1e-5 and float(np.abs(wav - ola).max()) <= PCM_ATOL,
+          f"audio differs from the overlap-add of its ids by {ola_err}")
+    # the output sample of each unit's first corpus sample; the runs of the
+    # utterance's own units and each twin alone (what follows a twin in the
+    # corpus need not be silent), each compared away from the crossfades
+    off = taper + np.concatenate([[0], np.cumsum(cut[ids, 2] - cut[ids, 1])])
+    t = np.nonzero(twin)[0]
+    ends = np.unique(np.concatenate([[0, len(ids)], t, t + 1]))
+    span_err, covered = 0.0, 0
+    for a, b in zip(ends[:-1], ends[1:]):
+        lo, hi = int(off[a]) + taper, int(off[b]) - taper
+        if hi <= lo:
+            continue
+        want = (np.zeros(hi - lo) if twin[a] else
+                db.waves[int(cut[ids[a], 1]) + taper:int(cut[ids[b - 1], 2]) - taper])
+        span_err = max(span_err, float(np.abs(audio[lo:hi] - want).max()))
+        covered += hi - lo
+    share = covered / len(audio)
+    check(span_err <= 1e-5, f"audio differs from its corpus spans by {span_err}")
+    check(share >= VOICE_MIN_COVERED, f"the span check covers {share:.3f} of the audio")
+    ref = tests_module("toycorpus").copy_reference(db, ids, taper, len(audio))
+    return ref, int(twin.sum()), share, span_err, ola_err
+
+
+def median_ms(fn, reps: int = 3):
+    """(median wall ms of ``reps`` calls after one warm call, the last result)."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times)), out
+
+
+def voice_corpus(root: str) -> str:
+    """64 speech-like utterances of 40 0.15 s segments (``synth_utterance``)
+    and one held out, as 16 kHz wavs, and a JSON voice config (mag 60, real
+    45, imag 45, lf0 1, as bench.py's; a 16-sample taper, so that the
+    crossfades of consecutive units, 32 samples, fit in the shortest unit
+    (about a period at the epoch detector's 400 Hz ceiling), and add up to the
+    corpus exactly); returns the config's path."""
+    from snickery_tpu_torch.io.speech import write_wave
+    from snickery_tpu_torch.synthetic_voices import synth_utterance
+    wav = os.path.join(root, "wav")
+    os.makedirs(wav, exist_ok=True)
+    seeds = {f"utt{i:03d}": VOICE_SEED + i for i in range(VOICE_UTTS)}
+    seeds["zheld"] = VOICE_SEED + 999          # sorts last: outside n_train_utts
+    for name, seed in seeds.items():
+        write_wave(synth_utterance(seed, n_segments=40)[0], os.path.join(wav, f"{name}.wav"), SR)
+    cfg = dict(workdir=os.path.join(root, "work"), wav_datadir=wav, voice_name="smokevoice",
+               stream_list=list(STREAMS), datadims=dict(DATADIMS), sample_rate=SR,
+               n_candidates=30, taper_length=16, join_cost_weight=JCW,
+               length_buckets=[1024, 2048], n_train_utts=VOICE_UTTS)
+    path = os.path.join(root, "voice.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+@functools.lru_cache(maxsize=None)
+def tests_module(name: str):
+    """``tests/<name>.py`` (``analysis64``: the float64 numpy analysis and
+    rules (a) and (b); ``toycorpus``: the copy's corpus span), loaded from
+    its path: a package named ``tests`` installed elsewhere would shadow the
+    repository's directory, which is no package."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def analysis_rules(name: str, card: np.ndarray, cpu: np.ndarray, truth: np.ndarray,
+                   strength: np.ndarray | None) -> float:
+    """One stream of the card's analysis against the port's CPU analysis of
+    the same frames: rule (a) within 1e-3 on the bands within 6 nats of the
+    frame's strongest (in the float64 reference), rule (b) no farther from
+    the float64 reference than the CPU result, in max and in p99, beyond one
+    f32 ulp of the stream's largest value (two roundings of float64 values
+    to f32); returns max |card - cpu|."""
+    a64 = tests_module("analysis64")
+    if strength is not None:
+        a64.rule_a(card, cpu, a64.strong(strength))
+    ulp = float(np.spacing(np.float32(np.abs(cpu).max())))
+    (dg, pg), (dc, pc) = a64.distances(card, truth), a64.distances(cpu, truth)
+    check(dg <= dc + ulp and pg <= pc + ulp,
+          f"{name}: rule (b) card max / p99 {dg:.3e} / {pg:.3e} against the CPU's "
+          f"{dc:.3e} / {pc:.3e}")
+    return float(np.abs(card.astype(np.float64) - cpu).max())
+
+
+def full_width_analysis(waves: list, smi: str, device: str = "cuda") -> None:
+    """``magphase_analysis`` and ``world_analysis`` at the group shape of
+    bench.py's bulk analysis: the corpus waves joined with 2,048-sample
+    zero gaps, repeated and cut to 120,000 epochs; timed on the card (the
+    entry point's wall, and the device part alone by CUDA events), held to
+    the port's CPU analysis of the same frames everywhere and by rules (a)
+    and (b) against a float64 numpy analysis of the first 4,096 epochs."""
+    import torch
+
+    from snickery_tpu_torch.features.epochs import detect_epochs_batch
+    from snickery_tpu_torch.features.magphase import (bucket_epochs, frame_max_for,
+                                                      magphase_analysis,
+                                                      magphase_analysis_frames)
+    from snickery_tpu_torch.features.world import world_analysis, world_analysis_frames
+    a64 = tests_module("analysis64")
+    marks = detect_epochs_batch(waves, SR)
+    pieces, epochs, off, n_e = [], [], 0, 0
+    while n_e < ANALYSIS_EPOCHS:
+        for w, e in zip(waves, marks):
+            pieces += [w, np.zeros(2048, np.float32)]
+            epochs.append(e.astype(np.int64) + off)
+            off += len(w) + 2048
+            n_e += len(e)
+    e = np.concatenate(epochs)[:ANALYSIS_EPOCHS].astype(np.int32)
+    wave = np.concatenate(pieces)[: int(e[-1]) + 1024]
+    log(f"full-width analysis: {len(e):,} epochs over {len(wave):,} samples "
+        f"({len(waves)} utterances, 2,048-sample gaps, repeated)")
+    fm = frame_max_for(SR, 50.0)
+    dev = torch.device(device)
+    w_dev = torch.from_numpy(wave).to(dev)
+    e_dev = torch.from_numpy(bucket_epochs(e)).to(dev)
+    ref_e = e[:ANALYSIS_REF_EPOCHS]
+    inner = slice(1, ANALYSIS_REF_EPOCHS - 1)     # the slice's edge frames see other gaps
+    for label, entry, frames, kw, ref_fn, streams in (
+            ("magphase_analysis", magphase_analysis, magphase_analysis_frames,
+             dict(n_fft=fm, n_mag=60, n_phase=45), a64.magphase64, ("mag", "real", "imag")),
+            ("world_analysis", world_analysis, world_analysis_frames,
+             dict(n_fft=fm, n_mgc=60, n_bap=5), a64.world64, ("mgc", "bap"))):
+        ms, card = median_ms(lambda: entry(wave, e, SR, device=device))
+
+        def device_part():
+            frames(w_dev, e_dev, frame_max=fm, sample_rate=SR, **kw)
+        dev_ms = time_ms(torch, device_part, 3) if dev.type == "cuda" else float("nan")
+        t0 = time.perf_counter()
+        cpu = entry(wave, e, SR, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        truth = ref_fn(wave, ref_e, SR)
+        errs = []
+        for k in streams:
+            check(card[k].shape == cpu[k].shape == (len(e), card[k].shape[1]),
+                  f"{label} {k} shape {card[k].shape}")
+            check(bool(np.isfinite(card[k]).all()), f"{label} {k} not finite")
+            # rule (a)'s strong bands: of the warped magnitude (mag) or of
+            # the magnitude under the phase warp (real / imag); the WORLD
+            # streams' rule (a) reads the warped log power, below
+            strength = truth.get({"mag": "mag", "real": "strength_ph",
+                                  "imag": "strength_ph"}.get(k, ""))
+            err_all = float(np.abs(card[k].astype(np.float64) - cpu[k]).max())
+            check(err_all <= 1e-4, f"{label} {k}: card vs CPU {err_all:.3e} > 1e-4")
+            analysis_rules(f"{label} {k}", card[k][:ANALYSIS_REF_EPOCHS][inner],
+                           cpu[k][:ANALYSIS_REF_EPOCHS][inner], truth[k][inner],
+                           None if strength is None else strength[inner])
+            errs.append(f"{k} {err_all:.2e}")
+        check(np.array_equal(card["lf0"], cpu["lf0"]), f"{label} lf0 differs")
+        if label == "world_analysis":
+            from snickery_tpu_torch.features.world import world_log_mel, world_power
+            lm = {d: world_log_mel(world_power(torch.from_numpy(wave).to(d), torch.from_numpy(
+                bucket_epochs(ref_e)).to(d), fm, fm), 60, SR)[:len(ref_e)].cpu().numpy()
+                for d in (device, "cpu")}
+            analysis_rules("world_analysis warped log power", lm[device][inner],
+                           lm["cpu"][inner], truth["logmel"][inner], truth["logmel"][inner])
+        log(f"voice: {label} {len(e):,} x {fm}: {ms:.2f} ms a call (median of 3, entry point "
+            f"with transfers), device part {dev_ms:.2f} ms; CPU port {cpu_s:.2f} s; card vs "
+            f"CPU max |diff| {', '.join(errs)}; rules (a) and (b) pass [{smi}]")
+
+
+def voice_building(run: Run, smi: str, device: str = "cuda") -> None:
+    """Voice building, natural synthesis, resynthesis and the quality report
+    through the port's CLI on the card: train (subprocess), the full-width
+    analysis, natural-mode synth of a training and a held-out utterance
+    (in process, counted: the preselect kernel), ``resynth_magphase`` and
+    ``evaluate`` (subprocess)."""
+    from snickery_tpu_torch import cli, native
+    from snickery_tpu_torch.config import load_config
+    from snickery_tpu_torch.features.magphase import magphase_synthesis
+    from snickery_tpu_torch.io.speech import read_wave, write_wave
+    from snickery_tpu_torch.ops.topk import resolve_zero_transient
+    from snickery_tpu_torch.synth import Synthesiser
+    from snickery_tpu_torch.train import prepare_utterance
+    from snickery_tpu_torch.voicedb.db import VoiceDB
+    root = os.path.abspath(os.path.join("build", "chip_smoke", "voice"))
+    t_phase = time.perf_counter()
+    with Phase("voice: corpus of 64 utterances (6 s each) and the native epoch detector"):
+        cfg_path = voice_corpus(root)
+        lib = native.get_lib()
+        check(lib is not None and lib._name == str(native.lib_path()),
+              f"the port's native epoch library did not load ({native.lib_path()})")
+        log(f"voice: native epoch library {lib._name}")
+    with Phase("voice main path: python -m snickery_tpu_torch.cli train (subprocess)"):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "snickery_tpu_torch.cli", "train", "-c",
+                              cfg_path, "--device", device], capture_output=True, text=True,
+                             timeout=600)
+        wall = time.perf_counter() - t0
+        lines = (res.stdout + res.stderr).strip().splitlines()
+        for line in lines[-8:]:
+            log(f"train: {line}")
+        check(res.returncode == 0, f"train exited {res.returncode}")
+        check(not any("native build" in x or "cannot load native" in x for x in lines),
+              "train fell back to the Python epoch detector")
+        stages = dict(m.groups() for m in map(STAGE_LINE.search, lines) if m)
+        check(set(stages) == {"prepare_utterance", "build_voicedb", "save"},
+              f"train stages {stages}")
+        log(f"voice: train wall {wall:.1f} s (subprocess, import and card start included); "
+            f"stages {stages} [{smi}]")
+    cfg = load_config(cfg_path)
+    db = VoiceDB.load(cfg.db_path)
+    log(f"voice: {db.summary()}")
+    check(db.n_units > VOICE_MIN_UNITS and db.filenames == [f"utt{i:03d}" for i in range(VOICE_UTTS)],
+          f"voice holds {db.n_units} units of {len(db.filenames)} utterances")
+    with Phase("voice: full-width analysis on the card vs the CPU"):
+        waves = [np.asarray(db.waves[db.wave_offsets[i]:db.wave_offsets[i + 1]], np.float32)
+                 for i in range(VOICE_UTTS)]
+        full_width_analysis(waves, smi, device)
+    out = os.path.join(root, "out")
+    zt = resolve_zero_transient(cfg.zero_transient, cfg.preselect_precision)
+    kernel = run.cuda_topk.kernel_name(False, False, cfg.preselect_precision, zt)
+    with Phase("voice main path: natural-mode synth of utt000 and a held-out utterance"):
+        rc = run.main_path("natural synth", kernel, lambda: cli.main(
+            ["synth", "-c", cfg_path, "-o", out, "--dump-units", "--device", device,
+             "utt000", "zheld"]))
+        check(rc == 0, f"natural synth exited {rc}")
+        ids = np.load(os.path.join(out, "utt000.units.npy"))
+        wav, _ = read_wave(os.path.join(out, "utt000.wav"))
+        held = np.load(os.path.join(out, "zheld.units.npy"))
+    synth = Synthesiser(cfg, db, device=device)
+    utt, utt_held = (prepare_utterance(cfg, b, device=device) for b in ("utt000", "zheld"))
+    res = synth.synth_from_features(utt.features)
+    check(np.array_equal(res["unit_ids"], ids), "direct synth ids differ from the CLI's")
+    check(np.array_equal(synth.synth_from_features(utt_held.features)["unit_ids"], held),
+          "direct synth ids of zheld differ from the CLI's")
+    with Phase("voice: natural synth kernel vs plain at the voice's shape"):
+        for u in (utt, utt_held):
+            tgts, _, kwargs = synth.batch_inputs([synth.targets_from_features(u.features)])
+            run.kernel_at(kernel, synth, tgts, kwargs, (tgts.shape[1],), report=False)
+    ref, n_twins, share, span_err, ola_err = natural_copy_checks(db, ids, res["wave"], wav,
+                                                                cfg.taper_length)
+    log(f"voice: utt000 {len(ids)} units, {len(ids) - n_twins} consecutive and {n_twins} "
+        f"feature-identical silent twins; audio vs the corpus spans {span_err:.2e} over "
+        f"{share:.4f} of its samples, vs the float64 overlap-add of the ids {ola_err:.2e}; zheld "
+        f"{len(held)} units, natural-join share "
+        f"{float(np.mean(db.cutpoints[held[1:], 1] == db.cutpoints[held[:-1], 2])):.3f}")
+    with Phase("voice: resynth_magphase and copy synthesis"):
+        ms, wave_rs = median_ms(lambda: synth.resynth_magphase(ids))
+        src = db.cutpoints[ids, 1] - db.wave_offsets[0]
+        # the resynthesis epoch grid, as magphase_synthesis integrates it (in
+        # the f32 of the lf0 stream: one sample off is 36 degrees at 1.6 kHz)
+        lf0 = synth.selected_features(ids)[:, -1]
+        p = np.cumsum(np.clip(SR / np.maximum(np.exp(lf0), 1e-3), 2, 2 * SR / 50.0)).astype(
+            np.int64)
+        lo, hi = 2000, min(len(wave_rs), int(p[-1])) - 2000
+        warped = np.interp(np.interp(np.arange(lo, hi), p, src), np.arange(len(utt.wave)),
+                           utt.wave)
+        corr = float(np.corrcoef(wave_rs[lo:hi], warped)[0, 1])
+        check(corr > 0.90, f"resynth_magphase correlation {corr:.3f} <= 0.90")
+        streams = {n: utt.features[:, a:b] for n, a, b in cfg.stream_slices}
+        copy = magphase_synthesis(streams, SR, n_samples=len(utt.wave),
+                                  epoch_samples=utt.epochs, device=device)
+        corr_copy = float(np.corrcoef(copy[2000:-2000], utt.wave[2000:-2000])[0, 1])
+        check(corr_copy > 0.90, f"copy synthesis correlation {corr_copy:.3f} <= 0.90")
+        log(f"voice: resynth_magphase of {len(ids)} units {ms:.2f} ms (median of 3); "
+            f"correlation {corr:.4f} with the original on the resynthesis epoch grid; "
+            f"copy synthesis on the natural grid {corr_copy:.4f} [{smi}]")
+    with Phase("voice main path: python -m snickery_tpu_torch.cli evaluate (subprocess)"):
+        ref_dir = os.path.join(root, "ref")
+        os.makedirs(ref_dir, exist_ok=True)
+        write_wave(ref, os.path.join(ref_dir, "utt000.wav"), SR)
+        write_wave(read_wave(os.path.join(cfg.wav_datadir, "zheld.wav"))[0],
+                   os.path.join(ref_dir, "zheld.wav"), SR)
+        report = os.path.join(root, "report.json")
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "snickery_tpu_torch.cli", "evaluate", "-s",
+                              out, "-r", ref_dir, "-o", report, "-c", cfg_path, "--device",
+                              device], capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        for line in res.stderr.strip().splitlines()[-4:]:
+            log(f"evaluate: {line}")
+        check(res.returncode == 0, f"evaluate exited {res.returncode}")
+        with open(report) as f:
+            rows = {r["utterance"]: r for r in json.load(f)["utterances"]}
+        check(sorted(rows) == ["utt000", "zheld"], f"evaluate rows {sorted(rows)}")
+        check(rows["utt000"]["mcd_db"] < 0.5, f"copy MCD {rows['utt000']['mcd_db']} >= 0.5 dB")
+        check(all(v is not None and np.isfinite(v) for k, v in rows["zheld"].items()
+                  if k != "utterance"), f"held-out report {rows['zheld']}")
+        log(f"voice: evaluate wall {wall:.1f} s (subprocess); utt000 copy {rows['utt000']}; "
+            f"held-out {rows['zheld']} [{smi}]")
+    log(f"voice: the voice-building phases took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     t_start = time.perf_counter()
@@ -1977,6 +2327,8 @@ def main() -> int:
                 feats, out, voices=voices, segs=segs)
     derived_steps(run, "composition", db, hp_over, feats, out, voices=voices, segs=segs)
     del db
+    torch.cuda.empty_cache()
+    voice_building(run, smi)
     torch.cuda.empty_cache()
 
     log(f"chip_smoke.py: all phases passed in {time.perf_counter() - t_start:.1f} s")

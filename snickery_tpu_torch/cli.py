@@ -1,19 +1,23 @@
 """Command-line interface of the port, on the card by default.
 
+    python -m snickery_tpu_torch.cli train -c CONFIG [--device cuda|cpu]
     python -m snickery_tpu_torch.cli synth -c CONFIG [-o OUTDIR] [--greedy]
                                            [--voice V] [--dump-units] [--device cuda|cpu]
+    python -m snickery_tpu_torch.cli evaluate -s SYNTH_DIR -r REF_DIR [-o REPORT] [-c CONFIG]
+                                              [-N MAX] [--legacy-line] [--device cuda|cpu]
     python -m snickery_tpu_torch.cli merge A.voicedb B.voicedb -o M.voicedb [--names a,b]
     python -m snickery_tpu_torch.cli info  -c CONFIG
     python -m snickery_tpu_torch.cli serve -c CONFIG [--port 8300] [--device cuda|cpu]
 
 The counterpart of ``snickery_tpu.cli`` with the same options and outputs:
-one config file and one ``.voicedb`` directory serve both.  ``synth`` runs in
-hybrid (DNN-target) mode: stream files under ``test_data_dir``, fixed-rate
-ones resampled onto an epoch grid when ``test_data_frameshift > 0``, in
-batches of ``synth_batch`` when that is above 1.  Natural-mode synthesis
-(no ``test_data_dir``: analysing test wavs), ``train`` and ``evaluate``
-need the analysis chain and the voice builder, which are not ported yet:
-they raise NotImplementedError (see ROADMAP.md queue 1 items 11 and 12).
+one config file and one ``.voicedb`` directory serve both.  ``train`` builds
+the voice (the analysis on ``--device``).  ``synth`` runs in hybrid
+(DNN-target) mode when the config names a ``test_data_dir`` (stream files,
+fixed-rate ones resampled onto an epoch grid when ``test_data_frameshift >
+0``), else in natural mode (the wavs of ``wav_datadir`` analysed as the
+trainer analyses them); in batches of ``synth_batch`` when that is above 1.
+``evaluate`` prints the objective quality report as one strict-JSON
+document.
 """
 
 from __future__ import annotations
@@ -28,8 +32,6 @@ from snickery_tpu_torch import utils
 from snickery_tpu_torch.config import SnickeryConfig, load_config
 
 logger = utils.logger
-_TODO = ("not ported to snickery_tpu_torch yet: it needs the feature analysis "
-         "chain and the voice builder (see ROADMAP.md queue 1 items 11 and 12)")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -41,30 +43,41 @@ def _add_device(p: argparse.ArgumentParser, help: str) -> None:
 
 
 def cmd_train(args: argparse.Namespace) -> int:
-    raise NotImplementedError(f"train: {_TODO}")
+    from snickery_tpu_torch.train import train_voice
 
-
-def cmd_evaluate(args: argparse.Namespace) -> int:
-    raise NotImplementedError(f"evaluate: {_TODO}")
+    cfg = load_config(args.config)
+    db = train_voice(cfg, device=args.device)
+    logger.info("voice built: %s", db.summary())
+    return 0
 
 
 def _test_basenames(cfg: SnickeryConfig) -> list[str]:
-    """Test utterances: the basenames in test_data_dir's first stream
-    subdirectory, filtered by the config's test_patterns."""
-    stream0 = cfg.stream_list[0]
-    bases = utils.basenames_in(os.path.join(cfg.test_data_dir, stream0), stream0)
+    """Test utterances: config patterns, else everything in test_data_dir's
+    first stream subdir, else the training wav dir (copy-synthesis)."""
+    if cfg.test_data_dir:
+        stream0 = cfg.stream_list[0]
+        bases = utils.basenames_in(os.path.join(cfg.test_data_dir, stream0), stream0)
+    else:
+        bases = utils.basenames_in(cfg.wav_datadir, "wav")
     if cfg.test_patterns:
         bases = [b for b in bases if any(pat in b for pat in cfg.test_patterns)]
     return bases
 
 
-def _target_features_for(cfg: SnickeryConfig, base: str):
-    """Epoch-rate target trajectory of a test utterance from its stream
-    files under test_data_dir (predicted by an external DNN).  Returns
-    (features (E, d), lf0 (E,) or None, halfphone segments (None: stream
-    files carry no labels), epochs or None)."""
+def _target_features_for(cfg: SnickeryConfig, base: str, device="cuda"):
+    """Epoch-rate target trajectory of a test utterance: from its stream
+    files under test_data_dir (predicted by an external DNN), or in natural
+    mode from its wav, analysed on ``device`` as the trainer analyses it.
+    Returns (features (E, d), lf0 (E,) or None, halfphone segments or None,
+    epochs or None)."""
     from snickery_tpu_torch.io.speech import get_speech
 
+    if not cfg.test_data_dir:
+        from snickery_tpu_torch.train import prepare_utterance
+        utt = prepare_utterance(cfg, base, device)
+        if utt is None:
+            raise FileNotFoundError(f"cannot prepare test utterance {base}")
+        return utt.features, utt.lf0, utt.halfphones, utt.epochs
     mats = []
     for stream in cfg.stream_list:
         p = os.path.join(cfg.test_data_dir, stream, f"{base}.{stream}")
@@ -97,9 +110,6 @@ def cmd_synth(args: argparse.Namespace) -> int:
     from snickery_tpu_torch.synth import Synthesiser
 
     cfg = load_config(args.config)
-    if not cfg.test_data_dir:
-        raise NotImplementedError(
-            f"natural-mode synth (no test_data_dir: analyse the test wavs): {_TODO}")
     if args.output_dir:
         cfg.output_dir = args.output_dir
     outdir = cfg.output_dir or os.path.join(cfg.workdir, "synth_output")
@@ -141,7 +151,7 @@ def cmd_synth(args: argparse.Namespace) -> int:
 
         group, names = [], []
         for base in bases:
-            feats, _, _, _ = _target_features_for(cfg, base)
+            feats, _, _, _ = _target_features_for(cfg, base, args.device)
             group.append(feats)
             names.append(base)
             if len(group) == cfg.synth_batch:
@@ -151,11 +161,17 @@ def cmd_synth(args: argparse.Namespace) -> int:
             flush(group, names)
     else:
         for base in bases:
-            feats, _, segments, _ = _target_features_for(cfg, base)
-            if halfphone and segments is None:
-                logger.warning("%s: no labels for halfphone targets, skipping", base)
-                continue
-            emit(base, synth.synth_from_features(feats, greedy=args.greedy, voice=voice))
+            feats, _, segments, epochs = _target_features_for(cfg, base, args.device)
+            if halfphone:
+                if segments is None:
+                    logger.warning("%s: no labels for halfphone targets, skipping", base)
+                    continue
+                tgt, kept = synth.halfphone_targets_from_features(feats, epochs, segments)
+                result = synth.synth_from_features(tgt, greedy=args.greedy,
+                                                   target_segments=kept, voice=voice)
+            else:
+                result = synth.synth_from_features(feats, greedy=args.greedy, voice=voice)
+            emit(base, result)
     synth.timer.log("synth")
     return 0
 
@@ -195,6 +211,95 @@ def cmd_info(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_evaluate(args: argparse.Namespace) -> int:
+    """Objective quality report: synthesised wavs vs reference wavs, matched
+    by basename: MCD (dB), NSIM, the prosody trio VDE / GPE / FFE and, when
+    ``-c`` names the voice config and the synth dir holds ``<base>.units.npy``
+    (``synth --dump-units``), the join-discontinuity flux ratio at
+    non-natural joins; per utterance plus means, as one strict-JSON document
+    (nan is written as null).  The spectra are computed on ``--device``."""
+    import json
+
+    from snickery_tpu_torch.evaluate import (f0_metrics, join_discontinuity,
+                                             mel_cepstral_distortion, nsim)
+    from snickery_tpu_torch.io.speech import read_wave
+
+    utils.torch_device(args.device)
+    db = taper = None
+    if getattr(args, "config", ""):
+        from snickery_tpu_torch.voicedb.db import VoiceDB
+        cfg = load_config(args.config)
+        db = VoiceDB.load(os.path.join(cfg.workdir, cfg.voice_name + ".voicedb"))
+        taper = cfg.taper_length
+
+    bases = sorted(b for b in utils.basenames_in(args.synth_dir, "wav")
+                   if os.path.exists(os.path.join(args.ref_dir, b + ".wav")))
+    if args.utterances:
+        bases = [b for b in bases if b in set(args.utterances)]
+    if args.max_files:
+        bases = bases[: args.max_files]
+    if not bases:
+        logger.error("no basenames common to %s and %s", args.synth_dir, args.ref_dir)
+        return 1
+    dev = args.device
+    rows = []
+    for base in bases:
+        s, sr_s = read_wave(os.path.join(args.synth_dir, base + ".wav"))
+        r, sr_r = read_wave(os.path.join(args.ref_dir, base + ".wav"))
+        if sr_s != sr_r:
+            logger.warning("%s: sample-rate mismatch %d vs %d, skipping", base, sr_s, sr_r)
+            continue
+        row = {"utterance": base,
+               "mcd_db": mel_cepstral_distortion(s, r, sr_s, device=dev),
+               "nsim": nsim(s, r, sr_s, device=dev)}
+        row.update(f0_metrics(s, r, sr_s, device=dev))
+        flux_msg = ""
+        units_path = os.path.join(args.synth_dir, base + ".units.npy")
+        if db is not None and os.path.exists(units_path):
+            # unit i starts at taper + the sum of the previous spans;
+            # corpus-consecutive units reconstruct the corpus exactly, so only
+            # non-natural joins can pop
+            ids = np.load(units_path)
+            cuts = db.cutpoints
+            spans = (cuts[ids, 2] - cuts[ids, 1]).astype(np.int64)
+            starts = taper + np.cumsum(spans) - spans
+            nonnat = np.nonzero(cuts[ids[1:], 1] != cuts[ids[:-1], 2])[0] + 1
+            flux = join_discontinuity(s, sr_s, starts[nonnat], device=dev)
+            row["join_flux_ratio"] = flux["ratio"]
+            row["n_nonnatural_joins"] = int(len(nonnat))
+            flux_msg = f", join flux ratio {flux['ratio']:.2f} ({len(nonnat)} joins)"
+        rows.append(row)
+        logger.info("%s: MCD %.2f dB, NSIM %.3f, FFE %.3f%s",
+                    base, row["mcd_db"], row["nsim"], row["ffe"], flux_msg)
+    if not rows:
+        logger.error("no comparable utterance pairs")
+        return 1
+    # the union over all rows: an utterance without units.npy has no flux
+    keys = sorted({k for r in rows for k in r} - {"utterance", "n_nonnatural_joins"})
+    means = {}
+    for k in keys:
+        vals = [r[k] for r in rows if k in r]
+        # utterances with no non-natural join report nan flux: omit a mean
+        # that no utterance could give
+        if vals and np.isfinite(vals).any():
+            means[k] = float(np.nanmean(vals))
+    report = {"utterances": rows, "mean": means}
+    # strict JSON: nan is not valid JSON, null is
+    report = json.loads(json.dumps(report, default=float), parse_constant=lambda _: None)
+    doc = json.dumps(report, indent=2)
+    if args.output:
+        with open(args.output, "w") as f:
+            f.write(doc + "\n")
+        logger.info("report -> %s", args.output)
+    print(doc)
+    if getattr(args, "legacy_line", False):
+        # one strict-JSON summary line last on stdout, for consumers of the
+        # old evaluate_quality.py output
+        print(json.dumps({"metric": "mcd_db", "value": means.get("mcd_db"),
+                          "unit": "dB", "n_utterances": len(rows)}))
+    return 0
+
+
 def cmd_serve(args: argparse.Namespace) -> int:
     from snickery_tpu_torch.server import serve
 
@@ -208,8 +313,9 @@ def main(argv: list[str] | None = None) -> int:
     sub = parser.add_subparsers(dest="command", required=True)
     on_card = "cuda (the default: the hand-written kernels) or cpu (their plain twins)"
 
-    p_train = sub.add_parser("train", help="build a voice database (not ported)")
+    p_train = sub.add_parser("train", help="build a voice database")
     _add_common(p_train)
+    _add_device(p_train, "cuda (the default: the analysis on the card) or cpu")
     p_train.set_defaults(fn=cmd_train)
 
     p_synth = sub.add_parser("synth", help="synthesise test utterances")
@@ -240,7 +346,24 @@ def main(argv: list[str] | None = None) -> int:
     _add_device(p_info, "cuda (the default: also report the card) or cpu")
     p_info.set_defaults(fn=cmd_info)
 
-    p_eval = sub.add_parser("evaluate", help="objective quality report (not ported)")
+    p_eval = sub.add_parser(
+        "evaluate", help="objective quality report (MCD/NSIM/FFE) for "
+                         "synthesised wavs vs matching reference wavs")
+    p_eval.add_argument("-s", "--synth-dir", required=True,
+                        help="directory of synthesised .wav files")
+    p_eval.add_argument("-r", "--ref-dir", required=True,
+                        help="directory of reference .wav files (matched by basename)")
+    p_eval.add_argument("-o", "--output", default="", help="also write the JSON report here")
+    p_eval.add_argument("-c", "--config", default="",
+                        help="voice config: enables join-discontinuity reporting when "
+                             "the synth dir holds <base>.units.npy files "
+                             "(synth --dump-units)")
+    p_eval.add_argument("-N", "--max-files", type=int, default=0)
+    p_eval.add_argument("--legacy-line", action="store_true",
+                        help="also print the one-line JSON summary ({'metric': "
+                             "'mcd_db', ...}) as the last stdout line")
+    _add_device(p_eval, "cuda (the default: the spectra on the card) or cpu")
+    p_eval.add_argument("utterances", nargs="*", help="restrict to these basenames")
     p_eval.set_defaults(fn=cmd_evaluate)
 
     p_serve = sub.add_parser(

@@ -1,10 +1,20 @@
-"""Fixed-rate <-> epoch-rate resampling for hybrid (DNN-target) inputs.
+"""WORLD-style streams (mgc / bap / lf0) and fixed-rate <-> epoch-rate
+resampling for hybrid (DNN-target) inputs.
 
-A copy of the numpy half of ``snickery_tpu/features/world.py`` (which
-cannot be imported without jax: ``snickery_tpu.features`` imports it), with
-the same float64 maths and the same emission rule, so that streaming
-synthesis from fixed-rate frames (BASELINE config #4) runs where jax is
-absent:
+Counterpart of ``snickery_tpu/features/world.py``.  The analysis half runs
+in PyTorch on ``device`` (:func:`world_analysis`), in float64 from the f32
+wave to its f32 streams, for the reason that features/magphase.py gives:
+
+- ``mgc``: the orthonormal DCT of the mel-warped log magnitude of the same
+  two-period epoch frames that magphase uses (an epoch-synchronous MFCC;
+  ``mfcc`` is an accepted stream alias);
+- ``bap``: per band, the log ratio of the lower to the upper spectral
+  envelope, the envelopes being max / min dilations over +-8 bins
+  (``max_pool1d``, as the JAX package's ``reduce_window``);
+- ``lf0`` from the epoch grid.
+
+The resampling half is the numpy code of the JAX module, with the same
+float64 maths and the same emission rule:
 
 - :func:`resample_to_fixed`, :func:`resample_to_epochs`;
 - :func:`epoch_grid_from_lf0`, :func:`fixed_to_epoch_targets`;
@@ -15,6 +25,90 @@ absent:
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from snickery_tpu_torch.features.magphase import (_epoch_frames, _gaps, _on, _warp_matrix,
+                                                  bucket_epochs, frame_max_for)
+from snickery_tpu_torch.features.mel import dct_matrix
+from snickery_tpu_torch.features.stft import as_f32
+from snickery_tpu_torch.utils import torch_device
+
+
+def _band_matrix(n_bins: int, n_bands: int) -> np.ndarray:
+    """(n_bins, n_bands) row-normalised equal-width linear band averager."""
+    edges = np.linspace(0, n_bins, n_bands + 1).astype(int)
+    mat = np.zeros((n_bins, n_bands), np.float32)
+    for b in range(n_bands):
+        lo, hi = edges[b], max(edges[b + 1], edges[b] + 1)
+        mat[lo:hi, b] = 1.0 / (hi - lo)
+    return mat
+
+
+def world_power(wave: torch.Tensor, epochs: torch.Tensor, frame_max: int,
+                n_fft: int) -> torch.Tensor:
+    """(E, n_fft//2 + 1) float64 power spectra of the two-period epoch frames."""
+    e = epochs.to(torch.int32)
+    sixty_four = torch.full((1,), 64, dtype=torch.int32, device=e.device)
+    frames, _ = _epoch_frames(wave.double(), e, *_gaps(e, sixty_four, sixty_four), frame_max)
+    spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
+    return spec.real ** 2 + spec.imag ** 2
+
+
+def world_log_mel(power: torch.Tensor, n_mgc: int, sample_rate: int) -> torch.Tensor:
+    """The mel-warped log magnitude (E, max(2 n_mgc, 40)) that the DCT of
+    ``mgc`` reads."""
+    warp = _on(_warp_matrix(power.shape[-1], max(n_mgc * 2, 40), sample_rate), power)
+    return 0.5 * torch.log(torch.clamp(power @ warp, min=1e-16))
+
+
+def world_analysis_frames(wave: torch.Tensor, epochs: torch.Tensor, frame_max: int,
+                          n_fft: int, n_mgc: int, n_bap: int, sample_rate: int,
+                          env_halfwidth: int = 8) -> dict[str, torch.Tensor]:
+    """Batched analysis on the inputs' device, in float64: the f32 wave and
+    epoch positions (E,) -> f32 mgc (E, n_mgc), bap (E, n_bap)."""
+    power = world_power(wave, epochs, frame_max, n_fft)
+    logmel = world_log_mel(power, n_mgc, sample_rate)
+    mgc = logmel @ _on(dct_matrix(logmel.shape[1], n_mgc), power)
+    # bap: spectral valley depth per band, from the upper and lower envelopes
+    # over +-env_halfwidth bins (about one harmonic spacing of the frame)
+    w, h = 2 * env_halfwidth + 1, env_halfwidth
+    upper = torch.nn.functional.max_pool1d(power[:, None, :], w, stride=1, padding=h)[:, 0]
+    lower = -torch.nn.functional.max_pool1d(-power[:, None, :], w, stride=1, padding=h)[:, 0]
+    ratio = torch.clamp(lower / torch.clamp(upper, min=1e-16), 1e-5, 1.0)
+    bap = 0.5 * (torch.log(ratio) @ _on(_band_matrix(power.shape[1], n_bap), power))
+    return {"mgc": mgc.float(), "bap": bap.float()}
+
+
+def world_analysis(
+    wave: np.ndarray,
+    epoch_samples: np.ndarray,
+    sample_rate: int,
+    n_mgc: int = 60,
+    n_bap: int = 5,
+    fmin: float = 50.0,
+    device="cuda",
+) -> dict[str, np.ndarray]:
+    """Full analysis on ``device``: wave + epochs -> {mgc, bap, lf0} numpy
+    streams (the epoch axis bucketed as magphase_analysis buckets it)."""
+    from snickery_tpu_torch.features.epochs import f0_from_epochs
+
+    dev = torch_device(device)
+    epoch_samples = np.asarray(epoch_samples, dtype=np.int32)
+    if len(epoch_samples) == 0:
+        return {
+            "mgc": np.zeros((0, n_mgc), np.float32),
+            "bap": np.zeros((0, n_bap), np.float32),
+            "lf0": np.zeros((0, 1), np.float32),
+        }
+    frame_max = frame_max_for(sample_rate, fmin)
+    out = world_analysis_frames(
+        as_f32(wave, dev), torch.from_numpy(bucket_epochs(epoch_samples)).to(dev),
+        frame_max=frame_max, n_fft=frame_max, n_mgc=n_mgc, n_bap=n_bap,
+        sample_rate=sample_rate)
+    e = len(epoch_samples)
+    result = {k: v[:e].cpu().numpy() for k, v in out.items()}
+    result["lf0"] = f0_from_epochs(epoch_samples, sample_rate, fmin=fmin)
+    return result
 
 
 def resample_to_fixed(

@@ -21,8 +21,12 @@ The device is an explicit argument.  ``device="cuda"`` runs the CUDA kernel
 and raises where CUDA is absent; ``device="cpu"`` runs the kernel's plain
 PyTorch twin.  Nothing falls back from one to the other.
 
-Not ported yet (each raises NotImplementedError; see ROADMAP.md):
-multi-device meshes and magphase resynthesis.
+``resynth_magphase`` renders selected units by magphase resynthesis of
+their features (optionally join-smoothed, optionally on the target's f0)
+on the same device.
+
+Not ported yet (raises NotImplementedError; see ROADMAP.md): multi-device
+meshes.
 """
 
 from __future__ import annotations
@@ -838,5 +842,37 @@ class Synthesiser:
         event.record()
         return tuple(out), event
 
-    def resynth_magphase(self, *args, **kwargs):
-        raise NotImplementedError(f"magphase resynthesis: {_TODO}")
+    def selected_features(self, unit_ids: np.ndarray) -> np.ndarray:
+        """Epoch-rate feature trajectory of the selected units (for magphase
+        resynthesis or inspection): (n_units * k, d)."""
+        k, d = self.frames_per_unit, self.cfg.target_dim
+        return np.asarray(self.db.unit_features[np.asarray(unit_ids)]).reshape(
+            len(unit_ids) * k, d)
+
+    def resynth_magphase(self, unit_ids: np.ndarray,
+                         target_lf0: np.ndarray | None = None) -> np.ndarray:
+        """Magphase resynthesis of the selected units on this Synthesiser's
+        device: their mag / real / imag / lf0 frames, join-smoothed with
+        config ``magphase_smooth_joins`` > 0, on an epoch grid integrated
+        from their lf0 or, with ``magphase_use_target_f0`` and
+        ``target_lf0``, from the target's (``magphase_overlap`` widens the
+        windows).  Returns float32 audio."""
+        from snickery_tpu_torch.features.magphase import magphase_synthesis
+
+        cfg = self.cfg
+        traj = self.selected_features(unit_ids)
+        if cfg.magphase_smooth_joins > 0:
+            from snickery_tpu_torch.features.smoothing import smooth_joins
+            traj = smooth_joins(traj, self.frames_per_unit, width=cfg.magphase_smooth_joins,
+                                device=self.device).cpu().numpy()
+        streams = {name: traj[:, a:b] for name, a, b in cfg.stream_slices}
+        for required in ("mag", "real", "imag"):
+            if required not in streams:
+                raise ValueError("magphase resynthesis needs mag/real/imag streams")
+        if "lf0" not in streams:
+            streams["lf0"] = np.asarray(self.db.unit_lf0[np.asarray(unit_ids)]).reshape(-1, 1)
+        use_tgt = cfg.magphase_use_target_f0 and target_lf0 is not None
+        return magphase_synthesis(
+            streams, cfg.sample_rate,
+            target_lf0=np.asarray(target_lf0).reshape(-1) if use_tgt else None,
+            overlap=cfg.magphase_overlap, device=self.device)

@@ -1,13 +1,17 @@
 """Numpy-made voices at the real feature widths, for smoke runs on a card
-and for the card tests: no audio files and no analysis, only seeded random
-walks shaped like the features a built voice holds.
+and for the card tests: seeded random walks shaped like the features a
+built voice holds, and speech-like waves for the analysis and voice-building
+path.
 
 - ``ar1_walks``: the feature walks alone (kernel sweeps);
 - ``make_utterances``: epoch-rate utterances (config-3 / config-5 style);
 - ``make_halfphone_utterances`` with ``phone_means``: labelled utterances
-  with HalfphoneSegment labels and quinphone contexts (config-2 style).
+  with HalfphoneSegment labels and quinphone contexts (config-2 style);
+- ``synth_utterance``: a speech-like wave and its halfphone segments (the
+  generator of tests/toyvoice.py), for wav corpora that ``train`` analyses.
 
-Both return ``UtteranceData`` lists for ``voicedb.build.build_voicedb``.
+``make_utterances`` and ``make_halfphone_utterances`` return
+``UtteranceData`` lists for ``voicedb.build.build_voicedb``.
 """
 
 from __future__ import annotations
@@ -109,3 +113,87 @@ def make_halfphone_utterances(rng, n_utts: int, n_phones: int, prefix: str,
             epochs=epochs.astype(np.int32), features=feats.astype(np.float32),
             lf0=feats[:, -1].copy(), halfphones=segs))
     return utts
+
+
+# the speech-like generator: 21 phone classes with formant-style spectra.
+# Vowels/sonorants: two 'formant' peaks over 12 harmonics that MOVE within
+# each segment; fricatives: mostly high-harmonic energy + noise; stops:
+# silence gap then a burst.  Deterministic per phone class.
+N_HARM = 12
+VOWELS = ["a", "e", "i", "o", "u", "ae", "ii", "uu", "oo", "er",
+          "m", "n", "l", "r", "w"]
+FRICS = ["s", "f", "sh", "z"]
+STOPS = ["t", "k"]
+PHONES = VOWELS + FRICS + STOPS
+# (formant-1 harmonic, formant-2 harmonic) start -> end per vowel-like phone
+_FMT = {
+    "a": ((2, 5), (2, 6)), "e": ((2, 7), (3, 7)), "i": ((1, 8), (1, 9)),
+    "o": ((1, 4), (2, 4)), "u": ((1, 3), (1, 2)), "ae": ((3, 6), (2, 6)),
+    "ii": ((1, 9), (2, 9)), "uu": ((1, 2), (1, 3)), "oo": ((2, 4), (1, 5)),
+    "er": ((2, 5), (3, 4)), "m": ((1, 2), (1, 2)), "n": ((1, 3), (1, 3)),
+    "l": ((2, 4), (2, 5)), "r": ((2, 3), (3, 3)), "w": ((1, 2), (2, 3)),
+}
+
+
+def synth_utterance(seed: int, n_segments: int = 8, seg_sec: float = 0.15):
+    """Random phone sequence -> (wave, segments): harmonic stacks with
+    in-segment formant motion, per-segment amplitude envelopes, fricative
+    noise and stop gaps and bursts; variable pitch periods and
+    non-stationary in-segment spectra.  A copy of tests/toyvoice.py's
+    generator: the same seed gives the same wave and segments."""
+    rng = np.random.default_rng(seed)
+    phones = [PHONES[i] for i in rng.integers(0, len(PHONES), n_segments)]
+    seg_len = int(seg_sec * SR)
+    n = seg_len * n_segments
+    t = np.arange(n) / SR
+    f0 = 110.0 + 30.0 * np.sin(2 * np.pi * (0.4 + 0.2 * rng.random()) * t + rng.random() * 6)
+    phase = 2 * np.pi * np.cumsum(f0) / SR
+    wave = np.zeros(n)
+    u = np.linspace(0.0, 1.0, seg_len)           # in-segment position
+    # per-segment amplitude envelope: soft attack + decay
+    env = np.minimum(1.0, u / 0.12) * (1.0 - 0.35 * u)
+    for si, ph in enumerate(phones):
+        sl = slice(si * seg_len, (si + 1) * seg_len)
+        if ph in STOPS:
+            # closure silence then a decaying broadband burst
+            seg = np.zeros(seg_len)
+            b0 = int(0.55 * seg_len)
+            burst = rng.standard_normal(seg_len - b0) * np.exp(
+                -np.arange(seg_len - b0) / (0.012 * SR))
+            seg[b0:] = 0.5 * burst
+            # light voicing tail into the next phone
+            seg += 0.08 * np.sin(phase[sl]) * (u > 0.8)
+        elif ph in FRICS:
+            depth = {"s": 0.9, "f": 0.75, "sh": 0.8, "z": 0.55}[ph]
+            noise = rng.standard_normal(seg_len)
+            # crude spectral shaping: difference = high-pass-ish
+            noise = np.diff(noise, prepend=noise[:1])
+            seg = depth * 0.35 * noise
+            if ph == "z":                        # voiced fricative
+                seg += 0.25 * np.sin(phase[sl])
+            seg *= env
+        else:
+            (a1, a2), (b1, b2) = _FMT[ph]
+            f1 = a1 + (b1 - a1) * u              # formants glide in-segment
+            f2 = a2 + (b2 - a2) * u
+            h = np.arange(1, N_HARM + 1, dtype=np.float64)[:, None]
+            bump = (0.6 * np.exp(-0.5 * ((h - f1[None, :]) / 1.0) ** 2)
+                    + 0.4 * np.exp(-0.5 * ((h - f2[None, :]) / 1.2) ** 2))
+            amps = bump * (1.0 / np.sqrt(h))     # (N_HARM, seg_len)
+            seg = np.sum(amps * np.sin(h * phase[sl][None, :]), axis=0)
+            seg *= env
+        wave[sl] = seg
+    wave *= 0.9 / max(np.abs(wave).max(), 1e-6) * 0.7
+    segments = []
+    for si, ph in enumerate(phones):
+        s0 = si * seg_len / SR
+        s1 = (si + 1) * seg_len / SR
+        mid = 0.5 * (s0 + s1)
+        prev = phones[si - 1] if si else "xx"
+        prev2 = phones[si - 2] if si > 1 else "xx"
+        nxt = phones[si + 1] if si < n_segments - 1 else "xx"
+        nxt2 = phones[si + 2] if si < n_segments - 2 else "xx"
+        quin = (prev2, prev, ph, nxt, nxt2)
+        segments.append(HalfphoneSegment(s0, mid, f"{ph}_L", ph, "L", quin))
+        segments.append(HalfphoneSegment(mid, s1, f"{ph}_R", ph, "R", quin))
+    return wave.astype(np.float32), segments

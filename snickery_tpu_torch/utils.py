@@ -3,6 +3,8 @@
 The jax-free helpers of ``snickery_tpu.utils``, copied with the same names
 and behaviour.  The JAX- and TPU-only helpers there (compilation cache,
 ``jax.profiler`` traces, device uploads and layouts) have no counterpart.
+:func:`torch_device` is the port's own: the device check of its entry
+points.
 """
 
 from __future__ import annotations
@@ -90,6 +92,21 @@ def load_json(path: str):
 def next_multiple(x: int, m: int) -> int:
     """Smallest multiple of *m* that is >= x (and >= m)."""
     return max(m, ((x + m - 1) // m) * m)
+
+
+def torch_device(device):
+    """``torch.device(device)`` for an entry point of the port: "cuda" raises
+    where CUDA is absent (nothing falls back to the CPU)."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {str(device)!r}: CUDA is not available; pass "
+                               "device='cpu' explicitly for the CPU path")
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
 
 
 def bucket_length(x: int, buckets: tuple[int, ...] | list[int]) -> int:

@@ -23,6 +23,7 @@ from snickery_tpu_torch.cli import main as port_cli
 from snickery_tpu_torch.features.world import resample_to_fixed
 from snickery_tpu_torch.io.speech import get_speech, put_speech, read_wave
 from snickery_tpu_torch.voicedb.db import VoiceDB
+from tests.toycorpus import copy_reference, write_config, write_corpus
 from tests.toyvoice import SR, build_toy_voice, prepare_toy_utts
 
 PCM_ATOL = 1.5 / 32768.0    # wavs are 16-bit PCM of audio equal to 1e-5
@@ -228,15 +229,202 @@ def test_cli_info_matches(corpus, capsys):
     assert "VoiceDB[epoch]" in want
 
 
-@pytest.mark.parametrize("argv", [["train"], ["evaluate"], ["synth"]])
-def test_unported_commands_raise(corpus, tmp_path, argv):
-    """train, evaluate and natural-mode synth (no test_data_dir) need the
-    analysis chain and the voice builder: NotImplementedError naming
-    ROADMAP."""
-    root, cfg_d, _ = corpus
-    cfg_path = _config(tmp_path, cfg_d, "natural", test_data_dir="")
-    args = argv + (["-c", cfg_path, "--device", "cpu"] if argv == ["synth"]
-                   else ["-c", cfg_path] if argv == ["train"] else [])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_cli(args)
-    assert cli_mod._TODO in str(pytest.raises(NotImplementedError, port_cli, args).value)
+# ---------------------------------------------- train -> natural synth -> evaluate
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """A wav corpus (three training utterances and a held-out one, which
+    sorts last and so falls outside ``n_train_utts``) and a voice built from
+    it by each CLI's ``train``, then each CLI's natural-mode ``synth`` of all
+    four wavs (the training ones must come back as their own units)."""
+    root = tmp_path_factory.mktemp("torch_cli_natural")
+    train_names = write_corpus(str(root), [200, 201, 202], n_segments=5)
+    held = write_corpus(str(root), [950], n_segments=5, prefix="zheld")
+    cfgs = {who: write_config(root / f"{who}.json", str(root), workdir=str(root / f"work_{who}"),
+                              n_train_utts=3)
+            for who in ("jax", "port")}
+    assert jax_cli(["train", "-c", cfgs["jax"]]) == 0
+    assert port_cli(["train", "-c", cfgs["port"], "--device", "cpu"]) == 0
+    outs = {"jax": str(root / "out_jax"), "port": str(root / "out_port")}
+    assert jax_cli(["synth", "-c", cfgs["jax"], "-o", outs["jax"], "--dump-units"]) == 0
+    assert port_cli(["synth", "-c", cfgs["port"], "-o", outs["port"], "--dump-units",
+                     "--device", "cpu"]) == 0
+    return root, cfgs, outs, train_names, held[0]
+
+
+def test_cli_train_matches_jax(trained):
+    """Both CLIs' ``train`` write a .voicedb with the same units: the arrays
+    that do not depend on the analysis equal bit for bit (the features are
+    held by tests/test_torch_train.py); the port's loads in both packages."""
+    from snickery_tpu.voicedb.db import VoiceDB as JaxVoiceDB
+    root, cfgs, *_ = trained
+    t = VoiceDB.load(str(root / "work_port" / "corpus.voicedb"))
+    j = VoiceDB.load(str(root / "work_jax" / "corpus.voicedb"))
+    assert t.filenames == j.filenames == ["utt00", "utt01", "utt02"]
+    for name in ("cutpoints", "utt_index", "unit_lf0", "waves", "wave_offsets"):
+        assert getattr(t, name).tobytes() == getattr(j, name).tobytes(), name
+    assert t.unit_features.shape == j.unit_features.shape
+    jt = JaxVoiceDB.load(str(root / "work_port" / "corpus.voicedb"), mmap=False)
+    assert jt.unit_features.tobytes() == t.unit_features.tobytes()
+
+
+def test_cli_natural_synth_of_training_utterances(trained):
+    """Natural-mode synth of a training utterance: both CLIs write the same
+    units.npy, each unit the utterance's own (consecutive ids, except where
+    the next unit has a feature-identical twin, as in a stop's silent
+    closure, which the search may pick at the same zero cost), and audio
+    equal to f32 rounding."""
+    root, cfgs, outs, names, _ = trained
+    db = VoiceDB.load(str(root / "work_port" / "corpus.voicedb"))
+    for u, name in enumerate(names):
+        ids_t, ids_j = (np.load(os.path.join(outs[w], f"{name}.units.npy"))
+                        for w in ("port", "jax"))
+        np.testing.assert_array_equal(ids_t, ids_j)
+        assert (db.utt_index[ids_t] == u).all()
+        natural = ids_t[0] + np.arange(len(ids_t))
+        assert db.unit_features[ids_t].tobytes() == db.unit_features[natural].tobytes()
+        assert (ids_t == natural).mean() > 0.8
+        (wt, _), (wj, _) = (read_wave(os.path.join(outs[w], f"{name}.wav"))
+                            for w in ("port", "jax"))
+        assert len(wt) == len(wj) > 1000
+        np.testing.assert_allclose(wt, wj, atol=PCM_ATOL)
+
+
+def test_cli_natural_synth_of_held_out_utterance(trained):
+    """A held-out wav: each CLI searches its own analysis of it in its own
+    voice, so the ids may differ.  Each CLI's path is its own float64
+    oracle's (the same preselection and Viterbi in numpy), and in float64
+    the port's path is no dearer than that oracle's on the port's voice and
+    targets.  (Across voices the paths are not ordered: with 8 candidates a
+    target's preselection can leave out a unit of the other voice's path.)"""
+    from snickery_tpu import train as jtrain
+    from snickery_tpu import config as jconfig
+    from snickery_tpu_torch.config import load_config
+    from snickery_tpu_torch.synth import Synthesiser
+    from snickery_tpu_torch.train import prepare_utterance
+
+    root, cfgs, outs, _, held = trained
+    for who in ("port", "jax"):
+        cfg = load_config(cfgs[who])
+        synth = Synthesiser(cfg, device="cpu")
+        feats = (prepare_utterance(cfg, held, device="cpu") if who == "port" else
+                 jtrain.prepare_utterance(jconfig.load_config(cfgs[who]), held)).features
+        ids = np.load(os.path.join(outs[who], f"{held}.units.npy"))
+        ids_o, c_t, c_o = _oracle_path(synth, feats, ids)
+        np.testing.assert_array_equal(ids, ids_o)
+        if who == "port":
+            assert c_t <= c_o * (1 + 1e-12), (c_t, c_o)
+    audio, _ = read_wave(os.path.join(outs["port"], f"{held}.wav"))
+    assert len(audio) > 1000 and np.isfinite(audio).all()
+
+
+def _oracle_path(synth, feats, ids):
+    """The float64 oracle's ids for ``feats`` on the synthesiser's voice, and
+    the float64 costs of ``ids`` and of the oracle's ids."""
+    from snickery_tpu_torch import oracle
+    db, cfg = synth.db, synth.cfg
+    tgt, _ = synth.targets_from_features(feats)
+    tw = (((tgt - db.mean_target) / db.std_target) * synth._sqrt_wt).astype(np.float64)
+    feats_w = db.normalised_features().astype(np.float32) * synth._sqrt_wt[None, :]
+    jl, jr = db.normalised_joins()
+    ids_o, _ = oracle.synth_pipeline(
+        tw.astype(np.float32), feats_w, (jl * synth._sqrt_wj).astype(np.float32),
+        (jr * synth._sqrt_wj).astype(np.float32), n_candidates=cfg.n_candidates,
+        join_cost_weight=cfg.join_cost_weight)
+    return ids_o, _path_cost64(synth, tw, ids)[0], _path_cost64(synth, tw, ids_o)[0]
+
+
+# the same wavs through both CLIs' evaluate: MCD, NSIM and the f0 RMSE
+# within these tolerances (the port's FFT against the JAX package's matmul
+# DFT; the relative -60 dB floor of the MCD analysis clamps the weak bands
+# where the two differ most), the voicing and pitch error fractions and the
+# join counts equal
+REPORT_TOL = {"mcd_db": (1e-4, 1e-3), "nsim": (0.0, 5e-4), "f0_rmse_hz": (0.0, 1e-4),
+              "join_flux_ratio": (1e-4, 0.0)}
+
+
+def _assert_reports_match(got, want):
+    assert [r["utterance"] for r in got["utterances"]] == [
+        r["utterance"] for r in want["utterances"]]
+    assert got["mean"].keys() == want["mean"].keys()
+    for g, w in [*zip(got["utterances"], want["utterances"]), (got["mean"], want["mean"])]:
+        assert g.keys() == w.keys()
+        for k in g:
+            if k == "utterance" or g[k] is None or w[k] is None:
+                assert g[k] == w[k], k
+                continue
+            rtol, atol = REPORT_TOL.get(k, (0.0, 0.0))
+            assert abs(g[k] - w[k]) <= atol + rtol * abs(w[k]), (k, g[k], w[k])
+
+
+@pytest.mark.parametrize("extra", [(), ("--legacy-line", "-N", "2"), ("utt01", "zheld00")])
+def test_cli_evaluate_matches_jax(trained, tmp_path, capsys, extra):
+    """``evaluate`` of the port's natural synth against the reference wavs,
+    by both CLIs, with ``-c`` (join flux at non-natural joins): the same
+    strict-JSON report to the tolerances above, on stdout and in ``-o``; the
+    outputs for the training utterances, being copies, score NSIM > 0.97
+    (against the whole wav, not the span the units cover: see
+    test_cli_evaluate_scores_copies)."""
+    root, cfgs, outs, names, held = trained
+    argv = ["evaluate", "-s", outs["port"], "-r", str(root / "wav"), "-c", cfgs["port"], *extra]
+    assert jax_cli(argv + ["-o", str(tmp_path / "j.json")]) == 0
+    out_j = capsys.readouterr().out
+    assert port_cli(argv + ["-o", str(tmp_path / "t.json"), "--device", "cpu"]) == 0
+    out_t = capsys.readouterr().out
+    got = json.loads((tmp_path / "t.json").read_text())
+    want = json.loads((tmp_path / "j.json").read_text())
+    _assert_reports_match(got, want)
+    lines_t, lines_j = out_t.strip().splitlines(), out_j.strip().splitlines()
+    if "--legacy-line" in extra:
+        last_t, last_j = json.loads(lines_t[-1]), json.loads(lines_j[-1])
+        assert last_t.keys() == last_j.keys() and last_t["n_utterances"] == 2
+        assert abs(last_t["value"] - last_j["value"]) <= 1e-3 + 1e-4 * abs(last_j["value"])
+        lines_t = lines_t[:-1]
+    assert json.loads("\n".join(lines_t)) == got
+    expect = {(): names + [held], ("utt01", "zheld00"): ["utt01", held]}.get(extra, names[:2])
+    assert [r["utterance"] for r in got["utterances"]] == expect
+    for row in got["utterances"]:
+        assert all(v is None or np.isfinite(v) for k, v in row.items() if k != "utterance")
+        if row["utterance"] in names:
+            assert row["nsim"] > 0.97 and row["ffe"] < 0.05, row
+
+
+def test_cli_evaluate_scores_copies(trained, tmp_path):
+    """Natural synthesis of a training utterance is a copy of the corpus span
+    its units cover (equal to 16-bit PCM rounding away from the tapered
+    edges): against that span, evaluate's MCD is under 0.5 dB (the tapered
+    edges) and its NSIM above 0.999, in both CLIs."""
+    from snickery_tpu_torch.io.speech import write_wave
+    root, cfgs, outs, names, _ = trained
+    db = VoiceDB.load(str(root / "work_port" / "corpus.voicedb"))
+    (tmp_path / "ref").mkdir()
+    for name in names:
+        ids = np.load(os.path.join(outs["port"], f"{name}.units.npy"))
+        out, _ = read_wave(os.path.join(outs["port"], f"{name}.wav"))
+        ref = copy_reference(db, ids, 32, len(out))
+        np.testing.assert_allclose(out[64:-64], ref[64:-64], atol=PCM_ATOL)
+        write_wave(ref, str(tmp_path / "ref" / f"{name}.wav"), SR)
+    argv = ["evaluate", "-s", outs["port"], "-r", str(tmp_path / "ref")]
+    assert jax_cli(argv + ["-o", str(tmp_path / "j.json")]) == 0
+    assert port_cli(argv + ["-o", str(tmp_path / "t.json"), "--device", "cpu"]) == 0
+    got = json.loads((tmp_path / "t.json").read_text())
+    _assert_reports_match(got, json.loads((tmp_path / "j.json").read_text()))
+    assert [r["utterance"] for r in got["utterances"]] == names
+    for row in got["utterances"]:
+        assert row["mcd_db"] < 0.5 and row["nsim"] > 0.999 and row["ffe"] == 0.0, row
+
+
+def test_cli_evaluate_and_train_refusals(trained, tmp_path, monkeypatch):
+    """No common basenames: exit 1 in both CLIs; ``train`` and ``evaluate``
+    default to the card and raise where CUDA is absent."""
+    import torch
+    root, cfgs, outs, *_ = trained
+    (tmp_path / "empty").mkdir()
+    argv = ["evaluate", "-s", str(tmp_path / "empty"), "-r", str(root / "wav")]
+    assert jax_cli(argv) == 1
+    assert port_cli(argv + ["--device", "cpu"]) == 1
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for args in (["train", "-c", cfgs["port"]],
+                 ["evaluate", "-s", outs["port"], "-r", str(root / "wav")],
+                 ["synth", "-c", cfgs["port"], "-o", str(tmp_path / "o")]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            port_cli(args)

@@ -1,10 +1,12 @@
 """The port stands alone: it imports nothing of the JAX package, and each
 module it copied from there (const, utils, config, io, voicedb, oracle, the
-host half of the device layout) is held to its original on the CPU: the
-same fields and defaults, the same files loading to equal configs, the same
-``.voicedb`` directory read and written both ways bit for bit, the same
-arrays from the builder, the merge and the raw-block layout, and the same
-oracle ids and costs.
+host half of the device layout, the epoch detector, the EST pitchmark files,
+the native detector's source and loader, the toy speech generator) is held
+to its original on the CPU: the same fields and defaults, the same files
+loading to equal configs, the same ``.voicedb`` directory read and written
+both ways bit for bit, the same arrays from the builder, the merge and the
+raw-block layout, the same oracle ids and costs, the same code but for
+docstrings and package names, and the same ctypes signatures.
 """
 
 import ast
@@ -309,3 +311,73 @@ def test_oracle_matches(toy_utts, greedy, fast):
     np.testing.assert_array_equal(
         toracle.overlap_add(db.waves, spans[:, 0], spans[:, 2], 40),
         joracle.overlap_add(db.waves, spans[:, 0], spans[:, 2], 40))
+
+
+# ------------------------------------- the analysis chain's copied modules
+def _code_without_docstrings(path: Path, rename: bool) -> str:
+    """The module's AST with every docstring removed (and, with ``rename``,
+    ``snickery_tpu_torch`` read as ``snickery_tpu``), dumped."""
+    src = path.read_text()
+    if rename:
+        src = src.replace("snickery_tpu_torch", "snickery_tpu")
+    tree = ast.parse(src)
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("rel", ["features/epochs.py", "io/est.py"])
+def test_copied_numpy_modules_equal_their_originals(rel):
+    """features/epochs.py and io/est.py are the JAX package's modules with
+    only their docstrings and package names changed (est.py's logger is
+    named after the port)."""
+    port = _code_without_docstrings(ROOT / "snickery_tpu_torch" / rel, rename=True)
+    orig = _code_without_docstrings(ROOT / "snickery_tpu" / rel, rename=False)
+    assert port == orig
+
+
+def test_native_source_and_loader_match_the_originals():
+    """native/epochs.cpp is copied byte for byte; the port's loader binds the
+    same three C entry points with the same ctypes signatures, from its own
+    build (never the JAX package's library), and its Python entry points
+    take the same arguments."""
+    import inspect
+
+    from snickery_tpu import native as jnative
+    from snickery_tpu_torch import native as tnative
+    assert (ROOT / "snickery_tpu_torch" / "native" / "epochs.cpp").read_bytes() == (
+        ROOT / "native" / "epochs.cpp").read_bytes()
+    for fn in ("native_detect_epochs", "native_detect_epochs_batch", "_max_marks"):
+        assert inspect.signature(getattr(tnative, fn)) == inspect.signature(getattr(jnative, fn))
+    tlib, jlib = tnative.get_lib(), jnative.get_lib()
+    assert tlib is not None and jlib is not None
+    assert tlib._name != jlib._name and "snickery_tpu_torch_native" in tlib._name
+    for sym in ("snickery_detect_epochs", "snickery_detect_epochs_batch",
+                "snickery_detect_epochs_batch_mt"):
+        t, j = getattr(tlib, sym), getattr(jlib, sym)
+        assert (t.restype, t.argtypes) == (j.restype, j.argtypes), sym
+
+
+@pytest.mark.parametrize("seed,n_segments", [(3, 8), (200, 5), (5000, 40)])
+def test_synth_utterance_equals_the_toy_generator(seed, n_segments):
+    """The speech-like generator copied into synthetic_voices gives the waves
+    and segments of tests/toyvoice.py for the same seed."""
+    from snickery_tpu_torch.synthetic_voices import synth_utterance
+    from tests.toyvoice import synth_utterance as toy
+    (w, s), (wt, st) = synth_utterance(seed, n_segments=n_segments), toy(seed, n_segments)
+    assert w.dtype == wt.dtype and w.tobytes() == wt.tobytes()
+    assert [dataclasses.astuple(x) for x in s] == [dataclasses.astuple(x) for x in st]
+
+
+def test_import_scan_covers_the_analysis_chain():
+    """The AST scan above reads the modules this slice added."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for rel in ("features/dft.py", "features/stft.py", "features/mel.py",
+                "features/magphase.py", "features/world.py", "features/smoothing.py",
+                "features/epochs.py", "io/est.py", "native/__init__.py", "train.py",
+                "evaluate.py", "synthetic_voices.py", "cli.py"):
+        assert f"snickery_tpu_torch/{rel}" in names, rel

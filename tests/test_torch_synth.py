@@ -172,21 +172,13 @@ def test_cuda_device_raises_without_cuda(voices, monkeypatch):
         Synthesiser(cfg, db, device="cuda")
 
 
-@pytest.mark.parametrize("override", [
-    {"mesh_db": 2}, {"mesh_data": 2}, {"entry": "resynth_magphase"}])
+@pytest.mark.parametrize("override", [{"mesh_db": 2}, {"mesh_data": 2}])
 def test_unported_modes_raise(voices, override):
     """What the port does not serve yet raises NotImplementedError naming
-    ROADMAP: meshes, magphase."""
+    ROADMAP: multi-device meshes."""
     cfg, db, *_ = voices
-    override = dict(override)
-    kind, entry = override.pop("voice", None), override.pop("entry", None)
-    if kind == "halfphone":
-        cfg, db = _voice_db("halfphone")
-    elif kind == "merged_epoch":
-        db = merge_voicedbs([db, db], names=["a", "b"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        synth = Synthesiser(dataclasses.replace(cfg, **override), db, device="cpu")
-        getattr(synth, entry)(np.zeros(3, np.int32))
+        Synthesiser(dataclasses.replace(cfg, **override), db, device="cpu")
 
 
 @pytest.mark.parametrize("method", ["quinphone", "quinphone_backoff"])
@@ -200,14 +192,64 @@ def test_linguistic_preselection_needs_halfphone_voice(voices, method):
 
 
 def test_unported_entry_points_raise(voices):
-    """Magphase resynthesis is not ported; streaming a halfphone voice is
-    refused, as the JAX package refuses it."""
-    ts = voices[-1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.resynth_magphase(np.zeros(3, np.int32))
+    """Streaming a halfphone voice is refused, as the JAX package refuses
+    it."""
     cfg, db = _voice_db("halfphone")
     with pytest.raises(NotImplementedError, match="epoch-mode only"):
         next(Synthesiser(cfg, db, device="cpu").synth_streaming(iter([])))
+
+
+@pytest.fixture(scope="module")
+def held_ids(voices):
+    """The ids both synthesisers pick for the held-out target (non-natural
+    joins, so that join smoothing has work to do)."""
+    cfg, db, utts, held, js, ts = voices
+    ids = ts.synth_from_features(held.features)["unit_ids"]
+    np.testing.assert_array_equal(ids, js.synth_from_features(held.features)["unit_ids"])
+    return ids, held.lf0[: len(ids) * ts.frames_per_unit]
+
+
+def test_selected_features_match_jax(voices, held_ids):
+    *_, js, ts = voices
+    ids, _ = held_ids
+    got = ts.selected_features(ids)
+    assert got.tobytes() == js.selected_features(ids).tobytes()
+    assert got.shape == (len(ids) * ts.frames_per_unit, ts.cfg.target_dim)
+
+
+@pytest.mark.parametrize("over,target_f0", [
+    ({}, False), ({"magphase_smooth_joins": 2}, False), ({"magphase_overlap": 1}, False),
+    ({}, True), ({"magphase_use_target_f0": False}, True),
+    ({"magphase_smooth_joins": 3, "magphase_overlap": 2}, True)])
+def test_resynth_magphase_matches_jax(voices, held_ids, monkeypatch, over, target_f0):
+    """The same ids through both packages' magphase resynthesis (join
+    smoothing, target f0, overlap): the waves agree to f32 rounding of the
+    transforms (1e-4 of the peak), as tests/test_torch_features.py holds
+    magphase_synthesis."""
+    *_, js, ts = voices
+    ids, lf0 = held_ids
+    for synth in (js, ts):
+        for key, val in over.items():
+            monkeypatch.setattr(synth.cfg, key, val)
+    kw = {"target_lf0": lf0} if target_f0 else {}
+    got, want = ts.resynth_magphase(ids, **kw), js.resynth_magphase(ids, **kw)
+    assert got.dtype == np.float32 and got.shape == want.shape and len(got) > 1000
+    np.testing.assert_allclose(got, want, atol=1e-4 * np.abs(want).max())
+    if over.get("magphase_smooth_joins"):
+        monkeypatch.setattr(ts.cfg, "magphase_smooth_joins", 0)
+        plain = ts.resynth_magphase(ids, **kw)
+        assert plain.shape != got.shape or np.abs(plain - got).max() > 1e-3
+
+
+def test_resynth_magphase_needs_magphase_streams(voices, monkeypatch):
+    """Streams without mag / real / imag cannot be resynthesised, in either
+    package."""
+    *_, js, ts = voices
+    for synth in (js, ts):
+        monkeypatch.setattr(synth.cfg, "stream_list", ["mgc", "lf0"])
+        monkeypatch.setattr(synth.cfg, "datadims", {"mgc": 150, "lf0": 1})
+        with pytest.raises(ValueError, match="mag/real/imag"):
+            synth.resynth_magphase(np.arange(4))
 
 
 def test_port_imports_without_jax():
