@@ -148,14 +148,30 @@ Phases, each timed, any failure ending the run with a non-zero exit:
     sample for sample; ``resynth_magphase`` of those units correlates above
     0.90 with the original on the resynthesis epoch grid; ``python -m
     snickery_tpu_torch.cli evaluate`` (subprocess): strict JSON, copy MCD
-    below 0.5 dB, every held-out field finite.
+    below 0.5 dB, every held-out field finite;
+28. meshes (``snickery_tpu_torch.parallel``): on the config-3 voice a
+    ``Synthesiser`` on a (1, 2) mesh at "highest" and one on a (2, 2) mesh
+    at split3cat, members ``["cuda:0"] * n`` on a one-card machine and
+    distinct cards where the machine has n (logged), ``synth_batch`` B = 32 x
+    2048: the kernel launched once a member a step and nothing else, each
+    member's exchange payload equal to its model, every shard contributing
+    units, ids equal to phases 5 / 10 except float64-judged near-ties, the
+    held-out utterance through each mesh against the float64 oracle
+    (>= 0.99, gap <= 1e-4), the kernel against its twin at a member's shape
+    (65,536 and 32,768 x 524,288), ``sharded_norm_stats`` of the voice's features
+    against float64; on the config-5 voice a (1, 4) mesh at split3cat, B =
+    64 (no leaks, ids against phase 7's, the kernel at 16,384 x 65,536);
+    ``parallel.dryrun`` on 4 members.  ``meshes_alone`` runs this phase by
+    itself with the voices and single-device batches it is held to.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after; the kernel it needs must have launched.  Standard output ends
-with a JSON line of the kernels (launches on the main paths, max error
-against the twin, kernel, twin and ``torch.matmul``-of-the-product times,
-and the bound from the card's published peaks), the card's name and power
-limit from nvidia-smi, and ``{"ok": true, "device": {...}}``.
+with a JSON line of the meshes (phase 28: ms a step, exchange bytes a
+member, agreement, the kernel at a shard's shape), a JSON line of the
+kernels (launches on the main paths, max error against the twin, kernel,
+twin and ``torch.matmul``-of-the-product times, and the bound from the
+card's published peaks), the card's name and power limit from nvidia-smi,
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -792,6 +808,7 @@ class Run:
         self.bounds: dict[str, tuple[float, str]] = {}
         self.matmul: dict[str, float] = {}
         self.shapes: dict[str, str] = {}
+        self.meshes: list[dict] = []        # phase 28's figures, one a mesh
 
     def main_path(self, label: str, kernel: str, fn):
         """Drive one main path with every count set to 0 just before and
@@ -805,13 +822,16 @@ class Run:
         self.launches[kernel] = self.launches.get(kernel, 0) + got[kernel]
         return out
 
-    def kernel_at(self, kernel, synth, tgts, kwargs, T_list, report=True):
+    def kernel_at(self, kernel, synth, tgts, kwargs, T_list, report=True, matmul=None):
         """The kernel against its twin, and both timed, at the main path's
         shapes, in the operand form the step's ``zero_transient`` picks (the
         derived operand is made once, as the step makes it, and its
         derivation timed); with ``report``, the last of ``T_list`` is the
         shape whose times, bound and matmul yardstick the kernels line
-        reports."""
+        reports.  ``synth`` is anything with a ``device_db`` (a Synthesiser,
+        or one shard of a mesh's voice).  ``matmul`` (default: ``report``)
+        times the yardstick at the last shape.  Returns that shape's figures
+        (shape, ms, plain_ms, bound_ms, bound_by, matmul_ms, max_abs_err)."""
         from snickery_tpu_torch.ops.cuda_topk import (derive_operand,
                                                       topk_preselect_dv_plain,
                                                       topk_preselect_zt_plain)
@@ -861,16 +881,21 @@ class Run:
             plain_ms = time_ms(torch, lambda: plain(x, block, k, block_aff, m_rows,
                                                     precision=precision, **m), 1)
             b_ms, b_by = bound_ms(T, m_rows, kd, k, precision, bool(masks), row_bytes)
+            row = dict(shape=f"{T} x {m_rows} x {kd}, k {k}", ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, matmul_ms=None, max_abs_err=err)
             msg = ""
+            if (report if matmul is None else matmul) and T == T_list[-1]:
+                row["matmul_ms"] = matmul_ms(torch, x, db_rows, precision)
+                msg = f", torch.matmul of the product alone {row['matmul_ms']:.2f} ms"
             if report:
-                self.shapes[kernel] = f"{T} x {m_rows} x {kd}, k {k}"
+                self.shapes[kernel] = row["shape"]
                 self.times[kernel] = (ms, plain_ms)
                 self.bounds[kernel] = (b_ms, b_by)
-                self.matmul[kernel] = matmul_ms(torch, x, db_rows, precision)
-                msg = f", torch.matmul of the product alone {self.matmul[kernel]:.2f} ms"
+                self.matmul[kernel] = row["matmul_ms"]
             log(f"{kernel} T={T} M={m_rows} kd={kd} k={k}: kernel {ms:.2f} ms, plain "
                 f"{plain_ms:.2f} ms, bound {b_ms:.3f} ms ({b_by}){msg}, max_abs_err "
                 f"{err:.3e}, near-tie id swaps {nbad}, dead slots {dead}")
+        return row
 
 
     def variant_at(self, select, x, block, aff, m_rows, k, precision, matmul, sqn=None,
@@ -1014,12 +1039,10 @@ def check_result(db, res):
     check(len(res["wave"]) > 0 and bool(np.isfinite(res["wave"]).all()), "finite audio")
 
 
-def config3(run: Run):
-    torch = run.torch
+def config3_voice(cfg):
+    """The config-3 voice (numpy): (db, a corpus utterance's features, 32
+    held-out utterances of T_BUCKET units, a held-out one of 256)."""
     from snickery_tpu_torch.voicedb.build import build_voicedb
-    from snickery_tpu_torch import Synthesiser
-
-    cfg = smoke_config(length_buckets=[T_BUCKET])
     with Phase("config-3 voice (numpy)"):
         utts = make_utterances(np.random.default_rng(2026), N_UTTS,
                                351 + np.arange(N_UTTS) % 2, "utt")
@@ -1030,6 +1053,15 @@ def config3(run: Run):
         short = make_utterances(np.random.default_rng(8), 1, 258, "short")[0]
         log(f"{db.n_units} units, d={db.target_dim}, {len(db.filenames)} utts, "
             f"{len(db.waves) / SR:.0f} s of audio")
+    return db, natural, held, short
+
+
+def config3(run: Run):
+    torch = run.torch
+    from snickery_tpu_torch import Synthesiser
+
+    cfg = smoke_config(length_buckets=[T_BUCKET])
+    db, natural, held, short = config3_voice(cfg)
     with Phase("config-3 Synthesiser(device='cuda')"):
         synth = Synthesiser(cfg, db=db, device="cuda")
         torch.cuda.synchronize()
@@ -1073,19 +1105,27 @@ def config3(run: Run):
     return db, held, short, out32
 
 
-def oracle_check(db, synth, feats, label):
-    """A held-out utterance through ``synth`` against the float64 oracle over
-    the full DB; returns (raw agreement, relative f64 path-cost gap)."""
+_ORACLE_IDS: dict = {}      # (voice, n_candidates, target bytes) -> the oracle's ids
+
+
+def oracle_check(db, synth, feats, label, batch=False):
+    """A held-out utterance through ``synth`` (``synth_from_features``, or
+    with ``batch`` a ``synth_batch`` of it alone: the mesh route) against the
+    float64 oracle over the full DB, whose ids are computed once per voice
+    and utterance; returns (raw agreement, relative f64 path-cost gap)."""
     from snickery_tpu_torch import oracle
-    res = synth.synth_from_features(feats)
+    res = synth.synth_batch([feats])[0] if batch else synth.synth_from_features(feats)
     tgt, n = synth.targets_from_features(feats)
     tw_o = (((tgt - db.mean_target) / db.std_target) * synth._sqrt_wt).astype(np.float32)
-    feats_w = db.normalised_features().astype(np.float32) * synth._sqrt_wt[None, :]
-    jl, jr = db.normalised_joins()
-    ids_ref, _ = oracle.synth_pipeline(
-        tw_o, feats_w, (jl * synth._sqrt_wj).astype(np.float32),
-        (jr * synth._sqrt_wj).astype(np.float32), n_candidates=synth.cfg.n_candidates,
-        join_cost_weight=JCW, fast_preselect=True)
+    key = (db.n_units, synth.cfg.n_candidates, tw_o.tobytes())
+    if key not in _ORACLE_IDS:
+        feats_w = db.normalised_features().astype(np.float32) * synth._sqrt_wt[None, :]
+        jl, jr = db.normalised_joins()
+        _ORACLE_IDS[key], _ = oracle.synth_pipeline(
+            tw_o, feats_w, (jl * synth._sqrt_wj).astype(np.float32),
+            (jr * synth._sqrt_wj).astype(np.float32), n_candidates=synth.cfg.n_candidates,
+            join_cost_weight=JCW, fast_preselect=True)
+    ids_ref = _ORACLE_IDS[key]
     agree = float((res["unit_ids"] == ids_ref).mean())
     c_dev, c_ref = path_cost(db, synth, tw_o, res["unit_ids"]), path_cost(db, synth, tw_o, ids_ref)
     gap = (c_dev - c_ref) / abs(c_ref)
@@ -1146,6 +1186,7 @@ def config3_split3cat(run: Run, db, held, short, out_highest):
     ids = run.main_path("config 4", "topk_preselect_zt_split3cat",
                         lambda: config4(db, synth, held[0]))
     config4_checks(run, synth, held[0], ids)
+    return out
 
 
 def config3_derived(run: Run, db, held, short, out_highest):
@@ -1296,7 +1337,239 @@ def config4_checks(run: Run, synth, utt, ids, kernel="topk_preselect_zt_split3ca
     with Phase("config-4 kernel vs plain at the streaming shape"):
         kw = dict(kwargs, tgt_codes=None, tgt_ctx=None, tgt_vids=None, halfphone=False,
                   ling_weights=None)
-        run.kernel_at(kernel, synth, args[1], kw, (args[1].shape[0],), report=False)
+        run.kernel_at(kernel, synth, args[1], kw, (args[1].shape[0],), report=False,
+                      matmul=True)
+
+
+# ------------------------------------------------------------------ meshes
+def mesh_devices(torch, n: int):
+    """(members, how): cards 0..n-1 where the machine has n, else card 0
+    repeated n times."""
+    if torch.cuda.device_count() >= n:
+        return [f"cuda:{i}" for i in range(n)], f"{n} distinct cards"
+    return ["cuda:0"] * n, f"card 0 repeated {n} times"
+
+
+def mesh_synthesiser(run: Run, label, db, n_data, n_db, **over):
+    """A Synthesiser on an n_data x n_db mesh of the smoke config (``over``
+    on top), its sharded voice placed (timed)."""
+    from snickery_tpu_torch import Synthesiser
+    torch = run.torch
+    devices, how = mesh_devices(torch, n_data * n_db)
+    with Phase(f"{label}: Synthesiser on a {n_data}x{n_db} mesh, {how}"):
+        synth = Synthesiser(smoke_config(mesh_data=n_data, mesh_db=n_db, **over), db=db,
+                            device=devices)
+        t0 = time.perf_counter()
+        synth.ensure_sharded()
+        torch.cuda.synchronize()
+        sv = synth._sharded_voice
+        log(f"{label}: {synth.n_units_padded} padded units, {sv.m_shard} a shard, n_real "
+            f"a shard {[m.n_real.item() for m in sv.members[0]]}; shards placed in "
+            f"{time.perf_counter() - t0:.1f} s, "
+            + ", ".join(f"{dev}: {sv.nbytes(dev) / 2**20:.1f} MiB"
+                        for dev in synth._mesh.distinct()))
+    return synth, how
+
+
+def mesh_batch(run: Run, label, kernel, synth, db, feats, ref, voices=None, steps=2):
+    """Phase 28's main path on one mesh: ``steps`` synth_batch steps (the
+    first a warm-up) with the counts at 0 before; the kernel must launch
+    once per member a step and nothing else launch; each member's exchange
+    payload equals the model rows x k_local x (5 x 4 + 8 dj) bytes; every
+    shard contributes units; ids equal the single device's batch ``ref`` of
+    the same targets except float64 near-ties (a differing utterance's path
+    no dearer in float64 than the single device's, within 1e-6 of it).
+    Returns the mesh's line of figures."""
+    from snickery_tpu_torch import utils
+    from snickery_tpu_torch.ops.topk import preselect_margin
+    from snickery_tpu_torch.parallel import sharded
+    torch, cfg = run.torch, synth.cfg
+    n_mem, kw = synth.mesh_size, ({} if voices is None else {"voices": voices})
+
+    def drive():
+        sharded.EXCHANGE_BYTES.clear()
+        walls = []
+        with Phase(f"{label} main path: synth_batch B={len(feats)} on the mesh"):
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = synth.synth_batch(feats, **kw)
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+            got = dict(run.cuda_topk.LAUNCH_COUNTS)
+            audio_s = sum(len(r["wave"]) for r in out) / SR
+            log(f"{label}: ms/step {[round(w, 1) for w in walls]} (the first a warm-up), "
+                f"{audio_s:.1f} s audio/step, RTF {walls[-1] / 1e3 / audio_s:.6f}")
+            check(got == {kernel: steps * n_mem},
+                  f"{label}: launches {got}, want {steps * n_mem} of {kernel}")
+            for r in out:
+                check_result(db, r)
+        return out, walls, dict(sharded.EXCHANGE_BYTES)
+
+    out, walls, xbytes = run.main_path(label, kernel, drive)
+    sv, ndb = synth._sharded_voice, max(1, cfg.mesh_db)
+    T = utils.bucket_length(max(synth.targets_from_features(f)[1] for f in feats),
+                            tuple(cfg.length_buckets))
+    k_local = min(cfg.n_candidates + preselect_margin(True, cfg.preselect_precision, False,
+                                                      zero_transient=True), sv.m_shard)
+    rows = len(feats) // max(1, cfg.mesh_data) * T
+    want = rows * k_local * (5 * 4 + 8 * db.join_dim) if ndb > 1 else 0
+    per_member = sorted({v // steps for v in xbytes.values()} or {0})
+    log(f"{label}: exchange {per_member} bytes a member a step (model {want}: {rows} rows x "
+        f"k_local {k_local} x (20 + 8 x {db.join_dim}))")
+    check(per_member == [want], f"{label}: exchange payload {per_member} != {want}")
+    ids = np.concatenate([r["unit_ids"] for r in out])
+    hit = sorted({int(u) // sv.m_shard for u in ids})
+    check(hit == list(range(ndb)), f"{label}: only shards {hit} contributed units")
+    n_diff = 0
+    for f, a, b in zip(feats, out, ref):
+        if np.array_equal(a["unit_ids"], b["unit_ids"]):
+            continue
+        n_diff += 1
+        tgt, _ = synth.targets_from_features(f)
+        tw = ((tgt - db.mean_target) / db.std_target) * synth._sqrt_wt
+        c_m, c_1 = path_cost(db, synth, tw, a["unit_ids"]), path_cost(db, synth, tw, b["unit_ids"])
+        check(c_m <= c_1 * (1 + 1e-6), f"{label}: a path dearer than the single device's "
+              f"in float64 ({c_m} vs {c_1})")
+    raw, adj = tie_adjusted_agreement(db, ids, np.concatenate([r["unit_ids"] for r in ref]))
+    log(f"{label}: vs the single device's batch: raw {raw:.5f}, tie-adjusted {adj:.5f}, "
+        f"{n_diff} utterances differ (each a float64 near-tie); shards hit {hit}")
+    return dict(mesh=f"{cfg.mesh_data}x{ndb}", precision=cfg.preselect_precision,
+                kernel=kernel, batch=f"{len(feats)} x {T}", ms_step=walls[-1],
+                ms_steps=walls, launches_a_step=n_mem,
+                exchange_bytes_a_member=per_member[0], raw_agreement=raw,
+                tie_adjusted_agreement=adj, utterances_differing=n_diff, shards_hit=hit)
+
+
+def shard_kernel_at(run: Run, label, kernel, synth, feats, voices=None):
+    """The kernel against its twin at member (0, 0)'s shape (its targets,
+    shard 0's rows), timed beside its bound and the matmul yardstick."""
+    import types
+    from snickery_tpu_torch.parallel.sharded import ShardedVoice
+    sv: ShardedVoice = synth._sharded_voice
+    vids = None if voices is None else [synth._voice_code(v) for v in voices]
+    tgts, _, kwargs = synth.batch_inputs([synth.targets_from_features(f) for f in feats],
+                                         None, vids)
+    b_local = len(feats) // sv.mesh.shape["data"]
+    kwargs = {k: (v[:b_local] if k.startswith("tgt_") else v) for k, v in kwargs.items()}
+    with Phase(f"{label}: kernel vs plain at a shard's shape"):
+        return run.kernel_at(kernel, types.SimpleNamespace(device_db=sv.members[0][0]),
+                             tgts[:b_local], kwargs, (b_local * tgts.shape[1],),
+                             report=False, matmul=True)
+
+
+def meshes_config3(run: Run, db, held, short, out_highest, out_split):
+    """Phase 28 on the config-3 voice: (1, 2) at "highest" and (2, 2) at
+    split3cat, B = 32 x 2048, against phases 5 and 10; the oracle gate on
+    the held-out utterance through each mesh; the kernel at a member's shape;
+    ``sharded_norm_stats`` of the voice's features against float64."""
+    from snickery_tpu_torch.parallel import sharded_norm_stats
+    torch = run.torch
+    feats = [u.features for u in held[:32]]
+    t_phase = time.perf_counter()
+    for (n_data, n_db), precision, kernel, ref in (
+            ((1, 2), "highest", "topk_preselect_zt", out_highest),
+            ((2, 2), "split3cat", "topk_preselect_zt_split3cat", out_split)):
+        label = f"meshes: config 3 {n_data}x{n_db} {precision}"
+        synth, how = mesh_synthesiser(run, label, db, n_data, n_db,
+                                      length_buckets=[T_BUCKET], preselect_precision=precision)
+        line = mesh_batch(run, label, kernel, synth, db, feats, ref)
+        with Phase(f"{label}: held-out utterance through the mesh vs float64 oracle"):
+            agree, gap = oracle_check(db, synth, short.features, label, batch=True)
+            check(agree >= 0.99, f"{label}: oracle agreement {agree} < 0.99")
+            check(gap <= 1e-4, f"{label}: f64 path-cost gap {gap} > 1e-4")
+        line.update(voice="config 3", devices=how, oracle_agreement=agree, oracle_gap=gap,
+                    shard_kernel=shard_kernel_at(run, label, kernel, synth, feats))
+        if n_db * n_data == 4:
+            with Phase("meshes: sharded_norm_stats of the config-3 features"):
+                f32 = db.unit_features
+                rows = -(-len(f32) // 4) * 4
+                padded = np.zeros((rows, f32.shape[1]), np.float32)
+                padded[:len(f32)] = f32
+                t0 = time.perf_counter()
+                mean, std = sharded_norm_stats(padded, len(f32), mesh=synth._mesh)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                s64, ss64 = np.zeros(f32.shape[1]), np.zeros(f32.shape[1])
+                for lo in range(0, len(f32), 1 << 17):
+                    c = f32[lo:lo + (1 << 17)].astype(np.float64)
+                    s64 += c.sum(0)
+                    ss64 += (c * c).sum(0)
+                m64 = s64 / len(f32)
+                sd64 = np.sqrt(ss64 / len(f32) - m64 * m64)
+                e_mean = float(np.abs(mean.cpu().numpy() - m64).max())
+                e_std = float(np.abs(std.cpu().numpy() / sd64 - 1).max())
+                log(f"sharded_norm_stats over {len(f32)} x {f32.shape[1]} on the {n_data}x{n_db} "
+                    f"mesh: {ms:.1f} ms (host to card included); max |mean - f64| {e_mean:.3e}, "
+                    f"max std rel err {e_std:.3e}")
+                check(e_mean <= 1e-4 * (1 + float(np.abs(m64).max())) and e_std <= 1e-3,
+                      "sharded_norm_stats disagrees with float64")
+                line["norm_stats"] = dict(ms=ms, max_abs_err_mean=e_mean, max_rel_err_std=e_std)
+        run.meshes.append(line)
+        del synth
+        torch.cuda.empty_cache()
+    log(f"meshes: the config-3 part took {time.perf_counter() - t_phase:.1f} s")
+
+
+def meshes_config5(run: Run, db, feats, voices, out_highest):
+    """Phase 28 on the config-5 voice: (1, 4) at split3cat, B = 64 mixed
+    voices (each shard holds two voices' rows): no leaks, ids against phase
+    7's batch, the kernel at a shard's shape."""
+    t_phase = time.perf_counter()
+    label = "meshes: config 5 1x4 split3cat"
+    synth, how = mesh_synthesiser(run, label, db, 1, 4, length_buckets=[256],
+                                  voice_name="smokemv", preselect_precision="split3cat")
+    kernel = "topk_preselect_zt_split3cat_part"
+    line = mesh_batch(run, label, kernel, synth, db, feats, out_highest, voices=voices)
+    out = synth.synth_batch(feats, voices=voices)
+    leaks = sum(int((db.voice_ids[r["unit_ids"]] != synth._voice_code(v)).sum())
+                for r, v in zip(out, voices))
+    log(f"{label}: cross-voice leaks {leaks}")
+    check(leaks == 0, f"{label}: {leaks} units leaked across voices")
+    line.update(voice="config 5", devices=how, leaks=leaks,
+                shard_kernel=shard_kernel_at(run, label, kernel, synth, feats, voices))
+    run.meshes.append(line)
+    log(f"meshes: the config-5 part took {time.perf_counter() - t_phase:.1f} s")
+
+
+def meshes_dryrun(run: Run) -> None:
+    """``parallel.dryrun`` (the JAX dry run's shapes) on 4 members: cards
+    0..3 where the machine has them, else card 0 repeated."""
+    from snickery_tpu_torch.parallel.dryrun import dryrun_multichip
+    devices, how = mesh_devices(run.torch, 4)
+    with Phase(f"meshes: parallel.dryrun on 4 members, {how}"):
+        got = dryrun_multichip(4, "cuda" if devices[1] != devices[0] else "cuda:0")
+        run.meshes.append(dict(voice="dryrun", mesh="2x2", devices=how, **{
+            k: v for k, v in got.items() if k != "mesh"}))
+
+
+def meshes_alone(run: Run) -> None:
+    """Phase 28 by itself (a quick call on the card): the config-3 and
+    config-5 voices, the single-device batches it is held to (the steps of
+    phases 5, 10 and 7 without their other checks), phase 28 and the dry
+    run; ends with the meshes' JSON line."""
+    from snickery_tpu_torch import Synthesiser
+    torch = run.torch
+    db, _, held, short = config3_voice(smoke_config(length_buckets=[T_BUCKET]))
+    feats = [u.features for u in held]
+    refs = []
+    for precision in ("highest", "split3cat"):
+        with Phase(f"config 3 {precision}: the single-device batch"):
+            synth = Synthesiser(smoke_config(length_buckets=[T_BUCKET],
+                                             preselect_precision=precision), db=db,
+                                device="cuda")
+            refs.append(synth.synth_batch(feats))
+            del synth
+    meshes_config3(run, db, held, short, *refs)
+    del db
+    torch.cuda.empty_cache()
+    cfg5 = smoke_config(length_buckets=[256], voice_name="smokemv")
+    db, _, _, feats, voices = config5_voice(cfg5)
+    with Phase("config 5: the single-device batch"):
+        ref = Synthesiser(cfg5, db=db, device="cuda").synth_batch(feats, voices=voices)
+    meshes_config5(run, db, feats, voices, ref)
+    meshes_dryrun(run)
+    print(json.dumps({"meshes": run.meshes}))
 
 
 def host_free_gib() -> float:
@@ -1456,14 +1729,13 @@ def halfphone_oracle_gap(db, synth, tgt, kept, ids, label) -> float:
     return gap
 
 
-def config5(run: Run):
-    torch = run.torch
+def config5_voice(cfg, n_voices: int = 8, B: int = 64):
+    """The config-5 voice (numpy) and its batch: (db merged from
+    ``n_voices`` voices, a corpus utterance of voice v3, 16 held-out
+    utterances of 256 units, B of their features round-robin, one voice
+    each, round-robin)."""
     from snickery_tpu_torch.voicedb.build import build_voicedb
     from snickery_tpu_torch.voicedb.multivoice import merge_voicedbs
-    from snickery_tpu_torch import Synthesiser
-
-    cfg = smoke_config(length_buckets=[256], voice_name="smokemv")
-    n_voices, B = 8, 64
     with Phase("config-5 eight voices, merged (numpy)"):
         dbs, natural = [], None
         for v in range(n_voices):
@@ -1481,14 +1753,23 @@ def config5(run: Run):
         held = make_utterances(np.random.default_rng(77), 16, 258, "held")
         log(f"{db.n_units} units in {n_voices} voices "
             f"({np.bincount(db.voice_ids).tolist()}), d={db.target_dim}")
+    feats = [held[i % len(held)].features for i in range(B)]
+    return db, natural, held, feats, [f"v{i % n_voices}" for i in range(B)]
+
+
+def config5(run: Run):
+    torch = run.torch
+    from snickery_tpu_torch import Synthesiser
+
+    cfg = smoke_config(length_buckets=[256], voice_name="smokemv")
+    n_voices, B = 8, 64
+    db, natural, held, feats, voices = config5_voice(cfg, n_voices, B)
     with Phase("config-5 Synthesiser(device='cuda')"):
         synth = Synthesiser(cfg, db=db, device="cuda")
         torch.cuda.synchronize()
         log(f"{synth.n_units_padded} padded units, resident DB "
             f"{synth.device_db.nbytes / 2**20:.1f} MiB, kernel metadata "
             f"{synth.device_db.meta.nbytes / 2**20:.2f} MiB")
-    feats = [held[i % len(held)].features for i in range(B)]
-    voices = [f"v{i % n_voices}" for i in range(B)]
 
     def drive():
         with Phase(f"config-5 main path: synth_batch B={B} x T=256, mixed voices"):
@@ -1730,7 +2011,7 @@ def server_config5(run: Run, db, feats, voices, out_highest, held):
                   tgt_vids=torch.full((1, T), 2, dtype=torch.int32, device=synth.device),
                   halfphone=False, ling_weights=None)
         run.kernel_at("topk_preselect_zt_split3cat_part", synth, args[1], kw,
-                      (args[1].shape[0],), report=False)
+                      (args[1].shape[0],), report=False, matmul=True)
     return synth
 
 
@@ -2188,7 +2469,8 @@ def voice_building(run: Run, smi: str, device: str = "cuda") -> None:
     with Phase("voice: natural synth kernel vs plain at the voice's shape"):
         for u in (utt, utt_held):
             tgts, _, kwargs = synth.batch_inputs([synth.targets_from_features(u.features)])
-            run.kernel_at(kernel, synth, tgts, kwargs, (tgts.shape[1],), report=False)
+            run.kernel_at(kernel, synth, tgts, kwargs, (tgts.shape[1],), report=False,
+                          matmul=u is utt)
     ref, n_twins, share, span_err, ola_err = natural_copy_checks(db, ids, res["wave"], wav,
                                                                 cfg.taper_length)
     log(f"voice: utt000 {len(ids)} units, {len(ids) - n_twins} consecutive and {n_twins} "
@@ -2294,10 +2576,11 @@ def main() -> int:
         selects_at_sweep_shape(run)
     db, held, short, out32 = config3(run)
     torch.cuda.empty_cache()
-    config3_split3cat(run, db, held, short, out32)
+    out_split = config3_split3cat(run, db, held, short, out32)
     torch.cuda.empty_cache()
     config3_derived(run, db, held, short, out32)
     torch.cuda.empty_cache()
+    meshes_config3(run, db, held, short, out32, out_split)
     capacity(run, db, held)
     del db
     torch.cuda.empty_cache()
@@ -2310,6 +2593,9 @@ def main() -> int:
     derived_steps(run, "config 2", db, hp_over, feats, out, segs=segs, oracle_gate=True)
     torch.cuda.empty_cache()
     db, feats, voices, out, held = config5(run)
+    meshes_config5(run, db, feats, voices, out)
+    meshes_dryrun(run)
+    torch.cuda.empty_cache()
     synth5 = server_config5(run, db, feats, voices, out, held)
     masked_step(run, "config 5", "topk_preselect_zt_split3_part", db,
                 dict(length_buckets=[256]), feats, out, voices=voices)
@@ -2332,6 +2618,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log(f"chip_smoke.py: all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"meshes": run.meshes}))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": kernel_source(name),
         "replaces": REPLACES[name], "launches": run.launches[name],

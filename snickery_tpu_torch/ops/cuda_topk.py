@@ -677,13 +677,14 @@ def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
         part_third = torch.empty((T, splits), dtype=torch.int32, device=dev)
         flags = torch.empty((T,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(lib, "snk_" + name)(
-        t2.data_ptr(), raw_block.data_ptr(), extra.data_ptr(),
-        tgt_meta.data_ptr() if masked else None,
-        db_meta.data_ptr() if masked else None, *pens,
-        part_v.data_ptr(), part_i.data_ptr(), part_third.data_ptr() if three else None,
-        out_v.data_ptr(), out_i.data_ptr(), flags.data_ptr() if three else None,
-        T, kd, raw_block.shape[1], m_rows, k, splits, rows, stream)
+    with torch.cuda.device(dev):         # the launch goes to the current card
+        err = getattr(lib, "snk_" + name)(
+            t2.data_ptr(), raw_block.data_ptr(), extra.data_ptr(),
+            tgt_meta.data_ptr() if masked else None,
+            db_meta.data_ptr() if masked else None, *pens,
+            part_v.data_ptr(), part_i.data_ptr(), part_third.data_ptr() if three else None,
+            out_v.data_ptr(), out_i.data_ptr(), flags.data_ptr() if three else None,
+            T, kd, raw_block.shape[1], m_rows, k, splits, rows, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
     with _LOCK:

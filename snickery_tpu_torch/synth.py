@@ -21,12 +21,14 @@ The device is an explicit argument.  ``device="cuda"`` runs the CUDA kernel
 and raises where CUDA is absent; ``device="cpu"`` runs the kernel's plain
 PyTorch twin.  Nothing falls back from one to the other.
 
+With config ``mesh_data`` / ``mesh_db`` above 1, ``synth_batch`` runs
+:func:`snickery_tpu_torch.parallel.batched_synth_step` over a (data, db)
+mesh of devices (``ensure_sharded``); ``synth_from_features`` and
+``synth_streaming`` stay on one device, as in the JAX package.
+
 ``resynth_magphase`` renders selected units by magphase resynthesis of
 their features (optionally join-smoothed, optionally on the target's f0)
 on the same device.
-
-Not ported yet (raises NotImplementedError; see ROADMAP.md): multi-device
-meshes.
 """
 
 from __future__ import annotations
@@ -59,7 +61,6 @@ from snickery_tpu_torch.voicedb.device_layout import (affine_rows,
 # DB rows are padded as the JAX package pads them (its Pallas CHUNK), so the
 # padded unit count and the raw block are the same on both sides.
 JAX_PALLAS_CHUNK = 4096
-_TODO = "not ported to snickery_tpu_torch yet (see ROADMAP.md)"
 # preselection_method="quinphone_backoff": strict tiers (one outer-context
 # mismatch 2^14, one inner-context mismatch 2^22), as snickery_tpu.synth
 BACKOFF_LING_WEIGHTS = (1.0, 256.0, 0.0, 256.0, 1.0, 16384.0)
@@ -133,12 +134,35 @@ def _candidates(db: DeviceDB, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, *,
                 ling_weights: tuple | None, precision: str, zero_transient: int,
                 stage):
     """Normalise and weight the (B, T, kd) targets, preselect k + margin with
-    the kernel at ``precision``, rescore in exact f32 and keep ``n_cand``.
-    ``zero_transient`` (config key: -1 auto, 0, 1) picks the kernel's
-    operand: the resident raw block, or (0) the operand derived from it for
-    this step (stage "derive"), with the margin of that form (none at
-    "highest").  Returns (live (B, T), candidate ids (B*T, n), target costs
-    (B*T, n), join-left and join-right contexts (B*T, n, dj))."""
+    the kernel at ``precision`` (:func:`preselect`), rescore in exact f32 and
+    keep ``n_cand``.  Returns (live (B, T), candidate ids (B*T, n), target
+    costs (B*T, n), join-left and join-right contexts (B*T, n, dj))."""
+    stage = stage or _stage_fn(None, targets.device)
+    tw, live, idx, scores, ling = preselect(
+        db, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, n_cand=n_cand,
+        margin=margin, halfphone=halfphone, multivoice=multivoice,
+        ling_weights=ling_weights, precision=precision,
+        zero_transient=zero_transient, stage=stage)
+    with stage("rescore"):
+        cand_idx, target_costs, jl, jr = _rescore(db, tw, idx, scores, live, n_cand, ling)
+    return live, cand_idx, target_costs, jl, jr
+
+
+def preselect(db: DeviceDB, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, *,
+              n_cand: int, margin: int, halfphone: bool, multivoice: bool,
+              ling_weights: tuple | None, precision: str, zero_transient: int,
+              stage=None):
+    """Normalise and weight the (B, T, kd) targets (steps past ``lengths``
+    zeroed) and preselect ``k = min(n_cand + margin, rows of db)`` with the
+    kernel at ``precision`` over the ``db.cut1.shape[0]`` rows of ``db`` (a
+    whole DB or one shard of it).  ``zero_transient`` (config key: -1 auto,
+    0, 1) picks the kernel's operand: the resident raw block, or (0) the
+    operand derived from it for this step (stage "derive", rows at or past
+    ``db.n_real`` pinned), with the margin of that form (none at "highest").
+    Returns (weighted targets (B*T, kd), live (B, T), ids (B*T, k) int64,
+    kernel scores (B*T, k), ``ling`` = (codes, contexts, weights) in
+    halfphone mode or None)."""
+    stage = stage or _stage_fn(None, targets.device)
     B, T, kd = targets.shape
     dev = targets.device
     m_pad = db.cut1.shape[0]
@@ -171,26 +195,32 @@ def _candidates(db: DeviceDB, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, *,
                                               precision=precision, zero_transient=False,
                                               sqn=sqn, **masks)
         del operand, sqn
-    with stage("rescore"):
-        cand_idx, target_costs, jl, jr = _rescore(db, tw, idx.long(), scores,
-                                                  live, n_cand, ling)
-    return live, cand_idx, target_costs, jl, jr
+    return tw, live, idx.long(), scores, ling
 
 
 def _concatenate(db: DeviceDB, unit_ids, live, lengths, *, do_ola: bool,
                  max_frag: int, out_len: int, taper: int):
-    """(audio (B, out_len), total samples (B,)) of the (B, T) unit ids: the
-    device OLA, or with ``do_ola=False`` (audio kept on the host) an (B, 8)
-    zeros placeholder and the exact totals ``2 * taper + sum of spans``."""
-    cut1 = torch.where(live, db.cut1[unit_ids], 0)
-    cut2 = torch.where(live, db.cut2[unit_ids], 0)
+    """(audio (B, out_len), total samples (B,)) of the (B, T) unit ids
+    (:func:`concatenate_cuts` of their cut points)."""
+    return concatenate_cuts(db, torch.where(live, db.cut1[unit_ids], 0),
+                            torch.where(live, db.cut2[unit_ids], 0), lengths,
+                            do_ola=do_ola, max_frag=max_frag, out_len=out_len,
+                            taper=taper)
+
+
+def concatenate_cuts(db: DeviceDB, cut1, cut2, lengths, *, do_ola: bool,
+                     max_frag: int, out_len: int, taper: int):
+    """(audio (B, out_len), total samples (B,)) of (B, T) unit cut points
+    (0 past each length) from ``db``'s waves: the device OLA, or with
+    ``do_ola=False`` (audio kept on the host) an (B, 8) zeros placeholder
+    and the exact totals ``2 * taper + sum of spans``."""
     if do_ola:
         return overlap_add_units(db.waves, cut1, cut2, lengths, max_frag=max_frag,
                                  out_len=out_len, taper=taper,
                                  wave_scale=db.wave_scale)
     totals = 2 * taper + (cut2 - cut1).long().sum(dim=1)
-    return torch.zeros((unit_ids.shape[0], 8), dtype=torch.float32,
-                       device=unit_ids.device), totals
+    return torch.zeros((cut1.shape[0], 8), dtype=torch.float32,
+                       device=cut1.device), totals
 
 
 def synth_pipeline_step(db: DeviceDB, targets: torch.Tensor,
@@ -230,14 +260,31 @@ def synth_pipeline_step(db: DeviceDB, targets: torch.Tensor,
     synchronisations serialise the step.
     """
     stage = _stage_fn(stage_timer, targets.device)
-    B, T, _ = targets.shape
-    dj = db.sqrt_wj.shape[0]
-    live, cand_idx, target_costs, jl, jr = _candidates(
+    _, cand_idx, target_costs, jl, jr = _candidates(
         db, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, n_cand=n_cand,
         margin=margin, halfphone=halfphone, multivoice=multivoice,
         ling_weights=ling_weights, precision=precision,
         zero_transient=zero_transient, stage=stage)
-    n = cand_idx.shape[1]
+    return decode_and_concatenate(db, cand_idx, target_costs, jl, jr, lengths, jcw=jcw,
+                                  eps=eps, greedy=greedy, squared_joins=squared_joins,
+                                  do_ola=do_ola, max_frag=max_frag, out_len=out_len,
+                                  taper=taper, stage=stage)
+
+
+def decode_and_concatenate(db: DeviceDB, cand_idx, target_costs, jl, jr, lengths,
+                           cut_cands=None, *, jcw: float, eps: float, greedy: bool,
+                           squared_joins: bool, do_ola: bool, max_frag: int, out_len: int,
+                           taper: int, stage=None):
+    """Decode B utterances from their kept candidates (ids and target costs
+    (B*T, n), join contexts (B*T, n, dj); Viterbi, or greedy) and
+    concatenate the chosen units from ``db``'s waves, their cut points
+    looked up in ``db`` by id or, with ``cut_cands`` = (cut1, cut2) (B*T, n)
+    of the candidates, picked from those (a mesh member, whose ids are
+    global).  Returns (unit ids (B, T), total costs (B,), audio, total
+    samples)."""
+    stage = stage or _stage_fn(None, cand_idx.device)
+    B, n, dj = lengths.shape[0], cand_idx.shape[1], jl.shape[-1]
+    T = cand_idx.shape[0] // B
     decode = greedy_decode if greedy else viterbi_decode
     kw = {} if greedy else {"search_epsilon": eps}
     with stage("decode"):
@@ -246,10 +293,19 @@ def synth_pipeline_step(db: DeviceDB, targets: torch.Tensor,
                               join_cost_weight=jcw, length=lengths,
                               squared_joins=squared_joins, **kw)
     with stage("ola"):
-        sel = torch.gather(cand_idx, 1, paths.reshape(B * T, 1)).reshape(B, T)
-        unit_ids = torch.where(live, sel, 0)
-        audio, totals = _concatenate(db, unit_ids, live, lengths, do_ola=do_ola,
-                                     max_frag=max_frag, out_len=out_len, taper=taper)
+        pick = paths.reshape(B * T, 1)
+        live = torch.arange(T, device=lengths.device)[None, :] < lengths.reshape(B, 1)
+
+        def chosen(x):
+            return torch.where(live, torch.gather(x, 1, pick).reshape(B, T), 0)
+
+        unit_ids = chosen(cand_idx)
+        ola = dict(do_ola=do_ola, max_frag=max_frag, out_len=out_len, taper=taper)
+        if cut_cands is None:
+            audio, totals = _concatenate(db, unit_ids, live, lengths, **ola)
+        else:
+            audio, totals = concatenate_cuts(db, chosen(cut_cands[0]), chosen(cut_cands[1]),
+                                             lengths, **ola)
     return unit_ids, costs, audio, totals
 
 
@@ -329,27 +385,38 @@ def _synced_stage(timer: utils.StageTimer, name: str, device):
             torch.cuda.synchronize(device)
 
 
-def _rescore(db: DeviceDB, tw, idx, scores, live, n_cand, ling=None):
-    """Exact f32 rescoring of the preselected candidates, then the canonical
-    (score, unit id) order the float64 oracle uses; keeps ``n_cand``.
-    ``ling`` = (target codes, target contexts, weights) in halfphone mode:
-    the order is by :func:`halfphone_exact_rank` and the kept lattice costs
-    go through :func:`halfphone_lattice_mask` (the JAX batched step's form).
-    Returns (candidate ids, target costs, join-left, join-right contexts)."""
+def exact_scores(db: DeviceDB, tw, idx, scores, ling=None):
+    """Exact f32 rescoring of preselected candidates from ``db``'s own rows
+    (``idx`` (B*T, k) row ids of ``db``; rows at or past ``db.n_real`` are
+    padding and cost the 1e6 sentinel): returns (their raw rows (B*T, k, W),
+    target costs, ranking keys, identity mismatch flags or None).  A dead
+    kernel slot (+inf score) costs +inf.  ``ling`` = (target codes, target
+    contexts, weights) in halfphone mode ranks by
+    :func:`halfphone_exact_rank`; otherwise the key is the cost."""
     kd = tw.shape[1]
-    zero = torch.zeros((), dtype=torch.float32, device=tw.device)
     rows_c = db.raw[idx]                                         # (BT, k, W)
     cand = affine_rows(rows_c[..., :kd], db.mean_t, db.std_t, db.sqrt_wt,
                        idx < db.n_real, 1e6)
     diff = cand - tw[:, None, :]
     sq = torch.clamp(torch.sum(diff * diff, dim=-1), min=0.0)
     ac = torch.where(torch.isinf(scores), float("inf"), torch.sqrt(sq))
-    if ling is not None:
-        codes, ctx, weights = ling
-        mism = db.codes[idx] != codes[:, None]
-        rank = halfphone_exact_rank(sq, scores, mism, db.ctx[idx], ctx, weights)
-    else:
-        rank = ac
+    if ling is None:
+        return rows_c, ac, ac, None
+    codes, ctx, weights = ling
+    mism = db.codes[idx] != codes[:, None]
+    return rows_c, ac, halfphone_exact_rank(sq, scores, mism, db.ctx[idx], ctx,
+                                            weights), mism
+
+
+def _rescore(db: DeviceDB, tw, idx, scores, live, n_cand, ling=None):
+    """Exact f32 rescoring of the preselected candidates
+    (:func:`exact_scores`), then the canonical (score, unit id) order the
+    float64 oracle uses; keeps ``n_cand``.  In halfphone mode (``ling``) the
+    kept lattice costs go through :func:`halfphone_lattice_mask` (the JAX
+    batched step's form).  Returns (candidate ids, target costs, join-left,
+    join-right contexts)."""
+    zero = torch.zeros((), dtype=torch.float32, device=tw.device)
+    rows_c, ac, rank, mism = exact_scores(db, tw, idx, scores, ling)
     order = order_topk_positions(rank, idx, n_cand)
     cand_idx = torch.gather(idx, 1, order)
     target_costs = torch.gather(ac, 1, order)
@@ -369,23 +436,37 @@ class Synthesiser:
     in batches or (epoch units) as a stream.
 
     ``device`` is explicit: "cuda" (the default) raises where CUDA is absent;
-    "cpu" runs the kernels' plain twins (tests)."""
+    "cpu" runs the kernels' plain twins (tests).  With config ``mesh_data``
+    / ``mesh_db`` above 1, ``synth_batch`` runs over a mesh of
+    ``mesh_data * mesh_db`` members (:meth:`ensure_sharded`): cards 0..n-1
+    for "cuda" (it raises where there are fewer), the CPU repeated for
+    "cpu", or the devices of a list given as ``device`` (repeats allowed:
+    ``["cuda:0"] * 4`` runs a 2 x 2 mesh on one card); the single-device
+    paths run on its first."""
 
     def __init__(self, cfg: SnickeryConfig, db: VoiceDB | None = None,
                  device="cuda"):
+        self._mesh_devices = None
+        if not isinstance(device, (str, torch.device)):
+            self._mesh_devices = [torch.device(d) for d in device]
+            if not self._mesh_devices:
+                raise ValueError("an empty device list")
+            device = self._mesh_devices[0]
         self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("Synthesiser(device='cuda'): CUDA is not "
-                                   "available; pass device='cpu' explicitly "
-                                   "for the plain PyTorch path")
-            # full f32 products everywhere: the preselect and the lattice
-            # costs are exact f32 by contract (no TF32)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-        elif self.device.type != "cpu":
-            raise ValueError(f"unsupported device {self.device}")
+        for dev in self._mesh_devices or [self.device]:
+            if dev.type == "cuda":
+                if not torch.cuda.is_available():
+                    raise RuntimeError("Synthesiser(device='cuda'): CUDA is not "
+                                       "available; pass device='cpu' explicitly "
+                                       "for the plain PyTorch path")
+                # full f32 products everywhere: the preselect and the
+                # lattice costs are exact f32 by contract (no TF32)
+                torch.backends.cuda.matmul.allow_tf32 = False
+                torch.backends.cudnn.allow_tf32 = False
+            elif dev.type != "cpu":
+                raise ValueError(f"unsupported device {dev}")
         self.cfg = cfg
+        self._mesh = self._sharded_voice = None
         self.timer = utils.StageTimer()
         with self.timer.stage("load_db"):
             self.db = db if db is not None else VoiceDB.load(cfg.db_path)
@@ -397,10 +478,13 @@ class Synthesiser:
             self._prepare_device_db()
 
     def _check_supported(self) -> None:
-        """Refuse what the port does not serve yet: meshes."""
+        """Refuse an unknown precision, and a device list that is not the
+        config's mesh."""
         cfg = self.cfg
-        if max(1, cfg.mesh_data) * max(1, cfg.mesh_db) > 1:
-            raise NotImplementedError(f"multi-device meshes: {_TODO}")
+        if self._mesh_devices is not None and len(self._mesh_devices) != self.mesh_size:
+            raise ValueError(
+                f"{len(self._mesh_devices)} devices given for a mesh of "
+                f"mesh_data x mesh_db = {self.mesh_size}")
         if cfg.preselect_precision not in PRECISIONS:
             raise ValueError(f"preselect_precision={cfg.preselect_precision!r}; "
                              f"have {PRECISIONS}")
@@ -494,6 +578,44 @@ class Synthesiser:
         self._unit_vocab = {n: i for i, n in enumerate(db.unit_names)}
         self._phone_vocab = {n: i for i, n in enumerate(db.phone_names)}
         self._voice_vocab = {n: i for i, n in enumerate(db.voice_names)}
+
+    @property
+    def mesh_size(self) -> int:
+        return max(1, self.cfg.mesh_data) * max(1, self.cfg.mesh_db)
+
+    def ensure_sharded(self) -> None:
+        """Create the (data x db) mesh and the sharded voice if needed
+        (counterpart of ``snickery_tpu.synth.Synthesiser.ensure_sharded``).
+
+        Called lazily by ``synth_batch`` on a mesh; callers driving
+        :func:`~snickery_tpu_torch.parallel.batched_synth_step` directly
+        call it first and then use ``self._mesh`` / ``self._sharded_voice``.
+        At one DB shard the members alias the resident raw block (on its
+        device, without a copy); with ``mesh_db`` above 1 the shard-local
+        blocks (local jr-exception pointers and halo rows) are rebuilt on
+        the host for this mesh."""
+        if self._mesh is not None:
+            return
+        from snickery_tpu_torch.parallel import make_mesh, shard_voice
+        cfg = self.cfg
+        ndb = max(1, cfg.mesh_db)
+        devices = self._mesh_devices
+        if devices is None and self.device.type == "cpu":
+            devices = [self.device] * self.mesh_size
+        self._mesh = make_mesh(max(1, cfg.mesh_data), ndb, devices=devices)
+        ddb = self.device_db
+        if ndb == 1:
+            raw_block = ddb.raw
+        else:
+            raw_block, _, _ = build_raw_blocks(
+                self.db.unit_features, self.db.join_right, self.n_units_padded,
+                ndb=ndb, affine=(self.db.mean_target, self.db.std_target,
+                                 self._sqrt_wt))
+        self._sharded_voice = shard_voice(
+            self._mesh, raw_block, ddb.cut1, ddb.cut2, ddb.waves, ddb.mean_t,
+            ddb.std_t, ddb.sqrt_wt, ddb.mean_j, ddb.std_j, ddb.sqrt_wj,
+            n_real=int(ddb.n_real), part=ddb.vids, codes=ddb.codes, ctx=ddb.ctx,
+            wave_scale=ddb.wave_scale)
 
     def _preselect_method(self) -> str:
         """Resolve config preselection_method ("" = auto by voice type)."""
@@ -629,10 +751,36 @@ class Synthesiser:
              segments_list: list | None, voice_ids: list[int]) -> list[dict]:
         tgts, lengths, kwargs = self.batch_inputs(prepped, segments_list, voice_ids)
         with self.timer.stage("synth_step"):
-            unit_ids, costs, audio, totals = synth_pipeline_step(
-                self.device_db, tgts, lengths, greedy=greedy, **kwargs)
-            unit_ids, costs = unit_ids.cpu().numpy(), costs.cpu().numpy()
-            audio, totals = audio.cpu().numpy(), totals.cpu().numpy()
+            out = synth_pipeline_step(self.device_db, tgts, lengths, greedy=greedy,
+                                      **kwargs)
+            unit_ids, costs, audio, totals = (t.cpu().numpy() for t in out)
+        return self._results(prepped, unit_ids, costs, audio, totals)
+
+    def _run_sharded(self, prepped: list[tuple[np.ndarray, int]], greedy: bool,
+                     segments_list: list | None, voice_ids: list[int]) -> list[dict]:
+        """One :func:`batched_synth_step` over the mesh; the batch is padded
+        with zero-length dummies (voice id -1) to a multiple of the mesh,
+        as the JAX ``synth_batch`` pads it."""
+        from snickery_tpu_torch.parallel import batched_synth_step
+        self.ensure_sharded()
+        pad = (-len(prepped)) % self.mesh_size
+        kd = self.db.target_dim
+        padded = prepped + [(np.zeros((0, kd), np.float32), 0)] * pad
+        segs = None if segments_list is None else list(segments_list) + [[]] * pad
+        vids = list(voice_ids) + [-1] * pad
+        tgts, lengths, kw = self.batch_inputs(padded, segs, vids)
+        step_vids = (torch.tensor(vids, dtype=torch.int32, device=self.device)
+                     if kw.pop("multivoice") else None)
+        del kw["tgt_vids"]
+        with self.timer.stage("synth_batch_step"):
+            out = batched_synth_step(
+                self._sharded_voice, tgts, lengths, kw.pop("jcw"), kw.pop("eps"),
+                step_vids, kw.pop("tgt_codes"), kw.pop("tgt_ctx"), mesh=self._mesh,
+                greedy=greedy, **kw)
+            unit_ids, costs, audio, totals = (t.cpu().numpy() for t in out)
+        return self._results(prepped, unit_ids, costs, audio, totals)
+
+    def _results(self, prepped, unit_ids, costs, audio, totals) -> list[dict]:
         results = []
         for b, (_, n) in enumerate(prepped):
             ids = unit_ids[b, :n].astype(np.int32)
@@ -671,12 +819,14 @@ class Synthesiser:
                     segments_list: list | None = None) -> list[dict]:
         """Synthesise several utterances in one step, padded to a shared
         length bucket; one result dict per utterance, as
-        :meth:`synth_from_features` returns.  ``voices``: one voice name or
-        id per utterance (merged DBs); ``segments_list``: one
-        HalfphoneSegment list per utterance (halfphone voices, whose
-        ``feature_list`` entries are unit-rate)."""
+        :meth:`synth_from_features` returns; on a mesh (config
+        ``mesh_data`` / ``mesh_db``) through :meth:`_run_sharded`.
+        ``voices``: one voice name or id per utterance (merged DBs);
+        ``segments_list``: one HalfphoneSegment list per utterance
+        (halfphone voices, whose ``feature_list`` entries are unit-rate)."""
         prepped, vids = self._prepare(feature_list, segments_list, voices)
-        return self._run(prepped, greedy, segments_list, vids)
+        run = self._run if self.mesh_size == 1 else self._run_sharded
+        return run(prepped, greedy, segments_list, vids)
 
     def synth_streaming(self, feature_chunks, greedy: bool = True, voice=None,
                         fixed_frameshift: float = 0.0):

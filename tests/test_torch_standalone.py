@@ -381,3 +381,11 @@ def test_import_scan_covers_the_analysis_chain():
                 "features/epochs.py", "io/est.py", "native/__init__.py", "train.py",
                 "evaluate.py", "synthetic_voices.py", "cli.py"):
         assert f"snickery_tpu_torch/{rel}" in names, rel
+
+
+def test_import_scan_covers_the_parallel_package():
+    """The AST scan above reads the mesh modules (parallel/), which import
+    torch and the port only."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for rel in ("__init__.py", "mesh.py", "sharded.py", "dryrun.py"):
+        assert f"snickery_tpu_torch/parallel/{rel}" in names, rel

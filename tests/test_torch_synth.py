@@ -172,15 +172,6 @@ def test_cuda_device_raises_without_cuda(voices, monkeypatch):
         Synthesiser(cfg, db, device="cuda")
 
 
-@pytest.mark.parametrize("override", [{"mesh_db": 2}, {"mesh_data": 2}])
-def test_unported_modes_raise(voices, override):
-    """What the port does not serve yet raises NotImplementedError naming
-    ROADMAP: multi-device meshes."""
-    cfg, db, *_ = voices
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Synthesiser(dataclasses.replace(cfg, **override), db, device="cpu")
-
-
 @pytest.mark.parametrize("method", ["quinphone", "quinphone_backoff"])
 def test_linguistic_preselection_needs_halfphone_voice(voices, method):
     """A linguistic preselection_method on an epoch voice is a ValueError,
