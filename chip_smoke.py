@@ -291,24 +291,43 @@ def synthetic_block(rng, m: int, kd: int, dup: bool):
 
 
 def bound_ms(T: int, m_rows: int, kd: int, k: int, precision: str, masked: bool,
-             row_bytes: float | None = None):
+             row_bytes: float | None = None, work: tuple | None = None):
     """(least time in ms, "operations" or "bytes") the card could take for
-    one preselect call: 2 T m_rows kd FLOP per product (three bf16 products
-    at a split precision) at the peak rate of its type, against the bytes
-    the call must move (targets; each DB row's data and its sqn, ``row_bytes``
-    a row, by default 4 (kd + 1): the raw block's data and sqn columns or
-    the derived f32 operand and its sqn; the metadata rows when masked; each
-    read once; the (T, k) scores and ids written once) at HBM bandwidth.
-    The mask compares are integer work beside the kd products of each score
-    and are not counted."""
-    flops = 2.0 * T * m_rows * kd * (1 if precision == "highest" else 3)
+    one preselect call: 2 kd FLOP per (target, DB row) product, T m_rows of
+    them (three bf16 products at a split precision), at the peak rate of its
+    type, against the bytes the call must move (targets; each DB row's data
+    and its sqn, ``row_bytes`` a row, by default 4 (kd + 1): the raw block's
+    data and sqn columns or the derived f32 operand and its sqn; the
+    metadata rows when masked; each read once; the (T, k) scores and ids
+    written once) at HBM bandwidth.  ``work`` = (products, DB rows) where
+    the data needs fewer (:func:`partition_work`).  The mask compares are
+    integer work beside the kd products of each score and are not counted."""
+    pairs, rows = work or (T * m_rows, m_rows)
+    flops = 2.0 * pairs * kd * (1 if precision == "highest" else 3)
     if row_bytes is None:
         row_bytes = 4.0 * (kd + 1)
-    nbytes = 4.0 * (T * kd + 2 * T * k) + m_rows * row_bytes
+    nbytes = 4.0 * (T * kd + 2 * T * k) + rows * row_bytes
     if masked:
-        nbytes += 32.0 * (T + m_rows)
+        nbytes += 32.0 * (T + rows)
     t_ops, t_bytes = flops / PEAK_FLOPS[precision], nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def partition_work(masks: dict, m_rows: int) -> tuple | None:
+    """(products, DB rows) a partition-masked call needs, from its masks:
+    each target against the rows of its own voice id (a dead step, id -1,
+    against the padding rows), and the rows of the voices its targets
+    have; None without the partition mask (every target against every
+    row)."""
+    if not masks.get("partition"):
+        return None
+    import torch
+    dv = masks["db_meta"][:m_rows, 6].long()
+    ids, counts = torch.unique(dv, return_counts=True)
+    per_voice = dict(zip(ids.tolist(), counts.tolist()))
+    tid, tcount = torch.unique(masks["tgt_meta"][:, 6].long(), return_counts=True)
+    pairs = sum(c * per_voice.get(v, 0) for v, c in zip(tid.tolist(), tcount.tolist()))
+    return pairs, sum(per_voice.get(v, 0) for v in tid.tolist())
 
 
 def matmul_ms(torch, x, rows, precision: str) -> float:
@@ -667,8 +686,14 @@ def select_variants_synthetic(torch) -> dict:
 def edge_cases_synthetic(torch) -> None:
     """The edges of the kernels' tiles and of their screened epilogue
     (kernel_check.EDGE_CASES) against the twins, at "highest" and
-    "split3cat", in both operand forms."""
-    from snickery_tpu_torch.kernel_check import EDGE_CASES, run_edge_case
+    "split3cat", in both operand forms; then the partition kernels' span
+    edge cases (kernel_ab.SPAN_CASES: unaligned voices, one shorter than k,
+    dead targets with padding rows, tiles of two voices, ids with gaps and
+    a voice in two runs, a shard of padding only) the same way, and their
+    digests at the case's own precision against those of PR 9's kernels,
+    which scanned every row."""
+    from snickery_tpu_torch import kernel_ab
+    from snickery_tpu_torch.kernel_check import EDGE_CASES, compare, run_edge_case
     dev = torch.device("cuda")
     for name, (T, M, kd, k, _) in EDGE_CASES.items():
         for precision in ("highest", "split3cat"):
@@ -678,19 +703,44 @@ def edge_cases_synthetic(torch) -> None:
                 log(f"edge {name} T={T} M={M} kd={kd} {precision} {'zt' if zt else 'dv'}: "
                     f"max_abs_err {err:.3e}, near-tie id swaps {nbad}, dead slots {dead} "
                     f"({time.perf_counter() - t0:.2f} s with the twin)")
+    for name in kernel_ab.SPAN_CASES:
+        for precision in ("highest", "split3cat"):
+            for zt in (True, False):
+                x, block, aff, m_rows, k, prec, kw = kernel_ab.span_case(name, dev, precision, zt)
+                kw.pop("zero_transient", None)
+                err, nbad, dead = compare(x, block, aff, m_rows, k, prec, **kw)
+                if prec == "highest":
+                    check(err == 0.0 and nbad == 0, f"{name}: not equal to its twin at highest")
+                log(f"edge {name} T={x.shape[0]} M={m_rows} {prec} {'zt' if zt else 'dv'}: "
+                    f"max_abs_err {err:.3e}, near-tie id swaps {nbad}, dead slots {dead}")
+    for line in kernel_ab.run_cases("chip_smoke", 1, set(kernel_ab.SPAN_CASES)):
+        got, want = (line["ids_sha256"], line["scores_sha256"]), kernel_ab.PR9_DIGESTS[line["case"]]
+        log(f"{line['case']} ({line['precision']}, k {line['k']}): sha256 of ids {got[0]}, of "
+            f"scores {got[1]}; PR 9's kernels: {want[0]}, {want[1]}")
+        check(got == want, f"{line['case']}: digests differ from PR 9's kernels'")
 
 
 def first_design_digests() -> None:
-    """The "highest" kernels' (ids, scores) digests on the seeded case of
-    snickery_tpu_torch.kernel_ab (65,536 x 1,048,576 x 151), beside those
-    the first design printed: each score is one ascending fmaf chain and the
-    selection is exact, so a redesign of the tiles must not move a bit."""
+    """The (ids, scores) digests of every seeded case of
+    snickery_tpu_torch.kernel_ab (the batch shapes, the chunks, capacity and
+    the small grids; the span cases run in edge_cases_synthetic) against
+    those PR 9's kernels printed (kernel_ab.PR9_DIGESTS), and the two
+    "highest" batch cases against the first design's too: a score is one
+    ascending fmaf chain at "highest" and one wgmma chain at the split
+    precisions, which no redesign of the list phase, the spans or pass 2
+    changes, and the selection is exact, so no bit may move."""
     from snickery_tpu_torch import kernel_ab
-    for line in kernel_ab.run_cases("chip_smoke", 1, set(kernel_ab.FIRST_DESIGN_DIGESTS)):
-        got = (line["ids_sha256"], line["scores_sha256"])
-        want = kernel_ab.FIRST_DESIGN_DIGESTS[line["case"]]
-        log(f"{line['case']} k={line['k']}: {line['ms']:.2f} ms, sha256 of ids {got[0]}, of "
-            f"scores {got[1]}; the first design's: {want[0]}, {want[1]}; equal: {got == want}")
+    cases = set(kernel_ab.ALL_CASES) - set(kernel_ab.SPAN_CASES)
+    for line in kernel_ab.run_cases("chip_smoke", 1, cases):
+        got, case = (line["ids_sha256"], line["scores_sha256"]), line["case"]
+        want = kernel_ab.PR9_DIGESTS[case]
+        first = kernel_ab.FIRST_DESIGN_DIGESTS.get(case)
+        log(f"{case} T={line['T']} M={line['m_rows']} {line['precision']} k={line['k']}: "
+            f"{line['ms']:.2f} ms, sha256 of ids {got[0]}, of scores {got[1]}; PR 9's: "
+            f"{want[0]}, {want[1]}" + (f"; the first design's: {first[0]}, {first[1]}"
+                                       if first else ""))
+        check(got == want, f"{case}: digests differ from PR 9's kernels'")
+        check(first is None or got == first, f"{case}: digests differ from the first design's")
 
 
 SWEEP_SHAPE = (2048, 131072)   # the sweep's small shape: target rows, units
@@ -880,13 +930,17 @@ class Run:
                 sqn=sqn, **m), 3)
             plain_ms = time_ms(torch, lambda: plain(x, block, k, block_aff, m_rows,
                                                     precision=precision, **m), 1)
-            b_ms, b_by = bound_ms(T, m_rows, kd, k, precision, bool(masks), row_bytes)
+            b_ms, b_by = bound_ms(T, m_rows, kd, k, precision, bool(masks), row_bytes,
+                                  partition_work(m, m_rows))
             row = dict(shape=f"{T} x {m_rows} x {kd}, k {k}", ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by, matmul_ms=None, max_abs_err=err)
             msg = ""
+            if m.get("partition"):
+                msg = (f", bound over the full DB "
+                       f"{bound_ms(T, m_rows, kd, k, precision, True, row_bytes)[0]:.3f} ms")
             if (report if matmul is None else matmul) and T == T_list[-1]:
                 row["matmul_ms"] = matmul_ms(torch, x, db_rows, precision)
-                msg = f", torch.matmul of the product alone {row['matmul_ms']:.2f} ms"
+                msg += f", torch.matmul of the product alone {row['matmul_ms']:.2f} ms"
             if report:
                 self.shapes[kernel] = row["shape"]
                 self.times[kernel] = (ms, plain_ms)
@@ -934,7 +988,8 @@ class Run:
         err, nbad, dead = judge(got, want, x, block, aff, m_rows, precision, sqn=sqn,
                                 n_real=n_real, **{**masks, "select": select})
         del want
-        b_ms, b_by = bound_ms(T, m_rows, kd, k, precision, bool(masks), row_bytes)
+        b_ms, b_by = bound_ms(T, m_rows, kd, k, precision, bool(masks), row_bytes,
+                              partition_work(masks, m_rows))
         self.errs[name] = max(self.errs.get(name, 0.0), err)
         self.times[name], self.bounds[name], self.matmul[name] = (ms, plain_ms), (b_ms, b_by), matmul
         self.shapes[name] = f"{T} x {m_rows} x {kd}, k {k}"
@@ -2568,7 +2623,7 @@ def main() -> int:
             run.errs[name] = max(run.errs.get(name, 0.0), err)
     with Phase("tile edges and queue overflow vs plain, synthetic"):
         edge_cases_synthetic(torch)
-    with Phase("highest: digests of the seeded batch-shape case"):
+    with Phase("digests of kernel_ab's seeded cases against PR 9's kernels"):
         first_design_digests()
     with Phase("kernel sweep (the selection variants' path)"):
         sweep_path(run)

@@ -13,7 +13,7 @@
 // "packed3" / "packed3diag" (_packed3_select); see "Selection" below.  At
 // precision "highest" with or without the fused partition mask (multi-voice
 // DBs, _compute_scores :187-191) and the fused quinphone penalties
-// (halfphone voices, :192-208): topk_partial<TT, PART, LING, SEL>.  At the
+// (halfphone voices, :192-208): topk_partial<TT, PART, LING, SEL, BULK>.  At the
 // bf16-split precisions "split3" (_split3_dot :77-93) and "split3cat"
 // (_bf16_split :96-99, the [hi|hi|lo] concat :112-130, :158-178), with the
 // same fused masks applied after the product (:156-208 composed):
@@ -118,18 +118,48 @@
 //     which goes back to the producer as soon as the sqn are in registers
 //     (after the scores in the masked variants).  "split3" runs at TT = 64
 //     (three accumulators).
-//   pass 2 (topk_merge): one warp per target merges the S sorted partial
-//     lists under the same (score, index) order and adds comp (the
-//     zero-transient form only).
+//   pass 2 (topk_merge): gw warps a target (1 to 8: more where there are
+//     few targets and many splits) merge the S sorted partial lists under
+//     the same (score, index) order, each warp its share by sorted-list
+//     merges (a bitonic half-cleaner network, the loads of four lists in
+//     flight, empty lists skipped), then the target's first warp the
+//     others' lists; comp is added (the zero-transient form only).
 //
 // S is chosen by the wrapper so that tiles x S fills the card at small T
-// (one utterance: 1 to 16 target tiles) as well as at large T.
+// (one utterance: 1 to 16 target tiles) as well as at large T.  The CTA of
+// split s takes the chunks s, s + S, ... of rows_per_split rows of the rows
+// its target tile scans (cta_rows): all of [0, m_rows), or with the
+// partition mask the tile's voice spans, which the wrapper computes per
+// tile (the hull of its targets' voices' rows, and the padding rows where a
+// target is dead, voice id -1 as padding rows have; rounded out to 128-row
+// blocks): a merged DB holds each voice's rows in one run, so a tile of one
+// voice scans that run and nothing of the other voices, whose scores would
+// all be +inf.  The plan covers the longest voice and the padding rows in
+// one chunk a CTA; a tile of two voices takes more chunks.
 //
 // The sparse epilogue.  A finished score is compared in registers with its
 // target's threshold, the worst kept (score, row) pair (slot k - 1 of the
 // list), under the lists' own order, so that of many rows with one score
-// (padding rows, duplicates) only those pass that can still win; and only
-// the survivors are appended, as (value, target, row), to a queue of QCAP
+// (padding rows, duplicates) only those pass that can still win.  In the
+// STREAM selection the survivors then reach the lists in bulk: a target's
+// survivors of one DB tile are sorted by a warp's bitonic network and
+// merged with its sorted list held in registers (FEW or fewer are inserted
+// one at a time by a ballot and a shuffle), one merge a (target, tile with
+// survivors), in the manner of
+// WarpSelect's warp merges (arXiv:1702.08734, section 5).  A split's first
+// tile passes every finite score against the open thresholds, so its
+// scores are sorted into the empty lists at once and the thresholds start
+// warm.  In topk_partial (splits of at most BULK_ROWS rows; longer ones,
+// whose tiles are nearly all warm, keep the queue below) a warp holds every
+// score of the tile for its own 16 targets (warp_select: no queue, no
+// atomics, no barrier); in topk_partial_split a target's scores lie in all
+// four
+// warps of a consumer warpgroup, so the first tile and a tile whose
+// survivors overflow the queue go through shared memory, 8 targets a round
+// (group_rounds), under the CTA's list lock, and the few survivors of a
+// warm tile through the queue below.  The other selections (PHASE, PACKED,
+// PACKED3, sweep only), STREAM's long splits in topk_partial and its warm
+// tiles in topk_partial_split append the survivors, as (value, target, row), to a queue of QCAP
 // entries in shared memory (QCAP = 1024 in topk_partial, QCAP2 = 512 for
 // each consumer warpgroup of topk_partial_split).  The queue is drained into
 // the lists, each entry inserted by the warp that owns its target under the
@@ -143,7 +173,8 @@
 // rule: an entry that finds the queue full stays pending in its thread's
 // registers; the queue is drained, the pending scores are screened again
 // against the lowered worst and appended again, until none is pending (cold
-// lists at the start of a split, a DB sorted by falling score).  A warm
+// lists at the start of a split, a DB sorted by falling score); in STREAM
+// the pending scores go into the lists in bulk after the one drain.  A warm
 // list takes k / rows_seen of a tile's scores, so after the first few tiles
 // a tile adds a handful of entries.  Without masks and with score lists
 // (STREAM, PHASE) the screen is two instructions a score: one fmaf forms it
@@ -155,8 +186,9 @@
 // both consumer warpgroups insert into the same lists, so a warpgroup
 // drains its own queue while it holds the CTA's list lock.
 //
-// Selection (SEL): how the queued survivors reach the lists.
-//   STREAM: in queue order; exact, lowest index on ties.
+// Selection (SEL): how the survivors reach the lists.
+//   STREAM: sorted batches merged with the lists (a warm tile's few in
+//     queue order in topk_partial_split); exact, lowest index on ties.
 //   PHASE:  by rounds of warp minimum over a batch of queue entries, lowest
 //     row holding it, insert, mask the extracted entry: the same exact
 //     top-k, bit for bit, found the way the Pallas phase loop finds it.
@@ -181,14 +213,15 @@
 // Pallas kernel fills them with (+inf, some row).
 //
 // Shared memory of pass 1 (partial_smem), one CTA an SM.  "highest":
-// 4 * (TT * kd16 + 3 * 16 * 132 + 3 * 128 + 2 * TT * k) + 12 KB of queue,
-// kd16 = kd rounded up to 16, plus 12 KB + 32 TT of metadata in the masked
-// variants: 159 KB at kd 151, k 40, TT 128; at kd 453 TT 128 would need
-// 232 KB for the targets alone, so TT is 64 there (about 175 KB).  Split
-// precisions: the target tile 2 * TT * 128 * ceil(kd / 64) bytes (96 KB at
-// kd 151 and TT 128, 128 KB at kd 453 and TT 64), the ring 16 KB a stage
-// (four where they fit, two at the least: split_stages), the lists 8 TT k,
-// two queues of 6 KB: 223 KB at kd 151, k 48, TT 128 with four stages.  The
+// 4 * (TT * kd16 + 3 * 16 * 132 + 3 * 128 + 2 * TT * k) + 12 KB of queue
+// (8 KB of staging in the bulk epilogue), kd16 = kd rounded up to
+// 16, plus 12 KB + 32 TT of metadata in the masked variants: 159 KB (155 KB
+// bulk) at kd 151, k 40, TT 128; at kd 453 TT 128 would need 232 KB for the
+// targets alone, so TT is 64 there (about 175 KB).  Split precisions: the target
+// tile 2 * TT * 128 * ceil(kd / 64) bytes (96 KB at kd 151 and TT 128, 128
+// KB at kd 453 and TT 64), the ring 16 KB a stage (four where they fit, two
+// at the least: split_stages), the lists 8 TT k, two queues of 6 KB: 223 KB
+// at kd 151, k 48, TT 128 with four stages.  The
 // ring is what is short: four stages are one tile and a third, so a
 // warpgroup's next tile is fetched only as the other's is consumed, and the
 // latency of L2 is not hidden (PERF.md).
@@ -234,6 +267,8 @@ constexpr int KEY_EMPTY = INT_MAX;      // no key: an empty slot, a +inf score
 constexpr int B3 = 4;                   // packed3 state a target: the block's
                                         // three least keys, the least third
 constexpr int QCAP = 1024;              // queue entries of topk_partial
+constexpr int STAGE1 = 128;             // staged survivors of a warp (STREAM): a
+                                        //   target's in a 128-row tile
 constexpr int QCAP2 = 512;              // of each consumer warpgroup of
                                         // topk_partial_split
 constexpr int SMEM_LIMIT = 232448;      // 227 KB: what a block may use
@@ -265,6 +300,13 @@ __device__ __forceinline__ bool lex_less(float av, int ai, float bv, int bi) {
 
 __device__ __forceinline__ bool lex_less(int ak, int ai, int bk, int bi) {
   return ak < bk || (ak == bk && ai < bi);
+}
+
+// What the screen compares a target's scores with: the worst kept score,
+// but FLT_MAX at most, so that a +inf score fails `<=` without a test of its
+// own.  (Targets past T get -inf: nothing passes.)
+__device__ __forceinline__ int screen_bits(float worst) {
+  return __float_as_int(fminf(worst, 3.402823466e+38f));
 }
 
 // Order-preserving f32 -> int32 key (pallas_topk._to_key): non-negative bit
@@ -320,41 +362,178 @@ __device__ void warp_insert(V* lv, int* li, int k, V v, int i, int lane) {
   __syncwarp();
 }
 
-// Offer one candidate per lane (ok = the lane holds one) to the list; the
-// finite candidates that beat the worst slot are inserted one at a time in
-// lane order, each re-checked against the worst slot as it stands then.
-// (Pass 2.)
-__device__ void warp_offer(float* lv, int* li, int k, float v, int i, bool ok,
-                           int lane) {
-  unsigned m = __ballot_sync(
-      FULL, ok && v < pos_inf() && lex_less(v, i, lv[k - 1], li[k - 1]));
-  while (m) {
-    const int src = __ffs(m) - 1;
-    m &= m - 1;
-    const float cv = __shfl_sync(FULL, v, src);
-    const int ci = __shfl_sync(FULL, i, src);
-    if (lex_less(cv, ci, lv[k - 1], li[k - 1])) {
-      warp_insert(lv, li, k, cv, ci, lane);
+// ------------------------------------------------- warp sorting networks
+// A warp holds a sequence of 64 (value, row) pairs, two a lane: element
+// 2 lane + r in v[r], x[r] (V float: scores; V int: packed keys), ordered
+// by lex_less, so the lowest row wins a tie.  The pair (none, INT_MAX) is
+// an empty slot and sorts after every real pair (a real score is finite, a
+// real key below KEY_EMPTY).  The networks are those of Batcher's bitonic
+// sort, as the warp-level merges of WarpSelect (Johnson, Douze and Jegou,
+// "Billion-scale similarity search with GPUs", arXiv:1702.08734, section 5)
+// run them.
+template <typename V>
+__device__ __forceinline__ V none_value() {
+  if constexpr (std::is_same<V, int>::value) {
+    return KEY_EMPTY;
+  } else {
+    return pos_inf();
+  }
+}
+
+// One compare-exchange step: element i against element i ^ d; the lower
+// index keeps the smaller pair where the block of s elements that holds i
+// sorts ascending ((i & s) == 0), the larger where it sorts descending.
+template <typename V>
+__device__ __forceinline__ void bitonic_step(V (&v)[2], int (&x)[2], int s, int d,
+                                             int lane) {
+  if (d == 1) {                           // both elements in this lane
+    const bool asc = ((2 * lane) & s) == 0;
+    if (asc ? lex_less(v[1], x[1], v[0], x[0]) : lex_less(v[0], x[0], v[1], x[1])) {
+      const V tv = v[0];
+      const int tx = x[0];
+      v[0] = v[1];
+      x[0] = x[1];
+      v[1] = tv;
+      x[1] = tx;
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const V pv = __shfl_xor_sync(FULL, v[r], d >> 1);
+    const int px = __shfl_xor_sync(FULL, x[r], d >> 1);
+    const int i = 2 * lane + r;
+    const bool keep_min = ((i & d) == 0) == ((i & s) == 0);
+    if (keep_min ? lex_less(pv, px, v[r], x[r]) : lex_less(v[r], x[r], pv, px)) {
+      v[r] = pv;
+      x[r] = px;
     }
   }
 }
 
-// The packed forms' offer: one candidate key per lane (ok = the lane holds
-// one; never KEY_EMPTY).  One int compare screens a candidate against the
-// worst key; the ones that pass (an equal key among them) are inserted one
-// at a time in lane order under the (key, index) order.  (Pass 2.)
-__device__ void warp_offer_key(int* lk, int* li, int k, int key, int i, bool ok,
-                               int lane) {
-  unsigned m = __ballot_sync(FULL, ok && key <= lk[k - 1]);
-  while (m) {
-    const int src = __ffs(m) - 1;
-    m &= m - 1;
-    const int ck = __shfl_sync(FULL, key, src);
-    const int ci = __shfl_sync(FULL, i, src);
-    if (lex_less(ck, ci, lk[k - 1], li[k - 1])) {
-      warp_insert(lk, li, k, ck, ci, lane);
+// Sort the first W elements ascending (W a power of two, 1..64, the same in
+// every lane); elements W.. must be empty slots, so the 64 end ascending.
+template <typename V>
+__device__ __forceinline__ void bitonic_sort(V (&v)[2], int (&x)[2], int W, int lane) {
+  for (int s = 2; s <= W; s <<= 1) {
+    for (int d = s >> 1; d > 0; d >>= 1) bitonic_step(v, x, s, d, lane);
+  }
+}
+
+// The 64 least pairs of two ascending sequences, ascending, into (l, lx):
+// element i of l against element 63 - i of c (lane 31 - lane, the other
+// element) keeps the less, which leaves a bitonic sequence holding the 64
+// least, and the half-cleaners of the last stage sort it.
+template <typename V>
+__device__ __forceinline__ void merge_sorted(V (&l)[2], int (&lx)[2], const V (&c)[2],
+                                             const int (&cx)[2], int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const V cv = __shfl_sync(FULL, c[1 - r], 31 - lane);
+    const int ci = __shfl_sync(FULL, cx[1 - r], 31 - lane);
+    if (lex_less(cv, ci, l[r], lx[r])) {
+      l[r] = cv;
+      lx[r] = ci;
     }
   }
+  for (int d = 32; d > 0; d >>= 1) bitonic_step(l, lx, 64, d, lane);
+}
+
+// Pair j of the list (lv, li) of k slots, or an empty slot past k.
+template <typename V>
+__device__ __forceinline__ void load_pairs(const V* lv, const int* li, int k, V (&v)[2],
+                                           int (&x)[2], int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = 2 * lane + r;
+    v[r] = j < k ? lv[j] : none_value<V>();
+    x[r] = j < k ? li[j] : INT_MAX;
+  }
+}
+
+// Insert the pair (v, u), the same in every lane, into the ascending
+// sequence (l, lx) held in registers (element 2 lane + r): its rank p is
+// the count of elements below it (two ballots), element j keeps itself
+// below p, takes (v, u) at p and element j - 1 above p (one shuffle).
+// Only the first k elements are kept in the end: a pair of rank k or more
+// lands past them, and elements past k never lower a later pair's rank
+// below k (each is above every one of the first k).
+template <typename V>
+__device__ __forceinline__ void reg_insert(V (&l)[2], int (&lx)[2], V v, int u, int lane) {
+  const int p = __popc(__ballot_sync(FULL, lex_less(l[0], lx[0], v, u))) +
+                __popc(__ballot_sync(FULL, lex_less(l[1], lx[1], v, u)));
+  const V up = __shfl_up_sync(FULL, l[1], 1);
+  const int upx = __shfl_up_sync(FULL, lx[1], 1);
+  const int j0 = 2 * lane, j1 = j0 + 1;
+  const V n1 = j1 < p ? l[1] : j1 == p ? v : l[0];
+  const int x1 = j1 < p ? lx[1] : j1 == p ? u : lx[0];
+  if (j0 >= p) {
+    l[0] = j0 == p ? v : up;
+    lx[0] = j0 == p ? u : upx;
+  }
+  l[1] = n1;
+  lx[1] = x1;
+}
+
+// Batches of at most this many survivors of one target go into its list
+// one pair at a time (reg_insert); larger ones are sorted by the bitonic
+// network and merged with it (merge_sorted), which costs about as much as
+// this many inserts whatever the batch's size.
+constexpr int FEW = 8;
+
+// Sort the n survivors (cv, ci)[0..n) (shared memory, any order) and merge
+// them, 64 at a time, into the ascending sequence (l, lx) held in
+// registers.
+__device__ __forceinline__ void merge_staged(float (&l)[2], int (&lx)[2], const float* cv,
+                                             const int* ci, int n, int lane) {
+  for (int b = 0; b < n; b += 64) {
+    const int m = min(64, n - b);
+    float c[2];
+    int cx[2];
+    load_pairs(cv + b, ci + b, m, c, cx, lane);
+    int W = 2;
+    while (W < m) W <<= 1;
+    bitonic_sort(c, cx, W, lane);
+    merge_sorted(l, lx, c, cx, lane);
+  }
+}
+
+// Store the first k elements of (l, lx) as the list (lv, li) and its worst
+// kept pair (element k - 1) as the screen's threshold *worst (screen_bits
+// of its score, its row).
+__device__ __forceinline__ void store_list(float* lv, int* li, int k, const float (&l)[2],
+                                           const int (&lx)[2], int2* worst, int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = 2 * lane + r;
+    if (j < k) {
+      lv[j] = l[r];
+      li[j] = lx[r];
+    }
+  }
+  const float wv = __shfl_sync(FULL, (k - 1) & 1 ? l[1] : l[0], (k - 1) >> 1);
+  const int wx = __shfl_sync(FULL, (k - 1) & 1 ? lx[1] : lx[0], (k - 1) >> 1);
+  if (lane == 0) *worst = make_int2(screen_bits(wv), wx);
+  __syncwarp();
+}
+
+// Merge the n survivors (cv, ci)[0..n) of one target (shared memory, any
+// order) into its ascending list (lv, li) of k slots, keeping the k least
+// pairs, and store the list's new threshold in *worst.  Warp-cooperative.
+// Survivors were screened against a threshold that may be out of date: one
+// that no longer beats the list is dropped here.
+__device__ __forceinline__ void merge_batch(float* lv, int* li, int k, const float* cv,
+                                            const int* ci, int n, int2* worst, int lane) {
+  float l[2];
+  int lx[2];
+  load_pairs(lv, li, k, l, lx, lane);
+  if (n <= FEW) {
+    for (int c = 0; c < n; ++c) reg_insert(l, lx, cv[c], ci[c], lane);
+  } else {
+    merge_staged(l, lx, cv, ci, n, lane);
+  }
+  __syncwarp();
+  store_list(lv, li, k, l, lx, worst, lane);
 }
 
 // ---------------------------------------------------------------- selection
@@ -429,13 +608,6 @@ struct WarpGroup {
     }
   }
 };
-
-// What the screen compares a target's scores with: the worst kept score,
-// but FLT_MAX at most, so that a +inf score fails `<=` without a test of its
-// own.  (Targets past T get -inf: nothing passes.)
-__device__ __forceinline__ int screen_bits(float worst) {
-  return __float_as_int(fminf(worst, 3.402823466e+38f));
-}
 
 // Does the score v at DB row u pass the screen of a list whose threshold
 // pair is w?  The exact (score, row) order, so that of many rows with one
@@ -543,6 +715,65 @@ __device__ __forceinline__ void insert3(int* s, int x) {
   atomicMin(s + 2, x);
 }
 
+// topk_partial_split, STREAM: survivors of one warpgroup's DB tile into the
+// lists in bulk, where the queue would take them a pair at a time: the
+// group's first tile, whose every finite score passed the open thresholds,
+// and the survivors left pending when the queue overflowed (sparse_select).
+// A target's scores of a tile lie in all four warps of the group (warp w
+// holds DB rows 16 w .. and 16 w + 8 ..), so the survivors go through the
+// group's queue area, which is empty then: 8 targets a round (the values e
+// of a thread with e / 4 = j: targets 8 j .. 8 j + 7), each thread
+// appending its survivors (bits) of the round's targets to the target's
+// staging row (64 slots: a tile has 64 rows), and warp w merging the
+// round's targets w and w + 4 into their lists (merge_batch): one merge a
+// (target, tile).  Rounds without survivors are skipped (the group's mask
+// of 8-target groups with survivors, OR-ed in shared memory).  The caller
+// holds the CTA's list lock: the other warpgroup updates the same lists.
+constexpr int RT2 = 8;                  // targets a round
+
+template <int N, typename TOf, typename UOf>
+__device__ __forceinline__ void group_rounds(const float (&vals)[N], unsigned long long bits,
+                                             TOf t_of, UOf u_of, const Select& s,
+                                             const WarpGroup& g, int lane) {
+  constexpr int NG = N / 4;               // 8-target groups of the tile
+  float* sv = reinterpret_cast<float*>(s.qbits);        // [RT2][R2] values
+  int* si = s.qbits + RT2 * R2;                         // [RT2][R2] rows
+  int* cnt = si + RT2 * R2;                             // [RT2]
+  int* gmask = cnt + RT2;
+  static_assert(2 * RT2 * R2 + RT2 + 1 <= 3 * QCAP2, "the rounds fit in the queue area");
+  if (g.tid <= RT2) cnt[g.tid] = 0;       // the counts and the mask
+  g.sync();
+  unsigned gm = 0;
+#pragma unroll
+  for (int j = 0; j < NG; ++j) gm |= ((bits >> (4 * j)) & 0xfull) != 0 ? 1u << j : 0u;
+  if (gm) atomicOr(reinterpret_cast<unsigned*>(gmask), gm);
+  g.sync();
+  const unsigned todo = *reinterpret_cast<volatile unsigned*>(gmask);
+  for (int j0 = 0; j0 < NG; ++j0) {
+    if (((todo >> j0) & 1u) == 0) continue;
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      if (((bits >> e) & 1) && (e >> 2) == j0) {
+        const int tl = t_of(e) - 8 * j0;
+        const int pos = atomicAdd(cnt + tl, 1);
+        sv[tl * R2 + pos] = vals[e];
+        si[tl * R2 + pos] = u_of(e);
+      }
+    }
+    g.sync();
+    for (int tl = g.warp; tl < RT2; tl += WarpGroup::warps) {
+      const int n = cnt[tl];
+      if (n > 0) {
+        const int t = 8 * j0 + tl;
+        merge_batch(s.lv + t * s.k, s.li + t * s.k, s.k, sv + tl * R2, si + tl * R2, n,
+                    s.worst + t, lane);
+        if (lane == 0) cnt[tl] = 0;
+      }
+    }
+    g.sync();
+  }
+}
+
 // The sparse epilogue of one DB tile for one group of threads.  vals[e]:
 // the thread's N ranked values as float bit patterns, in the registers of
 // the sums they replace (score bits, or packed keys; +inf bits / KEY_EMPTY
@@ -614,6 +845,11 @@ __device__ __forceinline__ void sparse_select(const float (&vals)[N],
     g.sync();                             // drained, and every thread read total
     if (g.tid == 0) *s.qcount = 0;
     if (total <= s.cap) break;            // nothing was left pending
+    if constexpr (SEL == STREAM && std::is_same<G, WarpGroup>::value) {
+      // a heavy tile: its pending survivors into the lists in bulk
+      group_rounds<N>(vals, pend, t_of, u_of, s, g, lane);
+      break;
+    }
     g.sync();
     if (pend) {
 #pragma unroll
@@ -755,27 +991,188 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// ------------------------------------------------------------ rows of a CTA
+// The DB rows a CTA of pass 1 scans.  A target tile's rows are one or two
+// intervals of the DB ("pieces": [lo0, lo0 + len0) and [lo1, lo1 + total -
+// len0)), read in concatenation; the CTA of split s takes the chunks s,
+// s + splits, s + 2 splits, ... of `chunk` rows of that concatenation.  A
+// chunk is a whole number of DB tiles and a piece but the last is a whole
+// number of 128-row blocks, so no tile straddles two pieces and a packed3
+// block lies in one.  Rows at or past m_rows are masked (+inf scores).
+// SPANS false (no partition mask): one piece, [0, m_rows), and one chunk a
+// CTA (the plan covers m_rows), so a tile's row is split * chunk + jt R.
+template <bool SPANS>
+struct Rows {
+  int lo0, len0, lo1, total;
+  int start, chunk, stride;               // split * chunk; chunk; splits * chunk
+  int tpc;                                // DB tiles a chunk
+  int n_tiles;                            // DB tiles of R rows the CTA takes
+  // the first DB row of the CTA's tile jt (no division unless the CTA
+  // takes several chunks)
+  __device__ __forceinline__ int base(int jt, int R) const {
+    int p = start + jt * R;
+    if constexpr (!SPANS) return p;
+    if (jt >= tpc) p += jt / tpc * (stride - chunk);
+    return p < len0 ? lo0 + p : lo1 + (p - len0);
+  }
+};
+
+// The rows of target tile `tile` for the CTA of split `split`: with spans
+// (the wrapper's per-tile table, 4 ints a tile: -lo, hi of the voices' rows
+// and -lo, hi of the padding rows, each rounded out to 128-row blocks and
+// empty where hi <= lo), those intervals, made one where they overlap or
+// touch; without, all of [0, m_rows).
+template <bool SPANS>
+__device__ Rows<SPANS> cta_rows(const int* spans, int tile, int split, int splits, int chunk,
+                                int m_rows, int R) {
+  int lo0 = 0, hi0 = m_rows, lo1 = 0, hi1 = 0;
+  if (SPANS && spans != nullptr) {
+    const int* s = spans + 4 * tile;
+    lo0 = -s[0];
+    hi0 = s[1];
+    lo1 = -s[2];
+    hi1 = s[3];
+    if (hi0 <= lo0) {                     // no live voice: the padding rows alone
+      lo0 = lo1;
+      hi0 = hi1;
+      lo1 = hi1 = 0;
+    }
+    if (hi1 <= lo1) {
+      lo1 = hi1 = 0;
+    } else {
+      if (lo1 < lo0) {
+        const int a = lo0, b = hi0;
+        lo0 = lo1;
+        hi0 = hi1;
+        lo1 = a;
+        hi1 = b;
+      }
+      if (lo1 <= hi0) {                   // overlapping or touching: their hull
+        hi0 = max(hi0, hi1);
+        lo1 = hi1 = 0;
+      }
+    }
+    if (hi0 <= lo0) lo0 = hi0 = 0;        // no rows at all
+  }
+  Rows<SPANS> r;
+  r.lo0 = lo0;
+  r.lo1 = lo1;
+  r.len0 = hi1 > lo1 ? (hi0 - lo0 + BLOCK - 1) / BLOCK * BLOCK : hi0 - lo0;
+  r.total = r.len0 + (hi1 - lo1);
+  r.start = split * chunk;
+  r.chunk = chunk;
+  r.stride = splits * chunk;
+  r.tpc = chunk / R;
+  r.n_tiles = 0;
+  for (int p = r.start; p < r.total; p += r.stride) {
+    r.n_tiles += (min(chunk, r.total - p) + R - 1) / R;
+  }
+  return r;
+}
+
 // ------------------------------------------------------------ pass 1, highest
-// Bytes of shared memory topk_partial<TT> needs; the kernel carves the same
-// regions in the same order.
-size_t partial_smem_highest(int TT, int kd, int k, bool masked, int sel) {
+// Splits of at most this many rows run topk_partial's bulk epilogue
+// (warp_select, STREAM only), longer ones the queue: a warm tile has few
+// survivors, which the queue takes for less (PERF.md, PR 10: at 3,584 rows
+// a CTA the bulk epilogue is ~30% faster, at 32,768 rows the queue ~8%).
+constexpr int BULK_ROWS = 8192;
+
+// Bytes of shared memory topk_partial<TT> needs (bulk: its bulk epilogue);
+// the kernel carves the same regions in the same order.
+size_t partial_smem_highest(int TT, int kd, int k, bool masked, int sel, bool bulk) {
   const size_t kd16 = static_cast<size_t>((kd + KC1 - 1) / KC1 * KC1);
   return (kd16 * TT + NS1 * KC1 * SD + NS1 * R1 + 2 * static_cast<size_t>(TT) * k) * 4 +
-         (masked ? (NS1 * R1 + TT) * META * 4 : 0) + (3 * QCAP + 4 + 2 * TT) * 4 +
+         (masked ? (NS1 * R1 + TT) * META * 4 : 0) +
+         ((bulk ? 2 * STAGE1 * (THREADS / 32) : 3 * QCAP + 4) + 2 * TT) * 4 +
          (sel == PACKED3 ? TT * B3 * 4 : 0);
 }
 
+// topk_partial, STREAM, short splits: the epilogue of one DB tile, warp by
+// warp.  Thread (tx, ty) holds the scores of targets trow(i) at rows
+// rrow(j), so warp w (ty = 2 w in lanes 0-15, 2 w + 1 in lanes 16-31) holds
+// every score of the tile for its 8 (TT = 64) or 16 targets, and only it
+// touches their lists and thresholds: no queue, no atomics, no barrier.
+// For each target with survivors (pass bit i * 8 + j of the lanes of its
+// half), the list is read into registers once; FEW survivors or fewer are
+// inserted one by one, broadcast from the lanes that hold them
+// (reg_insert), more are packed into the warp's staging area (STAGE1 pairs)
+// by ballots, sorted and merged (merge_staged): a split's first tile, where
+// every finite score passes the open thresholds, fills the empty lists in
+// bulk.  Then the list and its threshold are stored once.
+template <int TM, typename TOf, typename UOf>
+__device__ __forceinline__ void warp_select(const float (&vals)[TM * 8],
+                                            unsigned long long pass, TOf t_of, UOf u_of,
+                                            float* lv, int* li, int2* sW, int k,
+                                            float* stv, int* sti, int lane) {
+  if (!__any_sync(FULL, pass != 0)) return;
+  const int h = lane >> 4;
+  const unsigned below = (1u << lane) - 1;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const unsigned byte = static_cast<unsigned>(pass >> (8 * i)) & 0xffu;
+    if (!__any_sync(FULL, byte != 0)) continue;
+    unsigned bal[8];
+    int n[2] = {0, 0};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      bal[j] = __ballot_sync(FULL, (byte >> j) & 1u);
+      n[0] += __popc(bal[j] & 0x0000ffffu);
+      n[1] += __popc(bal[j] & 0xffff0000u);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (n[hh] == 0) continue;
+      const unsigned half = hh ? 0xffff0000u : 0x0000ffffu;
+      const int t = t_of(hh, i);
+      float l[2];
+      int lx[2];
+      load_pairs(lv + t * k, li + t * k, k, l, lx, lane);
+      if (n[hh] <= FEW) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          unsigned m = bal[j] & half;
+          while (m) {
+            const int src = __ffs(m) - 1;
+            m &= m - 1;
+            reg_insert(l, lx, __shfl_sync(FULL, vals[i * 8 + j], src),
+                       __shfl_sync(FULL, u_of(j), src), lane);
+          }
+        }
+      } else {
+        int base = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (h == hh && ((byte >> j) & 1u)) {
+            const int pos = base + __popc(bal[j] & half & below);
+            stv[pos] = vals[i * 8 + j];
+            sti[pos] = u_of(j);
+          }
+          base += __popc(bal[j] & half);
+        }
+        __syncwarp();
+        merge_staged(l, lx, stv, sti, n[hh], lane);
+      }
+      __syncwarp();                       // the staged pairs are read
+      store_list(lv + t * k, li + t * k, k, l, lx, sW + t, lane);
+    }
+  }
+}
+
 // Pass 1 at "highest".  raw: f32 DB rows of row stride width (the raw block
-// or the derived operand); sqn[u * sqn_stride]: the squared norm of row u.
+// or the derived operand); sqn[u * sqn_stride]: the squared norm of row u;
+// spans: the per-tile rows of the partition variants (cta_rows); without
+// them a CTA scans rows [split * rows_per_split, + rows_per_split).  BULK
+// (STREAM, short splits): the bulk epilogue (warp_select), else the queue
+// (sparse_select).
 // Thread (tx, ty) = (tid % 16, tid / 16) owns DB rows tx * 4 .. + 3 and
 // 64 + tx * 4 .. + 3 of the tile and targets ty * 4 .. + 3 (and, at
 // TT = 128, 64 + ty * 4 .. + 3): two float4 a side per column.
-template <int TT, bool PART, bool LING, int SEL>
+template <int TT, bool PART, bool LING, int SEL, bool BULK>
 __global__ void __launch_bounds__(THREADS, 1)
 topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
              const float* __restrict__ sqn, int sqn_stride,
              const int* __restrict__ tmeta, const int* __restrict__ dmeta,
-             Penalties pen, float* __restrict__ part_v,
+             const int* __restrict__ spans, Penalties pen, float* __restrict__ part_v,
              int* __restrict__ part_i, int* __restrict__ part_third, int T,
              int kd, int width, int m_rows, int rows_per_split, int k,
              int splits) {
@@ -794,19 +1191,27 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
   float* lv = reinterpret_cast<float*>(sTM + (MASKED ? TT * META : 0));
                                           // [TT][k] list values or keys
   int* li = reinterpret_cast<int*>(lv + TT * k);        // [TT][k] list rows
-  int* queue = li + TT * k;               // 3 x [QCAP], then 4 counters
-  int2* sW = reinterpret_cast<int2*>(queue + 3 * QCAP + 4);   // [TT] thresholds
+  // BULK: [warps][STAGE1] staged values, then as many rows; else 3 x [QCAP]
+  // queue, then 4 counters
+  static_assert(!BULK || SEL == STREAM, "the bulk epilogue is STREAM's");
+  int* queue = li + TT * k;
+  int2* sW = reinterpret_cast<int2*>(
+      queue + (BULK ? 2 * STAGE1 * (THREADS / 32) : 3 * QCAP + 4));  // [TT]
   int* sB3 = reinterpret_cast<int*>(sW + TT);                 // [TT][B3] if PACKED3
 
   const int tid = threadIdx.x, lane = tid & 31;
   const CtaGroup grp = {tid, tid >> 5};
   const Select sel = {lv, li, sW, queue, queue + QCAP, queue + 2 * QCAP,
                       queue + 3 * QCAP, sB3, k, QCAP};
+  float* stv = reinterpret_cast<float*>(queue) + grp.warp * STAGE1;
+  int* sti = queue + CtaGroup::warps * STAGE1 + grp.warp * STAGE1;
   const int t0 = blockIdx.x * TT;
   const int split = blockIdx.y;
+  const auto rows = cta_rows<PART>(spans, blockIdx.x, split, splits, rows_per_split, m_rows, R1);
+  // without spans, rows [row_lo, row_hi) in tiles row_lo + jt R1
   const int row_lo = split * rows_per_split;
-  const int row_hi = min(row_lo + rows_per_split, m_rows);
-  const int n_tiles = (row_hi - row_lo + R1 - 1) / R1;
+  const int row_hi = PART ? m_rows : min(row_lo + rows_per_split, m_rows);
+  const int n_tiles = PART ? rows.n_tiles : (row_hi - row_lo + R1 - 1) / R1;
   const int n_stages = n_tiles * nk;
 
   for (int e = tid; e < nk * KC1 * TT; e += THREADS) {
@@ -821,15 +1226,16 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
       sTM[e] = t < T ? tmeta[static_cast<size_t>(t) * META + e % META] : -1;
     }
   }
-  init_state<SEL>(lv, li, TT * k, sW, TT, T - t0, sB3, TT * B3, queue + 3 * QCAP, 4,
-                  tid, THREADS);
+  init_state<SEL>(lv, li, TT * k, sW, TT, T - t0, sB3, TT * B3, queue + 3 * QCAP,
+                  BULK ? 0 : 4, tid, THREADS);
 
   // Stage (tile jt, column block ck) into ring slot `slot`: thread tid
   // copies column (i / 4) * 8 + tid % 8 of rows tid / 8 + 32 * (i % 4),
   // i = 0..7; the tile's sqn (and metadata rows) go with its first stage
   // into slot jt % NS1 of their own rings.
+  int fbase = rows.base(0, R1);           // with spans: the row of the tile being filled
   auto fill = [&](int jt, int ck, int slot) {
-    const int base = row_lo + jt * R1;
+    const int base = PART ? fbase : row_lo + jt * R1;
     const int c0 = ck * KC1;
     float* buf = sD + slot * KC1 * SD;
 #pragma unroll
@@ -868,6 +1274,7 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
       if (++ik == nk) {
         ik = 0;
         ++ij;
+        if constexpr (PART) fbase = rows.base(ij, R1);
       }
     }
     ++is;
@@ -912,9 +1319,9 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
         for (int j = 0; j < 8; ++j) acc[i * 8 + j] = fmaf(av[i], bv[j], acc[i * 8 + j]);
     }
     if (++ck < nk) continue;
-    // the tile's products are complete: scores, screen, queue, drain
+    // the tile's products are complete: scores, screen, selection
     ck = 0;
-    const int base = row_lo + jt * R1;
+    const int base = PART ? rows.base(jt, R1) : row_lo + jt * R1;
     const int ts = jt % NS1;
     unsigned long long pass = 0;
     if constexpr (!KEYS && !MASKED) {
@@ -972,10 +1379,21 @@ topk_partial(const float* __restrict__ t2, const float* __restrict__ raw,
         }
       }
     }
-    sparse_select<SEL, TT>(
-        acc, pass, [&](int e) { return trow(e >> 3); },
-        [&](int e) { return base + rrow(e & 7); }, sel, grp, jt == n_tiles - 1,
-        true, base, t0, T, lane);
+    if constexpr (BULK) {
+      const int w2 = grp.warp * 2;        // ty of lanes 0-15; lanes 16-31 hold w2 + 1
+      warp_select<TM>(
+          acc, pass,
+          [&](int hh, int i) {
+            const int y = w2 + hh;
+            return i < 4 ? y * 4 + i : 64 + y * 4 + (i - 4);
+          },
+          [&](int j) { return base + rrow(j); }, lv, li, sW, k, stv, sti, lane);
+    } else {
+      sparse_select<SEL, TT>(
+          acc, pass, [&](int e) { return trow(e >> 3); },
+          [&](int e) { return base + rrow(e & 7); }, sel, grp, jt == n_tiles - 1,
+          true, base, t0, T, lane);
+    }
     ++jt;
   }
   __syncthreads();
@@ -1229,10 +1647,10 @@ __global__ void __launch_bounds__(THREADS2, 1)
 topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
                    const float* __restrict__ sqn, int sqn_stride,
                    const int* __restrict__ tmeta, const int* __restrict__ dmeta,
-                   Penalties pen, float* __restrict__ part_v,
-                   int* __restrict__ part_i, int* __restrict__ part_third,
-                   int T, int kd, int width, int m_rows, int rows_per_split,
-                   int k, int splits, int ns) {
+                   const int* __restrict__ spans, Penalties pen,
+                   float* __restrict__ part_v, int* __restrict__ part_i,
+                   int* __restrict__ part_third, int T, int kd, int width, int m_rows,
+                   int rows_per_split, int k, int splits, int ns) {
   // split3: sums hh, hl, lh; split3cat: one for all three
   constexpr int NACC = PREC == SPLIT3 ? 3 : 1;
   constexpr int HL = NACC == 3 ? 1 : 0, LH = NACC == 3 ? 2 : 0;
@@ -1269,9 +1687,8 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
   const int wgroup = __shfl_sync(FULL, tid >> 7, 0);
   const int t0 = blockIdx.x * TT;
   const int split = blockIdx.y;
-  const int row_lo = split * rows_per_split;
-  const int row_hi = min(row_lo + rows_per_split, m_rows);
-  const int n_tiles = (row_hi - row_lo + R2 - 1) / R2;
+  const auto rows = cta_rows<PART>(spans, blockIdx.x, split, splits, rows_per_split, m_rows, R2);
+  const int n_tiles = rows.n_tiles;
 
   // the target tile, split once: word w of row t holds columns 2 w, 2 w + 1
   for (int e = tid; e < TT * nch * 32; e += THREADS2) {
@@ -1322,29 +1739,28 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
       if (ptid < R2) {
         const int u = base + ptid;
         copy4(sSqn + slot * R2 + ptid, sqn + static_cast<size_t>(u) * sqn_stride,
-              u < row_hi);
+              u < m_rows);
       }
       if constexpr (MASKED) {
         const int u = base + (ptid >> 1);
         copy16(sDM + (slot * R2 + (ptid >> 1)) * META + (ptid & 1) * 4,
-               dmeta + static_cast<size_t>(u) * META + (ptid & 1) * 4, u < row_hi);
+               dmeta + static_cast<size_t>(u) * META + (ptid & 1) * 4, u < m_rows);
       }
     };
     if constexpr (PRESPLIT) {
       const __nv_bfloat16* pre = static_cast<const __nv_bfloat16*>(db);
       const int kp = (kd + KPAD - 1) / KPAD * KPAD;     // columns of a half
-      int jt = 0, c = 0;
+      int jt = 0, c = 0, base = rows.base(0, R2);
       for (int g = 0; g < n_stages; ++g) {
         const int slot = g % ns;
         mbar_wait(empty + slot, ((g / ns) & 1) ^ 1);
-        const int base = row_lo + jt * R2;
         unsigned char* stage = ring + slot * 2 * HALF2;
 #pragma unroll
         for (int i = 0; i < 8; ++i) {     // 16 bytes: chunk ch of row r of a half
           const int idx = ptid + 128 * i;
           const int half = idx >> 9, r = (idx >> 3) & 63, ch = idx & 7;
           const int u = base + r, col = c * KC2 + ch * 8;
-          const bool ok = u < row_hi && col < kp;
+          const bool ok = u < m_rows && col < kp;
           cp_async16(stage + half * HALF2 + r * 128 + ((ch ^ (r & 7)) << 4),
                      ok ? pre + static_cast<size_t>(u) * width + half * kp + col : pre,
                      ok ? 16 : 0);
@@ -1362,7 +1778,7 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
         cp_async_arrive(full_of(g));
         if (++c == nch) {
           c = 0;
-          ++jt;
+          base = rows.base(++jt, R2);
         }
       }
     } else {
@@ -1371,15 +1787,21 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
       // of registers rotate, so that the loads of stages g + 1 and g + 2
       // are in flight while stage g is split and stored
       const float* raw = static_cast<const float*>(db);
+      int ljt = 0, lbase = rows.base(0, R2);  // the tile of the last load, its row
       auto load = [&](int g, float (&x)[32]) {
         const int jt = g / nch, c = g - jt * nch;
         const int col = c * KC2 + 2 * lane;
+        if (jt != ljt) {
+          ljt = jt;
+          lbase = rows.base(jt, R2);
+        }
+        const int base = lbase;
 #pragma unroll
         for (int i = 0; i < 16; ++i) {
-          const int u = row_lo + jt * R2 + pwarp + 4 * i;
+          const int u = base + pwarp + 4 * i;
           const float* src = raw + static_cast<size_t>(u) * width + col;
-          x[2 * i] = (u < row_hi && col < kd) ? __ldg(src) : 0.f;
-          x[2 * i + 1] = (u < row_hi && col + 1 < kd) ? __ldg(src + 1) : 0.f;
+          x[2 * i] = (u < m_rows && col < kd) ? __ldg(src) : 0.f;
+          x[2 * i + 1] = (u < m_rows && col + 1 < kd) ? __ldg(src + 1) : 0.f;
         }
       };
       auto emit = [&](int g, const float (&x)[32]) {
@@ -1396,7 +1818,7 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
         }
         if (g % nch == nch - 1) {
           side_rows(
-              row_lo + g / nch * R2, slot,
+              rows.base(g / nch, R2), slot,
               [](float* d, const float* s, bool ok) { *d = ok ? __ldg(s) : 0.f; },
               [](int* d, const int* s, bool ok) {
                 *reinterpret_cast<int4*>(d) =
@@ -1436,7 +1858,7 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
     unsigned phases = 0;                  // bit s: parity of full[wg][s]'s next phase
     for (int jt = 0; jt < n_tiles; ++jt) {
       if ((SEL == PACKED3 ? jt >> 1 : jt) % 2 != wg) continue;
-      const int base = row_lo + jt * R2;
+      const int base = rows.base(jt, R2);
       int slot = 0;
       // One stage: all four 16-column steps of its 64 columns, whatever kd
       // (the columns past kd are zero on both sides and add exact zeros;
@@ -1491,8 +1913,8 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
       if constexpr (!MASKED) mbar_arrive(empty + slot);
       if constexpr (!KEYS && !MASKED) {
         // the common case in two instructions a score, as in topk_partial
-        if (base + r0 >= row_hi) sq[0] = pos_inf();
-        if (base + r0 + 8 >= row_hi) sq[1] = pos_inf();
+        if (base + r0 >= m_rows) sq[0] = pos_inf();
+        if (base + r0 + 8 >= m_rows) sq[1] = pos_inf();
         bool hit = false;
 #pragma unroll
         for (int j = 0; j < N / 4; ++j) {
@@ -1525,7 +1947,7 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
           const float sc = fused_score<PART, LING>(
               sq[h] - 2.f * cross, sTM + t * META,
               sDM + (slot * R2 + r0 + 8 * h) * META, pen);
-          const int b = ranked_bits<KEYS>(sc, u, t0 + t < T && u < row_hi);
+          const int b = ranked_bits<KEYS>(sc, u, t0 + t < T && u < m_rows);
           vals[e] = __int_as_float(b);
           const int2 worst = sW[t];
           const bool ok = SEL == PACKED3 ? b != KEY_EMPTY
@@ -1535,12 +1957,30 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
         }
       }
       if constexpr (MASKED) mbar_arrive(empty + slot);
-      const bool block_ends = (jt & 1) == 1 || base + R2 >= row_hi;
-      sparse_select<SEL, TT>(
-          vals, pass, [&](int e) { return (e >> 2) * 8 + 2 * q4 + (e & 1); },
-          [&](int e) { return base + r0 + 8 * ((e >> 1) & 1); }, sel, grp,
-          SEL != PACKED3 && jt + 2 >= n_tiles, block_ends,
-          row_lo + (jt >> 1) * BLOCK, t0, T, lane);
+      auto t_of = [&](int e) { return (e >> 2) * 8 + 2 * q4 + (e & 1); };
+      auto u_of = [&](int e) { return base + r0 + 8 * ((e >> 1) & 1); };
+      // a 128-row block is two tiles jt & ~1, jt | 1 (chunks and pieces are
+      // whole blocks), unless the CTA's rows end after its first
+      const bool block_ends = (jt & 1) == 1 || jt + 1 == n_tiles;
+      auto queued = [&]() {
+        sparse_select<SEL, TT>(vals, pass, t_of, u_of, sel, grp,
+                               SEL != PACKED3 && jt + 2 >= n_tiles, block_ends,
+                               rows.base(jt & ~1, R2), t0, T, lane);
+      };
+      if constexpr (SEL == STREAM) {
+        if (jt < 2) {
+          // the group's first tile: every finite score passed the open
+          // thresholds, so it goes into the lists in bulk, not through the
+          // queue
+          grp.lock();
+          group_rounds<N>(vals, pass, t_of, u_of, sel, grp, lane);
+          grp.unlock();
+        } else {
+          queued();
+        }
+      } else {
+        queued();
+      }
     }
   }
   __syncthreads();
@@ -1548,55 +1988,82 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
                   splits, tid >> 5, THREADS2 / 32, lane);
 }
 
-constexpr int WARPS = THREADS / 32;     // targets a CTA of pass 2
+constexpr int WARPS = THREADS / 32;     // warps a CTA of pass 2
 
-// comp: (T,) constants added to the merged scores (zero-transient form), or
-// nullptr (derived form: the scores are returned as ranked).  KEYS: the
-// lists hold packed keys, merged under the (key, index) order and unpacked
-// here.  part_third (T, splits) and flags (T,), both or neither (PACKED3):
-// a target's flag is 1 where the least third key of any block lies below
-// the worst key kept (KEY_EMPTY while the list has room).
+// Pass 2: merge each target's `splits` partial lists (ascending, empty
+// slots (none, INT_MAX) at their ends) under the (score, index) order, or
+// (key, index) with KEYS, whose keys are unpacked here; add comp (T,) (the
+// zero-transient form; nullptr: the derived form, scores as ranked).  A
+// target takes gw warps (1, 2, 4 or 8: the wrapper gives a target more
+// where there are few targets and many splits), a CTA 8 / gw targets.  Warp
+// w of a target merges lists w, w + gw, ...: four at a time, their loads
+// issued together, each a merge of two sorted sequences (merge_sorted); an
+// empty list is skipped.  The target's first warp then merges the gw - 1
+// others' lists from shared memory and writes the result; a slot no pair
+// reached leaves as (+inf, 0).  part_third (T, splits) and flags (T,), both
+// or neither (PACKED3): a target's flag is 1 where the least third key of
+// any block lies below the worst key kept (KEY_EMPTY while the list has
+// room).
 template <bool KEYS>
 __global__ void __launch_bounds__(THREADS)
 topk_merge(const float* __restrict__ part_v, const int* __restrict__ part_i,
            const float* __restrict__ comp, const int* __restrict__ part_third,
            float* __restrict__ out_v, int* __restrict__ out_i,
-           int* __restrict__ flags, int T, int k, int splits) {
-  extern __shared__ __align__(16) float smem[];
+           int* __restrict__ flags, int T, int k, int splits, int gw) {
+  using V = typename std::conditional<KEYS, int, float>::type;
+  __shared__ V sv[WARPS][64];
+  __shared__ int si[WARPS][64];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* lv = smem + warp * k;
-  int* lk = reinterpret_cast<int*>(lv);
-  int* li = reinterpret_cast<int*>(smem + WARPS * k) + warp * k;
-  const int t = blockIdx.x * WARPS + warp;
-  if (t >= T) return;                     // whole warp; no block sync follows
-  for (int j = lane; j < k; j += 32) {
-    if constexpr (KEYS) lk[j] = KEY_EMPTY; else lv[j] = pos_inf();
-    li[j] = INT_MAX;
-  }
-  __syncwarp();
-  for (int s = 0; s < splits; ++s) {
-    const size_t o = (static_cast<size_t>(t) * splits + s) * k;
-    for (int h = 0; h < k; h += 32) {
-      const int j = h + lane;
-      const bool in = j < k;
-      const int i = in ? part_i[o + j] : INT_MAX;
-      if constexpr (KEYS) {
-        const int key = in ? reinterpret_cast<const int*>(part_v)[o + j] : KEY_EMPTY;
-        warp_offer_key(lk, li, k, key, i, in && i != INT_MAX, lane);
-      } else {
-        const float v = in ? part_v[o + j] : pos_inf();
-        warp_offer(lv, li, k, v, i, in && i != INT_MAX, lane);
+  const int t = blockIdx.x * (WARPS / gw) + warp / gw;
+  const int w = warp % gw;
+  const V* pv = reinterpret_cast<const V*>(part_v);
+  V l[2] = {none_value<V>(), none_value<V>()};
+  int lx[2] = {INT_MAX, INT_MAX};
+  if (t < T) {
+    const size_t o = static_cast<size_t>(t) * splits * k;
+    for (int s0 = w; s0 < splits; s0 += 4 * gw) {
+      V c[4][2];
+      int cx[4][2];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int s = s0 + q * gw;
+        if (s < splits) {
+          load_pairs(pv + o + static_cast<size_t>(s) * k, part_i + o + static_cast<size_t>(s) * k,
+                     k, c[q], cx[q], lane);
+        } else {
+          c[q][0] = c[q][1] = none_value<V>();
+          cx[q][0] = cx[q][1] = INT_MAX;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (__shfl_sync(FULL, cx[q][0], 0) != INT_MAX) merge_sorted(l, lx, c[q], cx[q], lane);
       }
     }
   }
-  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sv[warp][2 * lane + r] = l[r];
+    si[warp][2 * lane + r] = lx[r];
+  }
+  __syncthreads();
+  if (t >= T || w != 0) return;
+  for (int q = 1; q < gw; ++q) {
+    V c[2];
+    int cx[2];
+    load_pairs(sv[warp + q], si[warp + q], 64, c, cx, lane);
+    if (__shfl_sync(FULL, cx[0], 0) != INT_MAX) merge_sorted(l, lx, c, cx, lane);
+  }
   const float add = comp != nullptr ? comp[t] : 0.f;
-  for (int j = lane; j < k; j += 32) {
-    // an unfilled slot is (+inf, INT_MAX) here and leaves as (+inf, 0)
-    float v;
-    if constexpr (KEYS) v = from_key(lk[j]); else v = lv[j];
-    out_v[static_cast<size_t>(t) * k + j] = comp != nullptr ? v + add : v;
-    out_i[static_cast<size_t>(t) * k + j] = li[j] == INT_MAX ? 0 : li[j];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = 2 * lane + r;
+    if (j < k) {
+      float v;
+      if constexpr (KEYS) v = from_key(l[r]); else v = l[r];
+      out_v[static_cast<size_t>(t) * k + j] = comp != nullptr ? v + add : v;
+      out_i[static_cast<size_t>(t) * k + j] = lx[r] == INT_MAX ? 0 : lx[r];
+    }
   }
   if constexpr (KEYS) {
     if (flags != nullptr) {
@@ -1605,7 +2072,8 @@ topk_merge(const float* __restrict__ part_v, const int* __restrict__ part_i,
         third = min(third, part_third[static_cast<size_t>(t) * splits + s]);
       }
       third = __reduce_min_sync(FULL, third);
-      if (lane == 0) flags[t] = third < lk[k - 1] ? 1 : 0;
+      const int worst = __shfl_sync(FULL, (k - 1) & 1 ? l[1] : l[0], (k - 1) >> 1);
+      if (lane == 0) flags[t] = third < worst ? 1 : 0;
     }
   }
 }
@@ -1620,7 +2088,9 @@ int tile_rows(int kd, int k, bool masked, int prec, int sel, int T) {
     return 0;
   }
   if (prec == HIGHEST) {
-    return T > 64 && partial_smem_highest(128, kd, k, masked, sel) <= SMEM_LIMIT ? 128 : 64;
+    // (the queue's layout, the larger: a STREAM launch takes either)
+    return T > 64 && partial_smem_highest(128, kd, k, masked, sel, false) <= SMEM_LIMIT ? 128
+                                                                                        : 64;
   }
   return prec == SPLIT3CAT && T > 64 && split_stages(128, kd, k, masked, sel) >= 3
              ? 128
@@ -1631,7 +2101,7 @@ int tile_rows(int kd, int k, bool masked, int prec, int sel, int T) {
 // or the combination is not supported.
 size_t partial_smem(int TT, int kd, int k, bool masked, int prec, int sel) {
   if (tile_rows(kd, k, masked, prec, sel, TT) == 0) return 0;
-  if (prec == HIGHEST) return partial_smem_highest(TT, kd, k, masked, sel);
+  if (prec == HIGHEST) return partial_smem_highest(TT, kd, k, masked, sel, false);
   const int ns = split_stages(TT, kd, k, masked, sel);
   // where not even two stages fit, the size that was refused
   return partial_smem_split(TT, kd, k, masked, sel, ns == 0 ? 2 : ns);
@@ -1664,17 +2134,25 @@ bool bad_shape(size_t smem, int T, const Operand& db, int m_rows, int k,
                int splits, int rows_per_split) {
   return smem == 0 || smem > SMEM_LIMIT || T < 1 || db.rows == nullptr ||
          db.sqn == nullptr || db.width < db.min_width || m_rows < k ||
-         splits < 1 || rows_per_split < 1 ||
-         static_cast<long long>(splits) * rows_per_split < m_rows;
+         splits < 1 || rows_per_split < 1;
+}
+
+// Warps pass 2 gives a target: a warp at least two lists, eight warps at
+// most.
+int merge_warps(int splits) {
+  int gw = 1;
+  while (gw < WARPS && 4 * gw <= splits) gw *= 2;
+  return gw;
 }
 
 template <bool KEYS>
 int merge(const Outputs& o, const float* comp, int T, int k, int splits,
           cudaStream_t stream) {
-  const size_t smem2 = static_cast<size_t>(WARPS * k) * (sizeof(float) + sizeof(int));
-  topk_merge<KEYS><<<(T + WARPS - 1) / WARPS, THREADS, smem2, stream>>>(
+  const int gw = merge_warps(splits);
+  const int per_cta = WARPS / gw;
+  topk_merge<KEYS><<<(T + per_cta - 1) / per_cta, THREADS, 0, stream>>>(
       o.part_v, o.part_i, comp, o.part_third, o.out_v, o.out_i, o.flags, T, k,
-      splits);
+      splits, gw);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1685,20 +2163,28 @@ struct Shape {
 // Pass 1 with TT target rows a CTA; returns a cudaError_t.
 template <int TT, int PREC, bool PART, bool LING, bool PRESPLIT, int SEL>
 cudaError_t launch_partial(const float* t2, const Operand& db, const int* tmeta,
-                           const int* dmeta, Penalties pen, const Outputs& o,
-                           int* part_third, const Shape& s, size_t smem,
-                           cudaStream_t stream) {
+                           const int* dmeta, const int* spans, Penalties pen,
+                           const Outputs& o, int* part_third, const Shape& s,
+                           size_t smem, cudaStream_t stream) {
   const dim3 grid((s.T + TT - 1) / TT, s.splits);
   cudaError_t err;
   if constexpr (PREC == HIGHEST) {
-    err = cudaFuncSetAttribute(topk_partial<TT, PART, LING, SEL>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    topk_partial<TT, PART, LING, SEL><<<grid, THREADS, smem, stream>>>(
-        t2, static_cast<const float*>(db.rows), db.sqn, db.sqn_stride, tmeta,
-        dmeta, pen, o.part_v, o.part_i, part_third, s.T, s.kd, db.width,
-        s.m_rows, s.rows_per_split, s.k, s.splits);
+    auto run = [&](auto kernel, bool bulk) {
+      const size_t bytes =
+          partial_smem_highest(TT, s.kd, s.k, PART || LING, SEL, bulk);
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(bytes));
+      if (e != cudaSuccess) return e;
+      kernel<<<grid, THREADS, bytes, stream>>>(
+          t2, static_cast<const float*>(db.rows), db.sqn, db.sqn_stride, tmeta, dmeta,
+          spans, pen, o.part_v, o.part_i, part_third, s.T, s.kd, db.width, s.m_rows,
+          s.rows_per_split, s.k, s.splits);
+      return cudaGetLastError();
+    };
+    if constexpr (SEL == STREAM) {
+      if (s.rows_per_split <= BULK_ROWS) return run(topk_partial<TT, PART, LING, SEL, true>, true);
+    }
+    return run(topk_partial<TT, PART, LING, SEL, false>, false);
   } else {
     err = cudaFuncSetAttribute(
         topk_partial_split<TT, PREC, PART, LING, PRESPLIT, SEL>,
@@ -1706,7 +2192,7 @@ cudaError_t launch_partial(const float* t2, const Operand& db, const int* tmeta,
     if (err != cudaSuccess) return err;
     topk_partial_split<TT, PREC, PART, LING, PRESPLIT, SEL>
         <<<grid, THREADS2, smem, stream>>>(
-            t2, db.rows, db.sqn, db.sqn_stride, tmeta, dmeta, pen, o.part_v,
+            t2, db.rows, db.sqn, db.sqn_stride, tmeta, dmeta, spans, pen, o.part_v,
             o.part_i, part_third, s.T, s.kd, db.width, s.m_rows,
             s.rows_per_split, s.k, s.splits,
             split_stages(TT, s.kd, s.k, PART || LING, SEL));
@@ -1716,20 +2202,23 @@ cudaError_t launch_partial(const float* t2, const Operand& db, const int* tmeta,
 
 // Both passes of one variant on `stream`; returns a cudaError_t.  PRESPLIT
 // (the derived split3cat operand) must start on a 16-byte boundary; PACKED3
-// needs splits of whole 128-row blocks and its two extra outputs; every
-// split but the last is a whole number of DB tiles.
+// needs chunks of whole 128-row blocks and its two extra outputs; a chunk
+// (rows_per_split) is a whole number of DB tiles.  spans: the per-tile rows
+// (cta_rows; PART only), or nullptr for all of [0, m_rows).
 template <int PREC, bool PART, bool LING, bool PRESPLIT, int SEL>
 int launch(const float* t2, const Operand& db, const float* comp,
-           const int* tmeta, const int* dmeta, Penalties pen, const Outputs& o,
-           int T, int kd, int m_rows, int k, int splits, int rows_per_split,
-           cudaStream_t stream) {
+           const int* tmeta, const int* dmeta, const int* spans, Penalties pen,
+           const Outputs& o, int T, int kd, int m_rows, int k, int splits,
+           int rows_per_split, cudaStream_t stream) {
   static_assert(!PRESPLIT || PREC == SPLIT3CAT, "only split3cat is pre-split");
   constexpr bool MASKED = PART || LING;
   const int tt = tile_rows(kd, k, MASKED, PREC, SEL, T);
   const size_t smem1 = tt == 0 ? 0 : partial_smem(tt, kd, k, MASKED, PREC, SEL);
   if (bad_shape(smem1, T, db, m_rows, k, splits, rows_per_split) ||
       rows_per_split % (PREC == HIGHEST ? R1 : R2) != 0 ||
-      (MASKED && (tmeta == nullptr || dmeta == nullptr)) ||
+      (MASKED && (tmeta == nullptr || dmeta == nullptr)) || (spans != nullptr && !PART) ||
+      // without spans a CTA takes one chunk: the splits must cover the rows
+      (!PART && static_cast<long long>(splits) * rows_per_split < m_rows) ||
       (PRESPLIT && reinterpret_cast<uintptr_t>(db.rows) % 16 != 0) ||
       (SEL == PACKED3 && (rows_per_split % BLOCK != 0 ||
                           o.part_third == nullptr || o.flags == nullptr))) {
@@ -1743,11 +2232,11 @@ int launch(const float* t2, const Operand& db, const float* comp,
       return static_cast<int>(cudaErrorInvalidValue);   // tile_rows never says so
     } else {
       err = launch_partial<128, PREC, PART, LING, PRESPLIT, SEL>(
-          t2, db, tmeta, dmeta, pen, o, part_third, s, smem1, stream);
+          t2, db, tmeta, dmeta, spans, pen, o, part_third, s, smem1, stream);
     }
   } else {
     err = launch_partial<64, PREC, PART, LING, PRESPLIT, SEL>(
-        t2, db, tmeta, dmeta, pen, o, part_third, s, smem1, stream);
+        t2, db, tmeta, dmeta, spans, pen, o, part_third, s, smem1, stream);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   Outputs m = o;
@@ -1760,18 +2249,19 @@ int launch(const float* t2, const Operand& db, const float* comp,
 // Every exported entry point has this signature: three leading pointers
 // (the targets, the DB rows and, per form, comp or sqn), the metadata rows
 // tmeta (T, 8) and dmeta (m_rows, 8) read by the masked variants only, the
-// penalties p0..p4 read by the linguistic ones only, the partial and final
+// per-tile rows spans (ceil(T / tile rows), 4) of the partition variants or
+// nullptr (cta_rows), the penalties p0..p4 read by the linguistic ones only, the partial and final
 // outputs (part_third (T, splits) and flags (T,) written by the packed3
 // selection only, null elsewhere), the shape, the split plan and the
 // stream.  It launches both passes and returns the cudaError_t of the
 // launches.
 #define SNK_TOPK_SIGNATURE(NAME, DB_T, THIRD)                                 \
   int NAME(const float* t2, const DB_T* db_rows, const float* THIRD,        \
-           const int* tmeta, const int* dmeta, float p0, float p1, float p2, \
-           float p3, float p4, float* part_v, int* part_i, int* part_third,  \
-           float* out_v, int* out_i, int* flags, int T, int kd, int width,   \
-           int m_rows, int k, int splits, int rows_per_split,                \
-           cudaStream_t stream)
+           const int* tmeta, const int* dmeta, const int* spans, float p0,  \
+           float p1, float p2, float p3, float p4, float* part_v,           \
+           int* part_i, int* part_third, float* out_v, int* out_i,          \
+           int* flags, int T, int kd, int width, int m_rows, int k,         \
+           int splits, int rows_per_split, cudaStream_t stream)
 
 // Zero-transient form: t2 (T, kd) prescaled targets; db_rows the (q, width)
 // raw block, width >= kd + 2, whose column kd is the squared norm; comp (T,).
@@ -1782,8 +2272,8 @@ int launch(const float* t2, const Operand& db, const float* comp,
                         db_rows == nullptr ? nullptr : db_rows + kd, width}; \
     const Outputs o = {part_v, part_i, part_third, out_v, out_i, flags};    \
     return launch<PREC, PART, LING, false, SEL>(t2, db, comp, tmeta, dmeta,  \
-                                                pen, o, T, kd, m_rows, k,    \
-                                                splits, rows_per_split,      \
+                                                spans, pen, o, T, kd, m_rows, \
+                                                k, splits, rows_per_split,   \
                                                 stream);                     \
   }
 
@@ -1796,8 +2286,8 @@ int launch(const float* t2, const Operand& db, const float* comp,
     const Operand db = {db_rows, width, PRESPLIT ? 2 * kp : kd, sqn, 1};    \
     const Outputs o = {part_v, part_i, part_third, out_v, out_i, flags};    \
     return launch<PREC, PART, LING, PRESPLIT, SEL>(t2, db, nullptr, tmeta,   \
-                                                   dmeta, pen, o, T, kd,     \
-                                                   m_rows, k, splits,        \
+                                                   dmeta, spans, pen, o, T,  \
+                                                   kd, m_rows, k, splits,    \
                                                    rows_per_split, stream);  \
   }
 

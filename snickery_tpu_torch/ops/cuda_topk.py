@@ -88,9 +88,27 @@ beside the tensor cores' time.  Neither kernel writes its scores anywhere:
 a score is compared in registers with its target's threshold (the worst kept
 score) and only the survivors are queued and inserted into the k-slot lists
 (:data:`MAX_K` slots at most); ``tests/test_torch_screen.py`` models that
-epilogue.  The fused masks add 8 integer compares per score against
-metadata that rides in the ring beside the tile.  The DB is cut into splits
-(:func:`split_plan`) so that small T fills the card as well.
+epilogue.  In the "stream" selection a target's survivors of a DB tile are
+sorted by a warp's bitonic network and merged with its sorted list, one
+merge a (target, tile), where a tile has many (a CTA's first tile, which
+fills the empty lists in bulk; the early tiles of a short split); the few
+survivors of a warm tile go in a pair at a time, straight into the list in
+the short splits of "highest", through the queue elsewhere.
+The fused masks add 8 integer compares per score against metadata that
+rides in the ring beside the tile.  The DB is cut into splits
+(:func:`split_plan`) so that small T fills the card as well, and pass 2
+merges a target's split lists with several warps where T is small.
+
+Voice spans (partition variants).  A merged DB holds each voice's rows in
+one run, so a target tile of one voice has only that run to scan.  With
+``partition``, :func:`voice_spans_of` (once per DB: ``DeviceDB.spans``) keeps
+the hull of each voice id's rows and of the padding rows (voice id -1, the
+id of dead target steps), rounded out to 128-row blocks; per call
+:func:`tile_spans` gives each target tile, with a few torch ops on the
+device and no host synchronisation, the hull of its live voices' rows and
+the padding rows if it holds a dead step, and the kernel's CTAs split only
+those rows among them (:func:`cta_rows`).  Every row outside them scores
++inf for every target of the tile, so the result is that of the full scan.
 
 :func:`cuda_topk_preselect` dispatches on the DB tensor's device: a CUDA
 tensor goes through the kernel, a CPU tensor through the plain twin, and
@@ -103,6 +121,7 @@ import collections
 import ctypes
 import functools
 import threading
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -138,7 +157,11 @@ MAX_K = 64                 # list slots the kernel keeps per target
 SMEM_LIMIT = 227 * 1024    # shared memory a block may use on the card
 _MAX_WAVES = 4             # split_plan looks no further than this many waves of CTAs
 MIN_SPLIT_ROWS = 1024      # DB rows of a split, at the least (split_plan)
-COLD_ROWS = 2048           # what a CTA's start costs, in DB rows at kd 151 (split_plan)
+# what a CTA's start costs (split_plan), in DB rows at kd 151: the list phase of
+# a natural-synthesis split (1,024 x 57,344, k 40, 3,584 rows a CTA) in rows of its
+# stream, from the pass-1 k-sweep of kernel_ab --split on the H100 (PERF.md)
+COLD_ROWS = 3299
+_NO_ROW = 1 << 30          # the low end of an empty span
 
 
 def kernel_name(partition: bool, linguistic: bool, precision: str = "highest",
@@ -268,6 +291,99 @@ def _prescale(targets, db_affine):
     t2 = targets * (w / std)[None, :]
     comp = 2.0 * (t2 @ mean)
     return t2, comp
+
+
+@dataclass(frozen=True)
+class VoiceSpans:
+    """The rows of each voice id of a DB's first ``m_rows`` rows
+    (:func:`voice_spans_of`).  ``table`` (V + 2, 4) int32 on the DB's device:
+    row ``v + 1`` holds ``[-lo, hi, -_NO_ROW, 0]`` for the hull [lo, hi) of
+    voice v's rows, row 0 ``[-_NO_ROW, 0, -lo, hi]`` for the padding rows
+    (voice id -1), row V + 1 nothing (ids no row has); each [lo, hi) is
+    rounded out to :data:`BLOCK_ROWS` rows and cut at m_rows, and an empty
+    one is [_NO_ROW, 0).  Low ends are negated so that one ``amax`` over a
+    tile's rows of the table gives the tile's hulls (:func:`tile_spans`).
+    ``longest``: rows the longest voice and the padding rows span together,
+    what :func:`split_plan` plans for."""
+    table: torch.Tensor
+    longest: int
+    m_rows: int
+
+
+def voice_spans_of(vids: torch.Tensor, m_rows: int) -> VoiceSpans:
+    """:class:`VoiceSpans` of the (>= m_rows,) voice ids ``vids`` (a DB's
+    ``vids``, or column 6 of its :func:`pack_meta` rows), on their device.
+    Voice ids are -1 (padding) or non-negative.  Reads two numbers back
+    (one host synchronisation): make it once per DB."""
+    if vids.ndim != 1 or vids.shape[0] < m_rows or m_rows < 1:
+        raise ValueError(f"vids must be (>= {m_rows},)")
+    v = vids[:m_rows].to(torch.int64)
+    low = int(v.min())
+    if low < -1:
+        raise ValueError(f"voice id {low}: ids are -1 (padding) or non-negative")
+    V = max(int(v.max()) + 1, 0)
+    rows = torch.arange(m_rows, device=v.device)
+    lo = torch.full((V + 2,), _NO_ROW, dtype=torch.int64, device=v.device)
+    hi = torch.zeros(V + 2, dtype=torch.int64, device=v.device)
+    lo.scatter_reduce_(0, v + 1, rows, "amin")
+    hi.scatter_reduce_(0, v + 1, rows + 1, "amax")
+    lo = lo // BLOCK_ROWS * BLOCK_ROWS
+    hi = torch.clamp(-(-hi // BLOCK_ROWS) * BLOCK_ROWS, max=m_rows)
+    live = torch.arange(V + 2, device=v.device) > 0
+    table = torch.stack([torch.where(live, -lo, -_NO_ROW), torch.where(live, hi, 0),
+                         torch.where(live, -_NO_ROW, -lo), torch.where(live, 0, hi)], 1)
+    length = torch.clamp(hi - lo, min=0)
+    longest = int((length[1:].max() if V else 0) + length[0])
+    return VoiceSpans(table.to(torch.int32).contiguous(), max(longest, 1), m_rows)
+
+
+def tile_spans(spans: VoiceSpans, tgt_vids: torch.Tensor, tile_rows: int) -> torch.Tensor:
+    """(ceil(T / tile_rows), 4) int32 ``[-lo, hi, -lo_pad, hi_pad]`` of each
+    tile of ``tile_rows`` targets with voice ids ``tgt_vids`` (T,): the hull
+    of the rows of its targets' voices and, if one of its targets is dead
+    (voice id -1, as the padding rows), the padding rows; an empty interval
+    reads ``[-_NO_ROW, 0]``.  Torch ops on the ids' device, no host
+    synchronisation.  A target id below -1 is taken for -1 (more rows, the
+    same result); one no row has scans nothing."""
+    T = tgt_vids.shape[0]
+    n_tiles = -(-T // tile_rows)
+    empty = spans.table.shape[0] - 1
+    idx = torch.clamp(tgt_vids.to(torch.int32) + 1, 0, empty)
+    idx = torch.nn.functional.pad(idx, (0, n_tiles * tile_rows - T), value=empty)
+    rows = torch.index_select(spans.table, 0, idx)
+    return rows.view(n_tiles, tile_rows, 4).amax(1).contiguous()
+
+
+def cta_rows(span, split: int, splits: int, chunk: int, m_rows: int, db_tile_rows: int):
+    """The DB tiles (first row of each, in order) the CTA of split ``split``
+    scans for a target tile whose :func:`tile_spans` row is ``span`` (4
+    ints, or None without the partition mask): the kernel's ``cta_rows``
+    and ``Rows::base``, in Python.  The tile's intervals, made one where
+    they overlap or touch, are read in concatenation; the CTA takes the
+    chunks ``split, split + splits, ...`` of ``chunk`` rows of it, each cut
+    into tiles of ``db_tile_rows`` rows.  Rows at or past ``m_rows`` in
+    the last tile are masked by the kernel."""
+    lo0, hi0, lo1, hi1 = 0, m_rows, 0, 0
+    if span is not None:
+        lo0, hi0, lo1, hi1 = -int(span[0]), int(span[1]), -int(span[2]), int(span[3])
+        if hi0 <= lo0:
+            lo0, hi0, lo1, hi1 = lo1, hi1, 0, 0
+        if hi1 <= lo1:
+            lo1 = hi1 = 0
+        else:
+            if lo1 < lo0:
+                lo0, hi0, lo1, hi1 = lo1, hi1, lo0, hi0
+            if lo1 <= hi0:
+                hi0, lo1, hi1 = max(hi0, hi1), 0, 0
+        if hi0 <= lo0:
+            lo0 = hi0 = 0
+    len0 = -(-(hi0 - lo0) // BLOCK_ROWS) * BLOCK_ROWS if hi1 > lo1 else hi0 - lo0
+    total = len0 + hi1 - lo1
+    bases = []
+    for p0 in range(split * chunk, total, splits * chunk):
+        for p in range(p0, min(p0 + chunk, total), db_tile_rows):
+            bases.append(lo0 + p if p < len0 else lo1 + p - len0)
+    return bases
 
 
 def _check(targets, block, k, m_rows, tgt_meta, db_meta, masked, *, db_affine=None,
@@ -449,7 +565,7 @@ def topk_preselect_zt_plain(targets, raw_block, k, db_affine, m_rows, *,
                             tgt_meta=None, db_meta=None, partition=False,
                             ling_weights=None, precision: str = "highest",
                             select: str = "stream", t_block: int = 4096,
-                            chunk: int = 65536):
+                            chunk: int = 65536, voice_spans=None):
     """Plain PyTorch twin of the zero-transient kernel: the same algebra in
     chunked matmuls (:func:`cross_products` at ``precision``), the fused
     masks in the kernel's order, and the selection ``select`` (module
@@ -459,7 +575,8 @@ def topk_preselect_zt_plain(targets, raw_block, k, db_affine, m_rows, *,
     ``partition`` the voice mask; both read the (rows, META_WIDTH)
     ``tgt_meta`` / ``db_meta`` of :func:`pack_meta`.  The packed selections
     rank the scores before ``comp`` is added.  The result does not depend on
-    ``t_block`` or ``chunk`` (a multiple of 128 for "packed3").
+    ``t_block`` or ``chunk`` (a multiple of 128 for "packed3").  The twin
+    scans every row: ``voice_spans`` (the kernel's) is taken and unused.
 
     Returns (indices (T, k) int32, scores (T, k) f32), ascending, and for
     "packed3diag" the (T,) int32 overflow flags."""
@@ -515,12 +632,13 @@ def derive_operand(raw_block, db_affine, n_real, m_rows: int, precision: str = "
 def topk_preselect_dv_plain(targets, operand, sqn, k, m_rows, *, tgt_meta=None,
                             db_meta=None, partition=False, ling_weights=None,
                             precision: str = "highest", select: str = "stream",
-                            t_block: int = 4096, chunk: int = 65536):
+                            t_block: int = 4096, chunk: int = 65536, voice_spans=None):
     """Plain PyTorch twin of the derived-operand kernel: ``sqn - 2 * u.t``
     of the normalised, weighted targets against the operand of
     :func:`derive_operand` at ``precision`` (its pre-split halves at
     "split3cat"), in the chunk loop of :func:`topk_preselect_zt_plain`
-    with the same masks and selections, nothing added back.
+    with the same masks and selections, nothing added back (every row
+    scanned; ``voice_spans`` unused).
 
     Returns (indices (T, k) int32, scores (T, k) f32), ascending, and for
     "packed3diag" the (T,) int32 overflow flags."""
@@ -553,7 +671,7 @@ def _bound_library():
     lib = kernel_library().lib
     for name in ALL_ENTRY_POINTS:
         fn = getattr(lib, "snk_" + name)
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_float] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float] * 5
                        + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.snk_topk_partial_smem.argtypes = [ctypes.c_int] * 5
@@ -572,15 +690,19 @@ def _bound_library():
 def split_plan(T: int, m_rows: int, n_sm: int, tile_rows: int,
                db_tile_rows: int, cold_rows: int = COLD_ROWS) -> tuple[int, int]:
     """(splits S, rows per split) for the kernel's first pass, which runs
-    one CTA an SM on a grid of (target tiles) x S: each split a whole number
-    of DB tiles, none empty, and none shorter than :data:`MIN_SPLIT_ROWS`
-    while the DB has that many rows.  Every CTA starts with empty lists,
-    which take the first rows it sees whatever their scores, and that start
-    costs about what ``cold_rows`` rows of the stream cost.  So S is the one
-    that makes ``waves x (rows per split + cold_rows)`` least, ``waves`` the
-    number of rounds the card needs for the grid: one full wave where the
-    target tiles alone do not fill the card, and no needless splits where
-    they do."""
+    one CTA an SM on a grid of (target tiles) x S over the ``m_rows`` rows
+    a target tile scans (the whole DB, or with the partition mask the
+    longest voice and the padding rows, :attr:`VoiceSpans.longest`): each
+    split a whole number of DB tiles, none empty, and none shorter than
+    :data:`MIN_SPLIT_ROWS` while there are that many rows.  (A tile with
+    more rows, one that holds two voices, gives each CTA several chunks of
+    ``rows per split``: :func:`cta_rows`.)  Every CTA starts with empty
+    lists, which take the first rows it sees whatever their scores, and that
+    start costs about what ``cold_rows`` rows of the stream cost.  So S is
+    the one that makes ``waves x (rows per split + cold_rows)`` least,
+    ``waves`` the number of rounds the card needs for the grid: one full
+    wave where the target tiles alone do not fill the card, and no needless
+    splits where they do."""
     n_tiles = -(-T // tile_rows)
     most = max(1, min(-(-m_rows // db_tile_rows), m_rows // MIN_SPLIT_ROWS,
                       -(-_MAX_WAVES * n_sm // n_tiles)))
@@ -598,7 +720,8 @@ def split_plan(T: int, m_rows: int, n_sm: int, tile_rows: int,
 def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
                         tgt_meta=None, db_meta=None, partition=False,
                         ling_weights=None, precision: str = "highest",
-                        zero_transient: bool = True, sqn=None, select: str = "stream"):
+                        zero_transient: bool = True, sqn=None, select: str = "stream",
+                        voice_spans: VoiceSpans | None = None):
     """Top-k DB rows per target: exact at precision "highest", ranked by the
     bf16-split products at "split3" / "split3cat".
 
@@ -614,7 +737,10 @@ def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
     ``partition``: restrict each target to the rows of its voice id;
     ``ling_weights`` (w0..w4, scale): add the quinphone penalties; either
     reads ``tgt_meta`` (T, 8) and ``db_meta`` (>= m_rows, 8) int32
-    (:func:`pack_meta`).
+    (:func:`pack_meta`).  ``voice_spans``: the :class:`VoiceSpans` of the
+    DB's ids (``DeviceDB.spans``), with which the partition variants scan
+    each target tile's own voice rows only; without them the wrapper makes
+    them from ``db_meta`` (one host synchronisation).
     ``select``: the selection form (:data:`SELECTS`, module docstring); the
     synthesis paths run "stream".  "packed3" reads its overflow flags back
     to the host (one synchronisation) and, if any is set, launches the
@@ -626,7 +752,7 @@ def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
     On a CUDA device the hand-written kernel of the variant and selection
     runs (ascending order); on the CPU the plain twin of the form."""
     kw = dict(tgt_meta=tgt_meta, db_meta=db_meta, partition=partition,
-              ling_weights=ling_weights, precision=precision)
+              ling_weights=ling_weights, precision=precision, voice_spans=voice_spans)
     if select not in SELECTS:
         raise ValueError(f"unknown select {select!r}; have {SELECTS}")
     if zero_transient != (sqn is None):
@@ -658,9 +784,18 @@ def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
         raise ValueError("the pre-split operand must start on a 16-byte boundary")
     dev = raw_block.device
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    tt = lib.snk_topk_tile_rows(kd, k, int(masked), prec_code, sel_code, T)
+    spans, scan_rows = None, m_rows
+    if partition:
+        if voice_spans is None:
+            voice_spans = voice_spans_of(db_meta[:, 6], m_rows)
+        if voice_spans.m_rows != m_rows or voice_spans.table.device != dev:
+            raise ValueError(f"voice_spans are of {voice_spans.m_rows} rows on "
+                             f"{voice_spans.table.device}, not {m_rows} on {dev}")
+        spans = tile_spans(voice_spans, tgt_meta[:T, 6], tt)
+        scan_rows = voice_spans.longest
     splits, rows = split_plan(
-        T, m_rows, n_sm, lib.snk_topk_tile_rows(kd, k, int(masked), prec_code, sel_code, T),
-        BLOCK_ROWS if three else lib.snk_topk_db_tile_rows(prec_code),
+        T, scan_rows, n_sm, tt, BLOCK_ROWS if three else lib.snk_topk_db_tile_rows(prec_code),
         max(256, COLD_ROWS * 151 // kd))
     if zero_transient:
         t2, extra = _prescale(targets, db_affine)      # the third pointer: comp
@@ -681,7 +816,8 @@ def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
         err = getattr(lib, "snk_" + name)(
             t2.data_ptr(), raw_block.data_ptr(), extra.data_ptr(),
             tgt_meta.data_ptr() if masked else None,
-            db_meta.data_ptr() if masked else None, *pens,
+            db_meta.data_ptr() if masked else None,
+            spans.data_ptr() if partition else None, *pens,
             part_v.data_ptr(), part_i.data_ptr(), part_third.data_ptr() if three else None,
             out_v.data_ptr(), out_i.data_ptr(), flags.data_ptr() if three else None,
             T, kd, raw_block.shape[1], m_rows, k, splits, rows, stream)

@@ -77,8 +77,9 @@ class ShardedVoice:
     def nbytes(self, device) -> int:
         """Bytes the voice holds on ``device`` (shared tensors once)."""
         storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
-                    for row in self.members for db in row for t in vars(db).values()
-                    if t.device == torch.device(device)}
+                    for row in self.members for db in row
+                    for t in [*vars(db).values(), db.spans.table]
+                    if isinstance(t, torch.Tensor) and t.device == torch.device(device)}
         return sum(storages.values())
 
 

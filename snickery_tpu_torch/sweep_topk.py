@@ -50,7 +50,8 @@ import torch
 from snickery_tpu_torch.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
 from snickery_tpu_torch.kernel_check import pileup_block
 from snickery_tpu_torch.ops.cuda_topk import (BLOCK_ROWS, PRECISIONS, SELECTS,
-                                              cuda_topk_preselect, derive_operand, pack_meta)
+                                              cuda_topk_preselect, derive_operand, pack_meta,
+                                              voice_spans_of)
 from snickery_tpu_torch.synthetic_voices import ar1_walks
 from snickery_tpu_torch.voicedb.device_layout import build_raw_blocks
 
@@ -99,7 +100,9 @@ def make_data(rows: int, units: int, dim: int, seed: int, pileup: int, scatter: 
 def make_masks(rows: int, units: int, seed: int, masks: str, device) -> dict:
     """The mask arguments of ``cuda_topk_preselect`` for ``--masks``: labels
     drawn uniformly from 8 voices, 80 halfphone codes and 40 context phones
-    on both sides, the penalties those of the halfphone voices."""
+    on both sides, the penalties those of the halfphone voices, and with the
+    partition the DB's voice spans (each voice's rows are scattered over the
+    DB, so every tile scans all of it)."""
     partition, linguistic = MASKS[masks]
     if not (partition or linguistic):
         return {}
@@ -110,8 +113,10 @@ def make_masks(rows: int, units: int, seed: int, masks: str, device) -> dict:
                            for hi, shape in ((80, n), (40, (n, 5)), (8, n)))).to(device)
 
     weights = (*QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE) if linguistic else None
-    return dict(tgt_meta=meta(rows), db_meta=meta(units), partition=partition,
-                ling_weights=weights)
+    tgt_meta, db_meta = meta(rows), meta(units)     # in this order: the seeded draws
+    return dict(tgt_meta=tgt_meta, db_meta=db_meta, partition=partition,
+                ling_weights=weights,
+                voice_spans=voice_spans_of(db_meta[:, 6], units) if partition else None)
 
 
 def time_call(fn, iters: int, device) -> tuple[float, tuple]:

@@ -45,8 +45,8 @@ from snickery_tpu_torch import utils
 from snickery_tpu_torch.config import SnickeryConfig
 from snickery_tpu_torch.voicedb.db import VoiceDB
 from snickery_tpu_torch.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
-from snickery_tpu_torch.ops.cuda_topk import (PRECISIONS, cuda_topk_preselect,
-                                              derive_operand, pack_meta)
+from snickery_tpu_torch.ops.cuda_topk import (PRECISIONS, VoiceSpans, cuda_topk_preselect,
+                                              derive_operand, pack_meta, voice_spans_of)
 from snickery_tpu_torch.ops.ola import host_overlap_add, overlap_add_units
 from snickery_tpu_torch.ops.topk import (halfphone_exact_rank,
                                          halfphone_lattice_mask,
@@ -78,7 +78,9 @@ class DeviceDB:
     """The resident voice: tensors on one device, fields as in the JAX
     ``DeviceDB`` (see ``snickery_tpu.synth.DeviceDB``), plus ``meta``, the
     kernel's per-row ``[code, ctx0..ctx4, voice id, 0]`` block derived from
-    ``codes``, ``ctx`` and ``vids`` (8 int32, 32 bytes a row)."""
+    ``codes``, ``ctx`` and ``vids`` (8 int32, 32 bytes a row), and
+    ``spans``, the rows of each voice id (``cuda_topk.voice_spans_of``), with
+    which the partition kernels scan a target tile's own voice only."""
     raw: torch.Tensor         # (q, kd + 2) [data | sqn | ptr] raw block
     n_real: torch.Tensor      # () int32: rows >= n_real are padding
     cut1: torch.Tensor        # (Mp,) int32
@@ -99,6 +101,8 @@ class DeviceDB:
 
     def __post_init__(self):
         self.meta = pack_meta(self.codes, self.ctx, self.vids)
+        # an attribute, not a field: the fields are the JAX DeviceDB's tensors
+        self.spans: VoiceSpans = voice_spans_of(self.vids, self.vids.shape[0])
 
     @property
     def nbytes(self) -> int:
@@ -372,7 +376,8 @@ def fused_masks(db: DeviceDB, tgt_codes, tgt_ctx, tgt_vids, *, halfphone: bool,
     return dict(tgt_meta=pack_meta(tgt_codes.reshape(n), tgt_ctx.reshape(n, 5),
                                    tgt_vids.reshape(n)),
                 db_meta=db.meta, partition=multivoice,
-                ling_weights=ling_weights if halfphone else None)
+                ling_weights=ling_weights if halfphone else None,
+                voice_spans=db.spans if multivoice else None)
 
 
 @contextlib.contextmanager

@@ -601,3 +601,21 @@ def test_packed3_without_pileup_takes_no_fallback(cuda_device):
         "topk_preselect_zt_packed3": 1}
     for x, y in zip(got, cuda_topk_preselect(tg, R, 8, A, 65536, select="packed")):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zt", [True, False], ids=["zt", "dv"])
+@pytest.mark.parametrize("precision", ["highest", "split3cat"])
+@pytest.mark.parametrize("case", ["span_unaligned", "span_gaps", "span_padding_only"])
+def test_partition_kernel_over_voice_spans(cuda_device, case, precision, zt):
+    """The partition kernels scanning only each target tile's voice spans
+    (kernel_ab.SPAN_CASES: voices of 1,000 / 5,003 / 37 rows, ids with gaps
+    and a voice in two runs, a shard of padding only; tiles of two voices,
+    dead targets that rank the padding rows) against the twin that scans
+    every row: equal at "highest", within the split rule at "split3cat"."""
+    from snickery_tpu_torch import kernel_ab
+    x, block, aff, m_rows, k, prec, kw = kernel_ab.span_case(case, cuda_device, precision, zt)
+    kw.pop("zero_transient", None)
+    err, nbad, dead = compare(x, block, aff, m_rows, k, prec, **kw)
+    if prec == "highest":
+        assert err == 0.0 and nbad == 0

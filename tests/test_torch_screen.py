@@ -196,3 +196,218 @@ def test_edge_case_ramps_order_the_rows(kind, monkeypatch):
     k = EDGE_K["highest"]
     want = torch.arange(M - 1, M - 1 - k, -1) if kind == "falling" else torch.arange(k)
     assert torch.equal(seen["ids"].long(), want[None, :].expand(T, k))
+
+
+# ---------------------------------------------------------------------------
+# The "stream" selection's bulk-filled lists: a target's survivors of a DB
+# tile are sorted by a warp's bitonic network and merged with its sorted list
+# (or, FEW of them or fewer, inserted one at a time); a split's first tile
+# passes every finite score and so fills the empty lists in bulk; a queue
+# instead defers a warm tile's few survivors (the model's ``bucket``: they
+# wait until they no longer fit or the split ends; any order of insertion
+# gives the same top-k); pass 2 merges a target's split lists with gw warps,
+# each merging its share of the lists in turn, then the first warp merging
+# the others'.  The networks below are
+# the kernel's (bitonic_step, bitonic_sort, merge_sorted in
+# csrc/topk_preselect.cuh) element for element: a warp's 64 pairs, element
+# i = 2 lane + r.
+
+FEW = 8                  # the kernel's FEW
+BUCKET = 8               # pairs the model defers a target before merging them
+SLOTS = 64               # a warp's sequence: two pairs a lane
+FLT_MAX = np.float32(np.finfo(np.float32).max)
+
+
+def bitonic_step(v, x, s, d):
+    """Element i against i ^ d; the lower index keeps the less pair where
+    the block of s elements holding i sorts ascending."""
+    i = np.arange(SLOTS)
+    pv, px = v[i ^ d], x[i ^ d]
+    keep_min = ((i & d) == 0) == ((i & s) == 0)
+    p_less = (pv < v) | ((pv == v) & (px < x))
+    m_less = (v < pv) | ((v == pv) & (x < px))
+    take = np.where(keep_min, p_less, m_less)
+    return np.where(take, pv, v), np.where(take, px, x)
+
+
+def bitonic_sort(v, x, W):
+    s = 2
+    while s <= W:
+        d = s // 2
+        while d:
+            v, x = bitonic_step(v, x, s, d)
+            d //= 2
+        s *= 2
+    return v, x
+
+
+def merge_sorted(l, lx, c, cx):
+    """The 64 least pairs of two ascending sequences: element i against
+    element 63 - i of c, then the last stage's half-cleaners."""
+    rc, rcx = c[::-1], cx[::-1]
+    take = (rc < l) | ((rc == l) & (rcx < lx))
+    l, lx = np.where(take, rc, l), np.where(take, rcx, lx)
+    d = SLOTS // 2
+    while d:
+        l, lx = bitonic_step(l, lx, SLOTS, d)
+        d //= 2
+    return l, lx
+
+
+def padded(v, x, n=SLOTS):
+    out_v = np.full(n, np.inf, np.float32)
+    out_x = np.full(n, INT_MAX, np.int64)
+    out_v[:len(v)], out_x[:len(x)] = v, x
+    return out_v, out_x
+
+
+def merge_batch(lv, li, cv, ci):
+    """The kernel's merge_batch on one target's list (lv, li) of k slots,
+    in place, with n <= 64 survivors (cv, ci) in any order."""
+    k, n = len(lv), len(cv)
+    if n <= FEW:
+        for v, u in zip(cv, ci):
+            if v < lv[-1] or (v == lv[-1] and u < li[-1]):
+                p = int(np.sum((lv < v) | ((lv == v) & (li < u))))
+                lv[p + 1:], li[p + 1:] = lv[p:-1].copy(), li[p:-1].copy()
+                lv[p], li[p] = v, u
+        return
+    W = 2
+    while W < n:
+        W *= 2
+    c, cx = bitonic_sort(*padded(cv, ci), W)
+    assert np.all(c[:-1] <= c[1:]) and np.all(np.isinf(c[n:]))
+    l, lx = merge_sorted(*padded(lv, li), c, cx)
+    lv[:], li[:] = l[:k], lx[:k]
+
+
+def bulk_topk(scores, k, tile_rows, splits, seed, gw=1, bucket=0):
+    """(ids (T, k) int32, values (T, k) f32) of the model: per split of the
+    rows, lists filled tile by tile (the screen reads each list's worst
+    pair at the tile's start, +inf capped at FLT_MAX as screen_bits caps
+    it), survivors merged in batches of 64 in a shuffled order, or with
+    ``bucket`` held back while the target's bucket has room and the split
+    has tiles left (and the bucket inserted first when it is flushed); then
+    pass 2 with gw warps a target."""
+    rng = np.random.default_rng(seed)
+    T, M = scores.shape
+    per = -(-M // splits)
+    parts = []
+    for lo in range(0, M, per):
+        lv = np.full((T, k), np.inf, np.float32)
+        li = np.full((T, k), INT_MAX, np.int64)
+        held = [[] for _ in range(T)]
+        hi = min(lo + per, M)
+        for r0 in range(lo, hi, tile_rows):
+            r1 = min(r0 + tile_rows, hi)
+            last = r1 == hi
+            tile, rows = scores[:, r0:r1], np.arange(r0, r1)
+            w, wi = np.minimum(lv[:, -1], FLT_MAX)[:, None], li[:, -1][:, None]
+            ok = (tile < w) | ((tile == w) & (rows[None, :] < wi))
+            for t in range(T):
+                got = rng.permutation(np.nonzero(ok[t])[0])
+                if bucket and not last and len(held[t]) + len(got) <= bucket:
+                    held[t] += [(tile[t, c], rows[c]) for c in got]
+                    continue
+                if held[t]:
+                    merge_batch(lv[t], li[t], *map(np.array, zip(*held[t])))
+                    held[t] = []
+                for b in range(0, len(got), 64):
+                    sel = got[b:b + 64]
+                    merge_batch(lv[t], li[t], tile[t, sel], rows[sel])
+            assert np.all(np.isfinite(lv) | (li == INT_MAX))      # +inf never enters
+        parts.append((lv, li))
+    out_v = np.empty((T, k), np.float32)
+    out_i = np.empty((T, k), np.int64)
+    for t in range(T):
+        warps = []
+        for w in range(gw):
+            l, lx = padded([], [])
+            for s in range(w, len(parts), gw):
+                c, cx = padded(parts[s][0][t], parts[s][1][t])
+                if cx[0] != INT_MAX:                               # an empty list is skipped
+                    l, lx = merge_sorted(l, lx, c, cx)
+            warps.append((l, lx))
+        l, lx = warps[0]
+        for c, cx in warps[1:]:
+            l, lx = merge_sorted(l, lx, c, cx)
+        out_v[t], out_i[t] = l[:k], np.where(lx[:k] == INT_MAX, 0, lx[:k])
+    return out_i.astype(np.int32), out_v
+
+
+def smallest_k_np(scores, k):
+    from snickery_tpu_torch.ops.topk import smallest_k
+    v, c = smallest_k(torch.from_numpy(scores), k)
+    return torch.where(torch.isinf(v), 0, c).int().numpy(), v.numpy()
+
+
+def bulk_scores(kind, T, M, seed, levels=None, inf_share=0.0):
+    rng = np.random.default_rng(seed)
+    s = make_scores(kind, T, M, seed) if kind in KINDS else None
+    if kind == "levels":                    # few values: ties everywhere
+        s = rng.integers(0, levels, (T, M)).astype(np.float32)
+    elif kind == "falling_steps":           # a falling stream with repeated steps
+        s = np.repeat(-np.arange(-(-M // 3), dtype=np.float32), 3)[None, :M].repeat(T, 0)
+    if inf_share:
+        s[rng.random((T, M)) < inf_share] = np.inf
+    return np.ascontiguousarray(s, np.float32)
+
+
+@pytest.mark.parametrize("kind", KINDS + ["falling_steps"])
+@pytest.mark.parametrize("k,splits", [(1, 1), (40, 1), (40, 5), (64, 2), (64, 7)],
+                         ids=["k1", "k40", "k40_cold_short", "k64", "k64_cold_short"])
+def test_bulk_fill_is_the_exact_topk(kind, k, splits):
+    """Tiles of 128, 64 and 16 rows, with and without buckets, a first tile
+    that fills the lists in bulk, falling streams (every score survives),
+    ties, bit-identical duplicates, +inf rows, splits shorter than k: the
+    (score, row) top-k."""
+    T, M = 5, 300
+    scores = bulk_scores(kind, T, M, seed=k + splits)
+    want = smallest_k_np(scores, k)
+    for tile_rows, gw, bucket in ((128, 1, BUCKET), (64, 4, 0), (16, 2, BUCKET)):
+        got = bulk_topk(scores, k, tile_rows, splits, seed=k, gw=gw, bucket=bucket)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+@settings(max_examples=60, deadline=None)
+@given(T=st.integers(1, 3), M=st.integers(1, 260), k=st.integers(1, 64),
+       tile=st.sampled_from([16, 64, 128]), splits=st.integers(1, 6),
+       gw=st.sampled_from([1, 2, 8]), bucket=st.sampled_from([0, BUCKET]),
+       kind=st.sampled_from(["levels", "random", "falling", "duplicates", "identical",
+                             "falling_steps"]),
+       levels=st.integers(1, 6), inf_share=st.sampled_from([0.0, 0.3, 0.95]),
+       seed=st.integers(0, 2 ** 16))
+def test_bulk_fill_hypothesis(T, M, k, tile, splits, gw, bucket, kind, levels, inf_share,
+                              seed):
+    """Any k from 1 to MAX_K, any split count (cold splits shorter than k
+    among them), any merge order: equal to smallest_k under the (score,
+    row) order, dead slots (+inf, 0)."""
+    k = min(k, M)
+    scores = bulk_scores(kind, T, M, seed, levels, inf_share)
+    want = smallest_k_np(scores, k)
+    got = bulk_topk(scores, k, tile, min(splits, M), seed, gw, bucket)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n", [4, 5, 17, 33, 63, 64])
+def test_bitonic_network_sorts_and_merges(n):
+    """The sort of n pairs over the next power of two, and the merge of two
+    ascending sequences, on pairs with many ties: the ascending order, and
+    the 64 least of the union."""
+    rng = np.random.default_rng(n)
+    v = rng.integers(0, 5, n).astype(np.float32)
+    x = rng.permutation(1000)[:n]
+    W = 1 << (n - 1).bit_length()
+    sv, sx = bitonic_sort(*padded(v, x), W)
+    order = np.lexsort((x, v))
+    np.testing.assert_array_equal(sv[:n], v[order])
+    np.testing.assert_array_equal(sx[:n], x[order])
+    lv = np.sort(rng.integers(0, 5, 64).astype(np.float32))
+    lx = np.arange(2000, 2064)
+    mv, mx = merge_sorted(lv, lx, sv, sx)
+    allv, allx = np.concatenate([lv, sv[:n]]), np.concatenate([lx, sx[:n]])
+    order = np.lexsort((allx, allv))[:64]
+    np.testing.assert_array_equal(mv, allv[order])
+    np.testing.assert_array_equal(mx, allx[order])
