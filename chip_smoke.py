@@ -162,7 +162,17 @@ Phases, each timed, any failure ending the run with a non-zero exit:
     against float64; on the config-5 voice a (1, 4) mesh at split3cat, B =
     64 (no leaks, ids against phase 7's, the kernel at 16,384 x 65,536);
     ``parallel.dryrun`` on 4 members.  ``meshes_alone`` runs this phase by
-    itself with the voices and single-device batches it is held to.
+    itself with the voices and single-device batches it is held to;
+29. the corpus front end, after phase 27 on its 65 wavs: ``python -m
+    snickery_tpu_torch.extract --device cuda`` (subprocess; mag / real /
+    imag / lf0 and their 5 ms fixed-rate copies): every ``.pm`` and stream
+    file, no fallback to the Python detector; ``cli train`` (subprocess) of
+    a second voice from that tree, whose units, cutpoints, waves and
+    features must equal the wav-trained voice's bit for bit; natural-mode
+    ``synth`` of utt000 and the held-out utterance from it (the preselect
+    kernel, counted), ids equal to phase 27's; ``python -m
+    snickery_tpu_torch.bench_corpus_prep --device cuda`` at 60 minutes of
+    audio, its four lines logged beside the card's name and power limit.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after; the kernel it needs must have launched.  Standard output ends
@@ -2255,6 +2265,7 @@ VOICE_MIN_UNITS = 40_000     # about 760 epoch units an utterance
 ANALYSIS_EPOCHS = 120_000    # bench.py's bulk_analyse group: 120,000 x 1,024-point frames
 ANALYSIS_REF_EPOCHS = 4096   # the float64 numpy reference's slice of it
 PCM_ATOL = 1.5 / 32768.0     # wavs are 16-bit PCM of audio equal to f32 rounding
+BENCH_MINUTES = 60.0        # bench_corpus_prep's default: an hour of audio
 STAGE_LINE = re.compile(r"\btrain (\w+)\s+([\d.]+s) \(n=\d+\)")
 VOICE_MIN_COVERED = 0.9      # share of the copy's samples held to the corpus spans
 
@@ -2456,12 +2467,31 @@ def full_width_analysis(waves: list, smi: str, device: str = "cuda") -> None:
             f"CPU max |diff| {', '.join(errs)}; rules (a) and (b) pass [{smi}]")
 
 
-def voice_building(run: Run, smi: str, device: str = "cuda") -> None:
+def port_module(args: list, timeout: int, label: str):
+    """``python -m <args>`` in a subprocess: (its standard output's lines,
+    all its lines, wall seconds).  The last 8 lines are logged; the exit
+    code must be 0 and no line may say that the native epoch detector did
+    not build or load (the Python detector would have run)."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
+                         timeout=timeout)
+    wall = time.perf_counter() - t0
+    lines = (res.stdout + res.stderr).strip().splitlines()
+    for line in lines[-8:]:
+        log(f"{label}: {line}")
+    check(res.returncode == 0, f"{label} exited {res.returncode}")
+    check(not any("native build" in x or "cannot load native" in x for x in lines),
+          f"{label} fell back to the Python epoch detector")
+    return res.stdout.strip().splitlines(), lines, wall
+
+
+def voice_building(run: Run, smi: str, device: str = "cuda"):
     """Voice building, natural synthesis, resynthesis and the quality report
     through the port's CLI on the card: train (subprocess), the full-width
     analysis, natural-mode synth of a training and a held-out utterance
     (in process, counted: the preselect kernel), ``resynth_magphase`` and
-    ``evaluate`` (subprocess)."""
+    ``evaluate`` (subprocess).  Returns (the voice config's path, the ids of
+    utt000 and of the held-out utterance)."""
     from snickery_tpu_torch import cli, native
     from snickery_tpu_torch.config import load_config
     from snickery_tpu_torch.features.magphase import magphase_synthesis
@@ -2479,17 +2509,8 @@ def voice_building(run: Run, smi: str, device: str = "cuda") -> None:
               f"the port's native epoch library did not load ({native.lib_path()})")
         log(f"voice: native epoch library {lib._name}")
     with Phase("voice main path: python -m snickery_tpu_torch.cli train (subprocess)"):
-        t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "-m", "snickery_tpu_torch.cli", "train", "-c",
-                              cfg_path, "--device", device], capture_output=True, text=True,
-                             timeout=600)
-        wall = time.perf_counter() - t0
-        lines = (res.stdout + res.stderr).strip().splitlines()
-        for line in lines[-8:]:
-            log(f"train: {line}")
-        check(res.returncode == 0, f"train exited {res.returncode}")
-        check(not any("native build" in x or "cannot load native" in x for x in lines),
-              "train fell back to the Python epoch detector")
+        _, lines, wall = port_module(["snickery_tpu_torch.cli", "train", "-c", cfg_path,
+                                      "--device", device], 600, "train")
         stages = dict(m.groups() for m in map(STAGE_LINE.search, lines) if m)
         check(set(stages) == {"prepare_utterance", "build_voicedb", "save"},
               f"train stages {stages}")
@@ -2578,6 +2599,100 @@ def voice_building(run: Run, smi: str, device: str = "cuda") -> None:
         log(f"voice: evaluate wall {wall:.1f} s (subprocess); utt000 copy {rows['utt000']}; "
             f"held-out {rows['zheld']} [{smi}]")
     log(f"voice: the voice-building phases took {time.perf_counter() - t_phase:.1f} s")
+    return cfg_path, ids, held
+
+
+# ------------------------------------------------------- corpus front end
+FRONT_STREAMS = "mag,real,imag,lf0"
+FRONT_FRAMESHIFT = 0.005
+BENCH_PREFIXES = ("native epoch detector: ", "python epoch detector: ", "magphase analysis: ",
+                  "world analysis (mgc/bap): ")
+VOICE_ARRAYS = ("cutpoints", "utt_index", "unit_pos", "unit_lf0", "waves", "wave_offsets",
+                "unit_features", "join_left", "join_right", "mean_target", "std_target",
+                "mean_join", "std_join")
+
+
+def corpus_front_end(run: Run, smi: str, cfg_path: str, ids, held,
+                     device: str = "cuda") -> None:
+    """The corpus front end on phase 27's wavs: ``python -m
+    snickery_tpu_torch.extract`` (subprocess) into ``voice/feats``, ``cli
+    train`` (subprocess) of a second voice from that tree, which must equal
+    the wav-trained voice bit for bit, natural synth of utt000 and zheld from
+    it (in process, counted), whose ids must equal phase 27's, and
+    ``python -m snickery_tpu_torch.bench_corpus_prep`` at its defaults (an
+    hour of audio)."""
+    from snickery_tpu_torch import cli
+    from snickery_tpu_torch.config import load_config
+    from snickery_tpu_torch.ops.topk import resolve_zero_transient
+    from snickery_tpu_torch.voicedb.db import VoiceDB
+    t_phase = time.perf_counter()
+    cfg = load_config(cfg_path)
+    root = os.path.dirname(cfg_path)
+    feats = os.path.join(root, "feats")
+    names = sorted(f[:-4] for f in os.listdir(cfg.wav_datadir) if f.endswith(".wav"))
+    check(len(names) == VOICE_UTTS + 1, f"{len(names)} wavs")
+    streams = FRONT_STREAMS.split(",")
+    with Phase("front end main path: python -m snickery_tpu_torch.extract (subprocess)"):
+        _, lines, wall = port_module(
+            ["snickery_tpu_torch.extract", "-w", cfg.wav_datadir, "-o", feats, "--streams",
+             FRONT_STREAMS, "--fixed-frameshift", str(FRONT_FRAMESHIFT), "--device", device],
+            600, "extract")
+        pms = sorted(f for f in os.listdir(os.path.join(feats, "pm")) if f.endswith(".pm"))
+        check(pms == [f"{n}.pm" for n in names], f"{len(pms)} .pm files")
+        for sub in streams + [f"fixed/{s}" for s in streams]:
+            s = sub.split("/")[-1]
+            got = sorted(os.listdir(os.path.join(feats, sub)))
+            check(got == [f"{n}.{s}" for n in names], f"{sub}: {len(got)} files")
+        check(sum("epochs" in x for x in lines) == len(names), "extract logged no line a wav")
+        log(f"front end: extract of {len(names)} wavs (6 s each), streams {FRONT_STREAMS} and "
+            f"fixed-rate {FRONT_FRAMESHIFT} s: wall {wall:.1f} s (subprocess, import and card "
+            f"start included) [{smi}]")
+    with open(cfg_path) as f:
+        over = json.load(f)
+    over.update(voice_name="smokevoice_extracted", feat_datadir=feats,
+                pm_datadir=os.path.join(feats, "pm"))
+    cfg_x_path = os.path.join(root, "voice_extracted.json")
+    with open(cfg_x_path, "w") as f:
+        json.dump(over, f)
+    cfg_x = load_config(cfg_x_path)
+    with Phase("front end main path: cli train from the extracted tree (subprocess)"):
+        _, lines, wall = port_module(["snickery_tpu_torch.cli", "train", "-c", cfg_x_path,
+                                      "--device", device], 600, "train")
+        stages = dict(m.groups() for m in map(STAGE_LINE.search, lines) if m)
+        a, b = VoiceDB.load(cfg.db_path), VoiceDB.load(cfg_x.db_path)
+        check(a.filenames == b.filenames and a.n_units == b.n_units,
+              f"{b.n_units} units of {len(b.filenames)} utterances against {a.n_units}")
+        for name in VOICE_ARRAYS:
+            x, y = np.asarray(getattr(a, name)), np.asarray(getattr(b, name))
+            check(x.dtype == y.dtype and x.tobytes() == y.tobytes(),
+                  f"{name} of the extracted-tree voice differs from the wav-trained voice's")
+        log(f"front end: train from the tree wall {wall:.1f} s; stages {stages}; {b.n_units:,} "
+            f"units, cutpoints, epochs (unit bounds), waves and features bit-equal to the "
+            f"wav-trained voice [{smi}]")
+    out = os.path.join(root, "out_extracted")
+    zt = resolve_zero_transient(cfg_x.zero_transient, cfg_x.preselect_precision)
+    kernel = run.cuda_topk.kernel_name(False, False, cfg_x.preselect_precision, zt)
+    with Phase("front end main path: natural synth of utt000 and zheld from that voice"):
+        rc = run.main_path("front end natural synth", kernel, lambda: cli.main(
+            ["synth", "-c", cfg_x_path, "-o", out, "--dump-units", "--device", device,
+             "utt000", "zheld"]))
+        check(rc == 0, f"natural synth exited {rc}")
+        for name, want in (("utt000", ids), ("zheld", held)):
+            got = np.load(os.path.join(out, f"{name}.units.npy"))
+            check(np.array_equal(got, want), f"{name}: ids differ from the wav-trained voice's")
+        log(f"front end: natural synth ids equal the wav-trained voice's ({len(ids)} and "
+            f"{len(held)} units)")
+    with Phase("front end: python -m snickery_tpu_torch.bench_corpus_prep (subprocess)"):
+        out_lines, _, wall = port_module(
+            ["snickery_tpu_torch.bench_corpus_prep", "--minutes", str(BENCH_MINUTES),
+             "--device", device], 900, "bench_corpus_prep")
+        check(len(out_lines) == 4 and all(x.startswith(p)
+                                          for x, p in zip(out_lines, BENCH_PREFIXES)),
+              f"bench_corpus_prep printed {out_lines}")
+        for line in out_lines:
+            log(f"corpus prep ({BENCH_MINUTES} min, {device}): {line} [{smi}]")
+        log(f"front end: bench_corpus_prep wall {wall:.1f} s (subprocess)")
+    log(f"front end: the corpus front-end phases took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2669,8 +2784,9 @@ def main() -> int:
     derived_steps(run, "composition", db, hp_over, feats, out, voices=voices, segs=segs)
     del db
     torch.cuda.empty_cache()
-    voice_building(run, smi)
+    cfg_path, ids, held = voice_building(run, smi)
     torch.cuda.empty_cache()
+    corpus_front_end(run, smi, cfg_path, ids, held)
 
     log(f"chip_smoke.py: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"meshes": run.meshes}))

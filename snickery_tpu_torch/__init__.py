@@ -10,15 +10,19 @@ config file and one ``.voicedb`` directory serve both packages.
 Public API:
     from snickery_tpu_torch import Synthesiser, load_config, train_voice
 
-Entry points: ``python -m snickery_tpu_torch.cli
-{train,synth,evaluate,merge,info,serve}``
-and ``python -m snickery_tpu_torch.server`` (console scripts
-``snickery-torch`` and ``snickery-torch-serve``).
+Entry points: ``python -m snickery_tpu_torch.extract`` (a directory of
+wavs to the pitchmark and stream files ``train`` reads), ``python -m
+snickery_tpu_torch.cli {train,synth,evaluate,merge,info,serve}``, ``python
+-m snickery_tpu_torch.server`` (console scripts ``snickery-torch`` and
+``snickery-torch-serve``) and ``python -m
+snickery_tpu_torch.bench_corpus_prep`` (the throughput of that front end).
 """
 
 from snickery_tpu_torch.config import SnickeryConfig, load_config
 
-__all__ = ["SnickeryConfig", "Synthesiser", "load_config", "train_voice"]
+__version__ = "0.1.0"
+
+__all__ = ["SnickeryConfig", "Synthesiser", "__version__", "load_config", "train_voice"]
 
 
 def __getattr__(name):

@@ -23,6 +23,7 @@ from snickery_tpu_torch.cli import main as port_cli
 from snickery_tpu_torch.features.world import resample_to_fixed
 from snickery_tpu_torch.io.speech import get_speech, put_speech, read_wave
 from snickery_tpu_torch.voicedb.db import VoiceDB
+from tests.jaxnative import jax_native  # noqa: F401
 from tests.toycorpus import copy_reference, write_config, write_corpus
 from tests.toyvoice import SR, build_toy_voice, prepare_toy_utts
 
@@ -231,7 +232,7 @@ def test_cli_info_matches(corpus, capsys):
 
 # ---------------------------------------------- train -> natural synth -> evaluate
 @pytest.fixture(scope="module")
-def trained(tmp_path_factory):
+def trained(tmp_path_factory, jax_native):
     """A wav corpus (three training utterances and a held-out one, which
     sorts last and so falls outside ``n_train_utts``) and a voice built from
     it by each CLI's ``train``, then each CLI's natural-mode ``synth`` of all
@@ -289,7 +290,7 @@ def test_cli_natural_synth_of_training_utterances(trained):
         np.testing.assert_allclose(wt, wj, atol=PCM_ATOL)
 
 
-def test_cli_natural_synth_of_held_out_utterance(trained):
+def test_cli_natural_synth_of_held_out_utterance(trained, jax_native):
     """A held-out wav: each CLI searches its own analysis of it in its own
     voice, so the ids may differ.  Each CLI's path is its own float64
     oracle's (the same preselection and Viterbi in numpy), and in float64

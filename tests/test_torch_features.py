@@ -38,6 +38,7 @@ from snickery_tpu_torch.features import smoothing as tsmooth
 from snickery_tpu_torch.features import world as tworld
 from snickery_tpu_torch.io import est as port_est
 from tests import analysis64 as a64
+from tests.jaxnative import build_private_lib, jax_native, native_reference  # noqa: F401
 from tests.toyvoice import SR, synth_utterance
 
 # (the packages' ``features.stft`` attribute is the function, not the module)
@@ -380,7 +381,7 @@ def _waves():
 
 
 @pytest.mark.parametrize("use_native", [True, False])
-def test_detect_epochs_match_jax(use_native):
+def test_detect_epochs_match_jax(use_native, jax_native):
     for w in _waves():
         got = tepochs.detect_epochs(w, SR, use_native=use_native)
         want = jepochs.detect_epochs(w, SR, use_native=use_native)
@@ -393,7 +394,7 @@ def test_detect_epochs_match_jax(use_native):
 
 
 @pytest.mark.parametrize("use_native,n_threads", [(True, 1), (True, 4), (False, 1), (False, 3)])
-def test_detect_epochs_batch_matches_jax(use_native, n_threads):
+def test_detect_epochs_batch_matches_jax(use_native, n_threads, jax_native):
     waves = _waves()
     got = tepochs.detect_epochs_batch(waves, SR, n_threads=n_threads, use_native=use_native)
     want = jepochs.detect_epochs_batch(waves, SR, n_threads=n_threads, use_native=use_native)
@@ -416,7 +417,7 @@ def test_f0_tracking_matches_jax():
                                   jepochs.f0_from_epochs(np.array([0, 10_000]), SR))
 
 
-def test_native_library_is_the_ports_own():
+def test_native_library_is_the_ports_own(jax_native):
     """The port builds its own copy of native/epochs.cpp under
     build/snickery_tpu_torch_native and never loads the JAX package's
     library; its marks equal the JAX package's native marks, and its batch
@@ -425,7 +426,7 @@ def test_native_library_is_the_ports_own():
     assert lib is not None, "g++ is present here: the native build must succeed"
     path = tnative.lib_path()
     assert path.exists() and path.parent.name == "snickery_tpu_torch_native"
-    assert lib._name == str(path)
+    assert lib._name == str(path) != jax_native._name
     waves = _waves()[:3]
     for w in waves:
         np.testing.assert_array_equal(tnative.native_detect_epochs(w, SR),
@@ -436,6 +437,43 @@ def test_native_library_is_the_ports_own():
                            waves):
             np.testing.assert_array_equal(a, b)
             np.testing.assert_array_equal(a, tnative.native_detect_epochs(w, SR))
+
+
+def test_native_reference_survives_a_failed_jax_loader(monkeypatch, tmp_path_factory):
+    """A JAX loader that has cached a failed load (the state of a process
+    that lost the race of the in-place ``make``) runs the Python detector
+    under ``use_native=True``, whose marks differ from the native ones on
+    noise; the reference helper still loads its private build, so the marks
+    compared are native, and it puts the failed state back afterwards."""
+    from snickery_tpu import native as jnative
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_lib_failed", True)
+    noise = _waves()[2]
+    assert jnative.get_lib() is None
+    fallback = jepochs.detect_epochs(noise, SR, use_native=True)
+    np.testing.assert_array_equal(fallback, jepochs.detect_epochs(noise, SR, use_native=False))
+    port = tepochs.detect_epochs(noise, SR, use_native=True)
+    assert not np.array_equal(port, fallback)
+    lib_path = build_private_lib(tmp_path_factory.getbasetemp() / "jaxnative")
+    with native_reference(lib_path) as lib:
+        assert jnative.get_lib() is lib and lib._name == str(lib_path)
+        for w in _waves():
+            np.testing.assert_array_equal(jepochs.detect_epochs(w, SR, use_native=True),
+                                          tepochs.detect_epochs(w, SR, use_native=True))
+    assert jnative._lib is None and jnative._lib_failed
+
+
+def test_native_reference_fails_loudly_without_the_library(tmp_path):
+    """A library that does not load is an error of the helper, never a
+    silent switch to the Python detector."""
+    from snickery_tpu import native as jnative
+    before = (jnative._lib, jnative._lib_failed)
+    bogus = tmp_path / "libsnickery_native.so"
+    bogus.write_bytes(b"not a shared object")
+    with pytest.raises(AssertionError, match="Python detector"):
+        with native_reference(bogus):
+            pass
+    assert (jnative._lib, jnative._lib_failed) == before
 
 
 # -------------------------------------------------------------------- est

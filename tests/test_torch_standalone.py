@@ -37,6 +37,7 @@ from snickery_tpu_torch.voicedb import build as tbuild
 from snickery_tpu_torch.voicedb import db as tdb
 from snickery_tpu_torch.voicedb import device_layout as tlayout
 from snickery_tpu_torch.voicedb import multivoice as tmulti
+from tests.jaxnative import jax_native  # noqa: F401
 from tests.toyvoice import prepare_toy_utts, toy_config
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -340,7 +341,7 @@ def test_copied_numpy_modules_equal_their_originals(rel):
     assert port == orig
 
 
-def test_native_source_and_loader_match_the_originals():
+def test_native_source_and_loader_match_the_originals(jax_native):
     """native/epochs.cpp is copied byte for byte; the port's loader binds the
     same three C entry points with the same ctypes signatures, from its own
     build (never the JAX package's library), and its Python entry points
@@ -354,7 +355,7 @@ def test_native_source_and_loader_match_the_originals():
     for fn in ("native_detect_epochs", "native_detect_epochs_batch", "_max_marks"):
         assert inspect.signature(getattr(tnative, fn)) == inspect.signature(getattr(jnative, fn))
     tlib, jlib = tnative.get_lib(), jnative.get_lib()
-    assert tlib is not None and jlib is not None
+    assert tlib is not None and jlib is jax_native
     assert tlib._name != jlib._name and "snickery_tpu_torch_native" in tlib._name
     for sym in ("snickery_detect_epochs", "snickery_detect_epochs_batch",
                 "snickery_detect_epochs_batch_mt"):
@@ -389,3 +390,30 @@ def test_import_scan_covers_the_parallel_package():
     names = {str(p.relative_to(ROOT)) for p in _port_sources()}
     for rel in ("__init__.py", "mesh.py", "sharded.py", "dryrun.py"):
         assert f"snickery_tpu_torch/parallel/{rel}" in names, rel
+
+
+def test_import_scan_covers_the_corpus_front_end():
+    """The AST scan above reads the feature extraction and the
+    corpus-prep bench."""
+    names = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for rel in ("extract.py", "bench_corpus_prep.py"):
+        assert f"snickery_tpu_torch/{rel}" in names, rel
+
+
+def test_version_equals_the_jax_packages():
+    import snickery_tpu
+    import snickery_tpu_torch
+    assert snickery_tpu_torch.__version__ == snickery_tpu.__version__
+    assert "__version__" in snickery_tpu_torch.__all__
+
+
+def test_pyproject_lists_every_package_of_the_port():
+    """Every directory of snickery_tpu_torch/ that holds an ``__init__.py``
+    is a package of the wheel (``[tool.setuptools] packages``)."""
+    import tomllib
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        packages = set(tomllib.load(f)["tool"]["setuptools"]["packages"])
+    port = ROOT / "snickery_tpu_torch"
+    found = {".".join(p.parent.relative_to(ROOT).parts) for p in port.rglob("__init__.py")}
+    assert "snickery_tpu_torch.parallel" in found
+    assert found <= packages, sorted(found - packages)

@@ -27,7 +27,11 @@ from snickery_tpu_torch.io.est import write_est_pitchmarks
 from snickery_tpu_torch.io.speech import put_speech, read_wave
 from snickery_tpu_torch.voicedb.build import build_voicedb
 from tests import analysis64 as a64
+from tests.jaxnative import jax_native  # noqa: F401
 from tests.toycorpus import STREAMS, write_config, write_corpus
+
+# the JAX package's train detects epochs: with its native library, always
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 PORT_F64_ATOL = 1e-4
 EXACT = ("cutpoints", "utt_index", "unit_pos", "unit_code", "context_codes", "voice_ids",
