@@ -127,8 +127,8 @@ Phases, each timed, any failure ending the run with a non-zero exit:
     narrower target tile), scores that fall with the row index (every score
     passes the screen and the survivor queue overflows on every tile) and
     that rise (nothing passes after the first k rows), bit-identical rows
-    (the lowest k indices must win) and a starved voice (this check runs
-    after phase 22's);
+    (the lowest k indices must win), a starved voice and kd 302 (multiepoch=2
+    units) (this check runs after phase 22's);
 26. the SHA-256 of the "highest" kernels' ids and scores on the seeded
     65,536 x 1,048,578 case of ``snickery_tpu_torch.kernel_ab``, printed
     beside the digests of the kernels' first design;
@@ -172,10 +172,24 @@ Phases, each timed, any failure ending the run with a non-zero exit:
     ``synth`` of utt000 and the held-out utterance from it (the preselect
     kernel, counted), ids equal to phase 27's; ``python -m
     snickery_tpu_torch.bench_corpus_prep --device cuda`` at 60 minutes of
-    audio, its four lines logged beside the card's name and power limit.
+    audio, its four lines logged beside the card's name and power limit;
+30. the port's bench (``python -m snickery_tpu_torch.bench --device
+    cuda``, two subprocesses sharing the cache ``build/chip_smoke/bench``):
+    ``--modes epoch,kernel,streaming`` at the defaults (the bench's own
+    1M-unit corpus: ``synth_utterance`` waves, the native detector, the
+    grouped magphase analysis on the card, the cutter; config 3 at split3cat
+    B = 32 x 2048 with the float64-oracle and f32 gates, the kernel against
+    its twin, config-4 streaming), then ``--quick --modes me2,capacity,
+    halfphone,multivoice,toy,48k,quality``: both exit 0, both last lines
+    parse, every block is there with no error and no skip, config 3's oracle
+    tie-adjusted agreement >= 0.99 with |gap| <= 1e-4 and split3cat-vs-f32
+    tie-adjusted >= 0.999, ``kernel_vs_twin`` true, each block's kernel
+    launched in its timed steps, ``BENCH_full.json`` unchanged; me2's
+    kernel at kd 302 is the kernels line's ``@me2`` row.
 
 Each main path runs with the launch counts set to 0 just before it and read
-just after; the kernel it needs must have launched.  Standard output ends
+just after; the kernel it needs must have launched (phase 30's bench counts
+them so around each mode's timed steps, in its subprocess).  Standard output ends
 with a JSON line of the meshes (phase 28: ms a step, exchange bytes a
 member, agreement, the kernel at a shard's shape), a JSON line of the
 kernels (launches on the main paths, max error against the twin, kernel,
@@ -201,7 +215,8 @@ import urllib.request
 
 import numpy as np
 
-from snickery_tpu_torch.kernel_check import PROBE_RTOL, check, compare, split_probe_error
+from snickery_tpu_torch.kernel_check import (PROBE_RTOL, bound_ms, check, compare, matmul_ms,
+                                             partition_work, split_probe_error, time_ms)
 from snickery_tpu_torch.synthetic_voices import (DATADIMS, KD, SR, make_halfphone_utterances,
                                                make_utterances, phone_means)
 
@@ -250,10 +265,6 @@ def kernel_source(name: str) -> str:
     return f"snickery_tpu_torch/csrc/{stem}{'_' + sel if sel else ''}.cu"
 
 
-# the card's published peaks (H100 SXM data sheet, dense, at 700 W): FP32
-# outside the tensor cores for "highest", bf16 tensor cores for the splits
-PEAK_FLOPS = {"highest": 67e12, "split3": 989e12, "split3cat": 989e12}
-HBM_BYTES_PER_S = 3.35e12
 STREAM_CHUNK = 32        # config 4: units (epoch-rate) or 5 ms frames a chunk
 CAP_TILE = 8             # capacity: the config-3 voice x8, 8,388,000 units
 JAX_TPU_CONFIG2_AGREEMENT = 0.9875   # BENCH_full.json config2, a TPU v5e run
@@ -298,95 +309,6 @@ def synthetic_block(rng, m: int, kd: int, dup: bool):
     w = rng.uniform(0.2, 1.0, kd).astype(np.float32)
     raw, _, _ = build_raw_blocks(feats, jr, m, affine=(mean, std, w))
     return raw, (mean, std, w)
-
-
-def bound_ms(T: int, m_rows: int, kd: int, k: int, precision: str, masked: bool,
-             row_bytes: float | None = None, work: tuple | None = None):
-    """(least time in ms, "operations" or "bytes") the card could take for
-    one preselect call: 2 kd FLOP per (target, DB row) product, T m_rows of
-    them (three bf16 products at a split precision), at the peak rate of its
-    type, against the bytes the call must move (targets; each DB row's data
-    and its sqn, ``row_bytes`` a row, by default 4 (kd + 1): the raw block's
-    data and sqn columns or the derived f32 operand and its sqn; the
-    metadata rows when masked; each read once; the (T, k) scores and ids
-    written once) at HBM bandwidth.  ``work`` = (products, DB rows) where
-    the data needs fewer (:func:`partition_work`).  The mask compares are
-    integer work beside the kd products of each score and are not counted."""
-    pairs, rows = work or (T * m_rows, m_rows)
-    flops = 2.0 * pairs * kd * (1 if precision == "highest" else 3)
-    if row_bytes is None:
-        row_bytes = 4.0 * (kd + 1)
-    nbytes = 4.0 * (T * kd + 2 * T * k) + rows * row_bytes
-    if masked:
-        nbytes += 32.0 * (T + rows)
-    t_ops, t_bytes = flops / PEAK_FLOPS[precision], nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-
-
-def partition_work(masks: dict, m_rows: int) -> tuple | None:
-    """(products, DB rows) a partition-masked call needs, from its masks:
-    each target against the rows of its own voice id (a dead step, id -1,
-    against the padding rows), and the rows of the voices its targets
-    have; None without the partition mask (every target against every
-    row)."""
-    if not masks.get("partition"):
-        return None
-    import torch
-    dv = masks["db_meta"][:m_rows, 6].long()
-    ids, counts = torch.unique(dv, return_counts=True)
-    per_voice = dict(zip(ids.tolist(), counts.tolist()))
-    tid, tcount = torch.unique(masks["tgt_meta"][:, 6].long(), return_counts=True)
-    pairs = sum(c * per_voice.get(v, 0) for v, c in zip(tid.tolist(), tcount.tolist()))
-    return pairs, sum(per_voice.get(v, 0) for v in tid.tolist())
-
-
-def matmul_ms(torch, x, rows, precision: str) -> float:
-    """Card time of the product alone, ``x @ rows.T`` for targets x (T, kd)
-    and DB rows (m, kd), as torch.matmul computes it at the same precision:
-    f32 (no TF32) at "highest"; at a split precision bf16 operands with f32
-    accumulation, one matmul over the 3 kd pairs (split3cat) or three
-    (split3); bf16 ``rows`` are a pre-split operand (m, 2 kp) whose halves
-    are used as they are.  Chunked over the DB so each output stays within
-    1 GiB.  A yardstick only: no PyTorch call fuses the product with an
-    exact top-k, and the port never calls this."""
-    from snickery_tpu_torch.ops.cuda_topk import split_bf16
-    T, kd = x.shape
-    step = max(64, (1 << 28) // T)
-    if precision == "highest":
-        pairs = [(x, rows)]
-    else:
-        bf = torch.bfloat16
-        th, tl = (a.to(bf) for a in split_bf16(x))
-        if rows.dtype == bf:
-            kp = rows.shape[1] // 2
-            rh, rl = rows[:, :kd].contiguous(), rows[:, kp:kp + kd].contiguous()
-        else:
-            rh, rl = (a.to(bf) for a in split_bf16(rows.contiguous()))
-        if precision == "split3cat":
-            pairs = [(torch.cat([th, tl, th], 1), torch.cat([rh, rh, rl], 1))]
-        else:
-            pairs = [(th, rh), (tl, rh), (th, rl)]
-
-    def run():
-        for lo in range(0, rows.shape[0], step):
-            for a, b in pairs:
-                torch.matmul(a, b[lo:lo + step].T)
-
-    ms = time_ms(torch, run, 1)
-    del pairs
-    return ms
-
-
-def time_ms(torch, fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def kernel_vs_plain_synthetic(torch) -> float:
@@ -813,7 +735,7 @@ def selects_at_sweep_shape(run) -> None:
                 form = dict(block=op, aff=None, sqn=sqn,
                             row_bytes=op.shape[1] * op.element_size() + 4)
                 db_rows = op
-            matmul = matmul_ms(torch, tg, db_rows, precision)
+            matmul = matmul_ms(tg, db_rows, precision)
             for masks in sweep_topk.MASKS:
                 kw = sweep_topk.make_masks(rows, units, 0, masks, dev)
                 for select in ("phase", "packed", "packed3diag"):
@@ -917,7 +839,7 @@ class Run:
             plain = topk_preselect_zt_plain
             db_rows = d.raw[:m_rows, :kd]
         else:
-            derive_ms = time_ms(torch, lambda: derive_operand(d.raw, aff, d.n_real, m_rows,
+            derive_ms = time_ms(lambda: derive_operand(d.raw, aff, d.n_real, m_rows,
                                                               precision), 3)
             block, sqn = derive_operand(d.raw, aff, d.n_real, m_rows, precision)
             block_aff, row_bytes, db_rows = None, block.shape[1] * block.element_size() + 4, block
@@ -935,10 +857,10 @@ class Run:
                 x, block, block_aff, m_rows, k, precision, sqn=sqn,
                 n_real=None if m.get("partition") else int(d.n_real), **m)
             self.errs[kernel] = max(self.errs.get(kernel, 0.0), err)
-            ms = time_ms(torch, lambda: self.cuda_topk.cuda_topk_preselect(
+            ms = time_ms(lambda: self.cuda_topk.cuda_topk_preselect(
                 x, block, k, block_aff, m_rows, precision=precision, zero_transient=zt,
                 sqn=sqn, **m), 3)
-            plain_ms = time_ms(torch, lambda: plain(x, block, k, block_aff, m_rows,
+            plain_ms = time_ms(lambda: plain(x, block, k, block_aff, m_rows,
                                                     precision=precision, **m), 1)
             b_ms, b_by = bound_ms(T, m_rows, kd, k, precision, bool(masks), row_bytes,
                                   partition_work(m, m_rows))
@@ -949,7 +871,7 @@ class Run:
                 msg = (f", bound over the full DB "
                        f"{bound_ms(T, m_rows, kd, k, precision, True, row_bytes)[0]:.3f} ms")
             if (report if matmul is None else matmul) and T == T_list[-1]:
-                row["matmul_ms"] = matmul_ms(torch, x, db_rows, precision)
+                row["matmul_ms"] = matmul_ms(x, db_rows, precision)
                 msg += f", torch.matmul of the product alone {row['matmul_ms']:.2f} ms"
             if report:
                 self.shapes[kernel] = row["shape"]
@@ -984,7 +906,7 @@ class Run:
             return self.cuda_topk.cuda_topk_preselect(x, block, k, aff, m_rows,
                                                       zero_transient=sqn is None, sqn=sqn, **kw)
 
-        ms = time_ms(torch, kernel, reps)
+        ms = time_ms(kernel, reps)
         got = kernel()
         start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
@@ -1030,7 +952,7 @@ class Run:
             return self.cuda_topk.cuda_topk_preselect(x, block, k, aff, m_rows,
                                                       precision=precision, select=select)
 
-        stream_ms = time_ms(torch, lambda: kernel("stream"), 2)
+        stream_ms = time_ms(lambda: kernel("stream"), 2)
         log(f"{stream_kernel} (stream) T={T} M={m_rows} kd={kd} k={k}: kernel {stream_ms:.2f} ms "
             f"in this phase")
         i_s, v_s = kernel("stream")
@@ -2433,7 +2355,7 @@ def full_width_analysis(waves: list, smi: str, device: str = "cuda") -> None:
 
         def device_part():
             frames(w_dev, e_dev, frame_max=fm, sample_rate=SR, **kw)
-        dev_ms = time_ms(torch, device_part, 3) if dev.type == "cuda" else float("nan")
+        dev_ms = time_ms(device_part, 3) if dev.type == "cuda" else float("nan")
         t0 = time.perf_counter()
         cpu = entry(wave, e, SR, device="cpu")
         cpu_s = time.perf_counter() - t0
@@ -2695,6 +2617,96 @@ def corpus_front_end(run: Run, smi: str, cfg_path: str, ids, held,
     log(f"front end: the corpus front-end phases took {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 30: the port's bench, two runs sharing one cache (the second tiles
+# nothing of the first: --quick voices are their own)
+BENCH_RUNS = (("defaults", ["--modes", "epoch,kernel,streaming"], 900),
+              ("quick", ["--quick", "--modes", "me2,capacity,halfphone,multivoice,toy,48k,quality"],
+               600))
+BENCH_BLOCKS = {"epoch": ("config3",), "kernel": ("kernel_vs_twin",),
+                "streaming": ("config4", "config4_natural"), "me2": ("config3_me2",),
+                "capacity": ("capacity",), "halfphone": ("config2",), "multivoice": ("config5",),
+                "toy": ("config1",), "48k": ("config_48k",), "quality": ("quality_trend",)}
+# the block whose steps each stream kernel must have run
+BENCH_KERNELS = {"config3": "topk_preselect_zt_split3cat",
+                 "config3_me2": "topk_preselect_zt_split3cat",
+                 "capacity": "topk_preselect_zt_split3",
+                 "config2": "topk_preselect_zt_split3cat_ling",
+                 "config5": "topk_preselect_zt_split3cat_part"}
+ME2_ROW = "topk_preselect_zt_split3cat@me2"     # the kernels line's row at me2's kd 302
+
+
+def bench_phase(run: Run, smi: str, device: str = "cuda") -> None:
+    """``python -m snickery_tpu_torch.bench`` in two subprocesses sharing the
+    cache ``build/chip_smoke/bench``: at its defaults for the epoch, kernel
+    and streaming modes (the 1M-unit corpus built on the device, the oracle
+    and f32 gates), then ``--quick`` for the other seven.  Both must exit 0
+    with every asked-for block, no error and no skip; the config-3 gates,
+    ``kernel_vs_twin`` and each block's kernel launches (the bench counts
+    them around its timed steps) are checked, and the JAX bench's
+    ``BENCH_full.json`` must keep its bytes.  me2's kernel-vs-twin figures at
+    kd 302 become a row of the kernels line."""
+    import hashlib
+    t_phase = time.perf_counter()
+    cache = os.path.join("build", "chip_smoke", "bench")
+    jax_record = os.path.join(os.path.dirname(os.path.abspath(__file__)), "BENCH_full.json")
+
+    def digest():
+        with open(jax_record, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    before = digest()
+    extra = {}
+    for label, args, timeout in BENCH_RUNS:
+        out = os.path.join(cache, f"{label}.json")
+        modes = args[args.index("--modes") + 1].split(",")
+        with Phase(f"bench main path: python -m snickery_tpu_torch.bench {' '.join(args)} "
+                   "(subprocess)"):
+            out_lines, _, wall = port_module(["snickery_tpu_torch.bench", *args, "--device",
+                                              device, "--cache-dir", cache, "--out", out],
+                                             timeout, f"bench {label}")
+            line = json.loads(out_lines[-1])
+            with open(out) as f:
+                full = json.load(f)["extra"]
+            check("errors" not in line["extra"] and "skipped" not in line["extra"],
+                  f"bench {label}: errors {line['extra'].get('errors')}, skipped "
+                  f"{line['extra'].get('skipped')}")
+            for mode in modes:
+                for block in BENCH_BLOCKS[mode]:
+                    check(block in full, f"bench {label}: no {block} block")
+            log(f"bench {label} line ({len(out_lines[-1])} chars) [{smi}]: {out_lines[-1]}")
+            log(f"bench {label}: wall {wall:.1f} s (subprocess), seconds a mode "
+                f"{full['mode_sec']}")
+            extra.update(full)
+    check(digest() == before, "the bench changed BENCH_full.json")
+    c3 = extra["config3"]
+    check(c3["agreement_tie_adjusted"] >= 0.99, f"config3 oracle agreement "
+          f"{c3['agreement_tie_adjusted']}")
+    check(abs(c3["oracle_path_cost_gap_rel"]) <= 1e-4,
+          f"config3 oracle path-cost gap {c3['oracle_path_cost_gap_rel']}")
+    check(c3["agreement_vs_f32_tie_adjusted"] >= 0.999,
+          f"config3 split3cat vs f32 agreement {c3['agreement_vs_f32_tie_adjusted']}")
+    check(extra["kernel_vs_twin"] is True, "kernel_vs_twin is not true")
+    for block, kernel in BENCH_KERNELS.items():
+        per_step = extra[block]["launches_per_step"]
+        log(f"bench {block}: kernel launches a step {per_step}")
+        check(per_step.get(kernel, 0) > 0, f"bench {block} never launched {kernel}")
+        n = round(per_step[kernel] * len(extra[block]["step_ms"]))
+        name = ME2_ROW if block == "config3_me2" else kernel
+        run.launches[name] = run.launches.get(name, 0) + n
+    me2 = extra["config3_me2"]["kernel_at_shape"]
+    check(me2["kd"] == 2 * KD, f"me2 ran the kernel at kd {me2['kd']}")
+    b_ms, b_by = bound_ms(me2["T"], me2["m_rows"], me2["kd"], me2["k"], me2["precision"], False)
+    run.errs[ME2_ROW] = me2["max_abs_err"]
+    run.times[ME2_ROW] = (me2["ms"], me2["plain_ms"])
+    run.bounds[ME2_ROW] = (b_ms, b_by)
+    run.matmul[ME2_ROW] = me2["matmul_ms"]
+    run.shapes[ME2_ROW] = me2["shape"]
+    log(f"bench me2 kernel {me2['shape']}: kernel {me2['ms']:.3f} ms, plain "
+        f"{me2['plain_ms']:.2f} ms, bound {b_ms:.3f} ms ({b_by}), torch.matmul "
+        f"{me2['matmul_ms']:.2f} ms, max_abs_err {me2['max_abs_err']:.3e} [{smi}]")
+    log(f"bench: the bench phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     t_start = time.perf_counter()
@@ -2787,16 +2799,19 @@ def main() -> int:
     cfg_path, ids, held = voice_building(run, smi)
     torch.cuda.empty_cache()
     corpus_front_end(run, smi, cfg_path, ids, held)
+    torch.cuda.empty_cache()
+    bench_phase(run, smi)
 
     log(f"chip_smoke.py: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"meshes": run.meshes}))
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": kernel_source(name),
-        "replaces": REPLACES[name], "launches": run.launches[name],
+        "name": name, "route": "cuda", "source": kernel_source(name.split("@")[0]),
+        "replaces": REPLACES[name.split("@")[0]], "launches": run.launches[name],
         "max_abs_err": run.errs[name], "ms": run.times[name][0],
         "plain_ms": run.times[name][1], "bound_ms": run.bounds[name][0],
         "bound_by": run.bounds[name][1], "library_ms": None,
-        "matmul_ms": run.matmul[name], "shape": run.shapes[name]} for name in REPLACES]}))
+        "matmul_ms": run.matmul[name], "shape": run.shapes[name]}
+        for name in (*REPLACES, ME2_ROW)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

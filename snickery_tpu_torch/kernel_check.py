@@ -19,7 +19,7 @@ tests (``tests/test_torch_cuda_kernel.py``).
 - :data:`EDGE_CASES` and :func:`run_edge_case`: the kernel against its twin
   at the edges of its tiles (target and DB row counts that are no multiples
   of a tile, one DB split and several, kd 453 with its narrower target tile,
-  k = 64) and of its screened epilogue (scores that fall with the row index,
+  k = 64, kd 302 of multiepoch=2 units) and of its screened epilogue (scores that fall with the row index,
   so that every score passes the screen and the queue overflows on every
   tile; scores that rise, so that nothing passes after the first k rows;
   bit-identical rows; a partition that starves a voice).
@@ -32,6 +32,11 @@ tests (``tests/test_torch_cuda_kernel.py``).
   kernel that splits lies within :data:`PROBE_RTOL`, one that multiplies
   in full f32 (or truncates the split) does not.  Kernel-vs-twin
   tolerances (1e-3 on scores of ~1e2) cannot tell the two apart.
+- The yardsticks a report puts beside a kernel's time: :func:`time_ms`
+  (CUDA events on a card, the host clock on the CPU), :func:`bound_ms`
+  (the least time the card could take for the call, from its published
+  peaks; :func:`partition_work` for the partition mask) and
+  :func:`matmul_ms` (``torch.matmul`` of the product alone).
 
 On a CPU tensor :func:`~snickery_tpu_torch.ops.cuda_topk.cuda_topk_preselect`
 runs the twin, so both checks also run on the CPU.
@@ -39,13 +44,15 @@ runs the twin, so both checks also run on the CPU.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from snickery_tpu_torch.const import ID_RANK_PENALTY
 from snickery_tpu_torch.ops.cuda_topk import (BLOCK_ROWS, MAX_K, _prescale,
                                               cuda_topk_preselect, derive_operand, pack_meta,
-                                              penalty_constants, presplit_halves,
+                                              penalty_constants, presplit_halves, split_bf16,
                                               split_cross64, split_scores64,
                                               topk_preselect_dv_plain,
                                               topk_preselect_zt_plain)
@@ -59,6 +66,10 @@ PROBE_RTOL = 1e-6        # split probe: |score - f64 score| / (2 sum |t| |u|)
 PACKED_ULPS = BLOCK_ROWS - 1   # a packed key replaces the score's low 7 bits
 FLAG_ROWS = 0.01         # split precision: share of targets whose packed3 flags
                          # may differ (a third key within rounding of the worst)
+# the card's published peaks (H100 SXM data sheet, dense, at 700 W): FP32
+# outside the tensor cores for "highest", bf16 tensor cores for the splits
+PEAK_FLOPS = {"highest": 67e12, "split3": 989e12, "split3cat": 989e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -257,6 +268,7 @@ EDGE_CASES = {
     "rising": (300, 8229, 151, None, "rising"),      # none after the first k rows
     "identical": (300, 8229, 151, None, "identical"),   # the lowest k rows must win
     "starved": (300, 8229, 151, None, "starved"),    # a voice of k // 2 rows, one of none
+    "kd302_me2": (300, 8229, 302, None, None),       # multiepoch=2 units: kd 2 x 151
 }
 EDGE_K = {"highest": 40, "split3": 40, "split3cat": 48}
 
@@ -353,3 +365,98 @@ def split_probe_error(device, precision: str, k: int = 48, select: str = "stream
     ref = split_scores64(t2, raw[ids], aff)
     scale = 2.0 * torch.einsum("tnc,tc->tn", rows[ids].double().abs(), t2.double().abs())
     return float(((scores.double() - ref).abs() / scale).max())
+
+
+def time_ms(fn, reps: int, device="cuda") -> float:
+    """Mean ms of ``reps`` calls of ``fn`` after one warm-up call: CUDA
+    events around the calls on a card (the device's time from the first
+    call's start to the last one's end), the host clock on the CPU."""
+    fn()
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def bound_ms(T: int, m_rows: int, kd: int, k: int, precision: str, masked: bool,
+             row_bytes: float | None = None, work: tuple | None = None):
+    """(least time in ms, "operations" or "bytes") the card could take for
+    one preselect call: 2 kd FLOP per (target, DB row) product, T m_rows of
+    them (three bf16 products at a split precision), at the peak rate of its
+    type, against the bytes the call must move (targets; each DB row's data
+    and its sqn, ``row_bytes`` a row, by default 4 (kd + 1): the raw block's
+    data and sqn columns or the derived f32 operand and its sqn; the
+    metadata rows when masked; each read once; the (T, k) scores and ids
+    written once) at HBM bandwidth.  ``work`` = (products, DB rows) where
+    the data needs fewer (:func:`partition_work`).  The mask compares are
+    integer work beside the kd products of each score and are not counted."""
+    pairs, rows = work or (T * m_rows, m_rows)
+    flops = 2.0 * pairs * kd * (1 if precision == "highest" else 3)
+    if row_bytes is None:
+        row_bytes = 4.0 * (kd + 1)
+    nbytes = 4.0 * (T * kd + 2 * T * k) + rows * row_bytes
+    if masked:
+        nbytes += 32.0 * (T + rows)
+    t_ops, t_bytes = flops / PEAK_FLOPS[precision], nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def partition_work(masks: dict, m_rows: int) -> tuple | None:
+    """(products, DB rows) a partition-masked call needs, from its masks:
+    each target against the rows of its own voice id (a dead step, id -1,
+    against the padding rows), and the rows of the voices its targets
+    have; None without the partition mask (every target against every
+    row)."""
+    if not masks.get("partition"):
+        return None
+    dv = masks["db_meta"][:m_rows, 6].long()
+    ids, counts = torch.unique(dv, return_counts=True)
+    per_voice = dict(zip(ids.tolist(), counts.tolist()))
+    tid, tcount = torch.unique(masks["tgt_meta"][:, 6].long(), return_counts=True)
+    pairs = sum(c * per_voice.get(v, 0) for v, c in zip(tid.tolist(), tcount.tolist()))
+    return pairs, sum(per_voice.get(v, 0) for v in tid.tolist())
+
+
+def matmul_ms(x, rows, precision: str) -> float:
+    """Device time of the product alone, ``x @ rows.T`` for targets x (T, kd)
+    and DB rows (m, kd), as torch.matmul computes it at the same precision:
+    f32 (no TF32) at "highest"; at a split precision bf16 operands with f32
+    accumulation, one matmul over the 3 kd pairs (split3cat) or three
+    (split3); bf16 ``rows`` are a pre-split operand (m, 2 kp) whose halves
+    are used as they are.  Chunked over the DB so each output stays within
+    1 GiB.  A yardstick only: no PyTorch call fuses the product with an
+    exact top-k, and the port never calls this."""
+    T, kd = x.shape
+    step = max(64, (1 << 28) // T)
+    if precision == "highest":
+        pairs = [(x, rows)]
+    else:
+        bf = torch.bfloat16
+        th, tl = (a.to(bf) for a in split_bf16(x))
+        if rows.dtype == bf:
+            kp = rows.shape[1] // 2
+            rh, rl = rows[:, :kd].contiguous(), rows[:, kp:kp + kd].contiguous()
+        else:
+            rh, rl = (a.to(bf) for a in split_bf16(rows.contiguous()))
+        if precision == "split3cat":
+            pairs = [(torch.cat([th, tl, th], 1), torch.cat([rh, rh, rl], 1))]
+        else:
+            pairs = [(th, rh), (tl, rh), (th, rl)]
+
+    def run():
+        for lo in range(0, rows.shape[0], step):
+            for a, b in pairs:
+                torch.matmul(a, b[lo:lo + step].T)
+
+    ms = time_ms(run, 1, x.device)
+    del pairs
+    return ms

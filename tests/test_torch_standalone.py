@@ -49,8 +49,8 @@ META = ("sample_rate", "target_representation", "multiepoch", "stream_list", "da
 
 
 def _forbidden(name: str) -> bool:
-    return (name in ("jax", "jaxlib", "snickery_tpu")
-            or name.startswith(("jax.", "jaxlib.", "snickery_tpu.")))
+    return (name in ("jax", "jaxlib", "snickery_tpu", "bench", "tests")
+            or name.startswith(("jax.", "jaxlib.", "snickery_tpu.", "tests.")))
 
 
 def _port_sources():
@@ -59,7 +59,8 @@ def _port_sources():
 
 def test_port_sources_import_nothing_of_jax_or_the_jax_package():
     """An AST scan of every module of the port and of chip_smoke.py finds no
-    import of jax or of snickery_tpu, at any depth of the file."""
+    import of jax, of snickery_tpu, of the JAX bench (``bench``) or of the
+    test helpers (``tests``), at any depth of the file."""
     found = []
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -244,8 +244,9 @@ def test_resynth_magphase_needs_magphase_streams(voices, monkeypatch):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, and chip_smoke.py, imports with jax and the
-    JAX package (snickery_tpu) blocked, and neither ends up loaded."""
+    """Every module of the port, and chip_smoke.py, imports with jax, the
+    JAX package (snickery_tpu), its bench (``bench``) and the test helpers
+    (``tests``) blocked, and none of them ends up loaded."""
     pkg = Path(__file__).resolve().parents[1] / "snickery_tpu_torch"
     modules = sorted("snickery_tpu_torch." + ".".join(p.relative_to(pkg).with_suffix("").parts)
                      for p in pkg.rglob("*.py") if p.name != "__init__.py")
@@ -254,8 +255,8 @@ def test_port_imports_without_jax():
     code = (
         "import sys\n"
         "def blocked(name):\n"
-        "    return (name in ('jax', 'jaxlib', 'snickery_tpu')\n"
-        "            or name.startswith(('jax.', 'jaxlib.', 'snickery_tpu.')))\n"
+        "    return (name in ('jax', 'jaxlib', 'snickery_tpu', 'bench', 'tests')\n"
+        "            or name.startswith(('jax.', 'jaxlib.', 'snickery_tpu.', 'tests.')))\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if blocked(name):\n"
