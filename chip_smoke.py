@@ -183,18 +183,38 @@ Phases, each timed, any failure ending the run with a non-zero exit:
     halfphone,multivoice,toy,48k,quality``: both exit 0, both last lines
     parse, every block is there with no error and no skip, config 3's oracle
     tie-adjusted agreement >= 0.99 with |gap| <= 1e-4 and split3cat-vs-f32
-    tie-adjusted >= 0.999, ``kernel_vs_twin`` true, each block's kernel
-    launched in its timed steps, ``BENCH_full.json`` unchanged; me2's
-    kernel at kd 302 is the kernels line's ``@me2`` row.
+    tie-adjusted >= 0.999, ``kernel_vs_twin`` true, each block's preselect
+    kernel and the Viterbi kernel launched in its timed steps,
+    ``BENCH_full.json`` unchanged; me2's kernel at kd 302 is the kernels
+    line's ``@me2`` row;
+31. the decode kernels (``csrc/viterbi.cu``; run right after phase 5, on
+    its lattice): ``viterbi_decode``, ``greedy_decode`` and
+    ``greedy_decode_stream`` against their plain versions on
+    ``kernel_check.DECODE_CASES`` (lengths 1, T, 0 and ragged with junk in
+    the padded steps; N 1, 20, 30 and 64; dj 151 and 302; a natural chain
+    that must cost exactly 0.0; epsilon 0, 0.3 and 1e9; squared joins;
+    exact ties, where the lowest index must win; backpointers in device
+    memory at T = 8,200; one staging buffer a side at N = 64, dj = 302;
+    stream chunks with and without an incoming context, and with none
+    live), each twice (bit-identical): paths equal, or float64 near-ties
+    no dearer (1e-6), totals rtol 1e-5; then at config 3's batch lattice
+    (phase 5's B = 32 x 2048 step, N = 30, dj = 151) the Viterbi and the
+    greedy kernel, and a config-4-shaped chunk of it (T = 64, 32 live) for
+    the stream kernel, timed against their plain versions with CUDA
+    events, the Viterbi and the stream call under
+    ``torch.cuda.set_sync_debug_mode("error")``.
 
 Each main path runs with the launch counts set to 0 just before it and read
-just after; the kernel it needs must have launched (phase 30's bench counts
-them so around each mode's timed steps, in its subprocess).  Standard output ends
+just after; the preselect kernel it needs and its decode kernel (Viterbi;
+greedy for ``greedy_search``; the stream kernel for the streams) must have
+launched (phase 30's bench counts them so around each mode's timed steps, in
+its subprocess).  Standard output ends
 with a JSON line of the meshes (phase 28: ms a step, exchange bytes a
 member, agreement, the kernel at a shard's shape), a JSON line of the
 kernels (launches on the main paths, max error against the twin, kernel,
 twin and ``torch.matmul``-of-the-product times, and the bound from the
-card's published peaks), the card's name and power limit from nvidia-smi,
+card's published peaks; the three decode kernels' rows last, with no
+matmul yardstick), the card's name and power limit from nvidia-smi,
 and ``{"ok": true, "device": {...}}``.
 """
 
@@ -258,8 +278,18 @@ REPLACES.update({
     for sel, lines in SELECT_LINES.items() for name, line in list(REPLACES.items())})
 
 
+# the decode kernels (phase 31): the XLA scans of the JAX package they replace
+DECODE_REPLACES = {
+    "viterbi_decode": "snickery_tpu/ops/viterbi.py:102 (lax.scan; +:117, the backtrack)",
+    "greedy_decode": "snickery_tpu/ops/viterbi.py:155 (lax.scan)",
+    "greedy_decode_stream": "snickery_tpu/synth.py:337 (lax.scan of _streaming_step)",
+}
+
+
 def kernel_source(name: str) -> str:
     """The .cu file that exports entry point ``name``."""
+    if name in DECODE_REPLACES:
+        return "snickery_tpu_torch/csrc/viterbi.cu"
     stem = "topk_preselect" if "_zt" in name else "topk_derived"
     sel = next((x for x in SELECT_LINES if name.endswith("_" + x)), None)
     return f"snickery_tpu_torch/csrc/{stem}{'_' + sel if sel else ''}.cu"
@@ -792,16 +822,19 @@ class Run:
         self.shapes: dict[str, str] = {}
         self.meshes: list[dict] = []        # phase 28's figures, one a mesh
 
-    def main_path(self, label: str, kernel: str, fn):
+    def main_path(self, label: str, kernel: str, fn, decode=("viterbi_decode",)):
         """Drive one main path with every count set to 0 just before and
-        read just after; its kernel must have launched."""
+        read just after; its preselect kernel and each of its ``decode``
+        kernels (the decode launches count in the same counter) must have
+        launched."""
         counts = self.cuda_topk.LAUNCH_COUNTS
         counts.clear()
         out = fn()
         got = dict(counts)
         log(f"{label}: kernel launches {got}")
-        check(got.get(kernel, 0) > 0, f"{label} never launched {kernel}")
-        self.launches[kernel] = self.launches.get(kernel, 0) + got[kernel]
+        for name in (kernel, *decode):
+            check(got.get(name, 0) > 0, f"{label} never launched {name}")
+            self.launches[name] = self.launches.get(name, 0) + got[name]
         return out
 
     def kernel_at(self, kernel, synth, tgts, kwargs, T_list, report=True, matmul=None):
@@ -1089,7 +1122,30 @@ def config3(run: Run):
     with Phase("config-3 held-out utterance vs float64 oracle (full DB)"):
         agree, _ = oracle_check(db, synth, short.features, "highest")
         check(agree >= 0.99, f"oracle agreement {agree} < 0.99")
-    return db, held, short, out32
+    with Phase("config-3 B=32 lattice for phase 31"):
+        lattice = batch_lattice(synth, tgts, lengths, kwargs)
+    return db, held, short, out32, lattice
+
+
+def batch_lattice(synth, tgts, lengths, kwargs) -> dict:
+    """The lattice one ``synth_pipeline_step`` of these inputs decodes (its
+    preselect and rescore, ``synth._candidates``), in
+    ``kernel_check.run_decode``'s form: target costs (B, T, n), join
+    contexts (B, T, n, dj), lengths on the card, and the step's jcw,
+    epsilon and join type."""
+    from snickery_tpu_torch.synth import _candidates
+    kw = kwargs
+    _, cand, tc, jl, jr = _candidates(
+        synth.device_db, tgts, lengths, kw["tgt_codes"], kw["tgt_ctx"], kw["tgt_vids"],
+        n_cand=kw["n_cand"], margin=kw["margin"], halfphone=kw["halfphone"],
+        multivoice=kw["multivoice"], ling_weights=kw["ling_weights"],
+        precision=kw["precision"], zero_transient=kw["zero_transient"], stage=None)
+    B, T = tgts.shape[:2]
+    n, dj = cand.shape[1], jl.shape[-1]
+    return dict(kind="viterbi", tc=tc.reshape(B, T, n).contiguous(),
+                jl=jl.reshape(B, T, n, dj).contiguous(), jr=jr.reshape(B, T, n, dj).contiguous(),
+                length=lengths, jcw=float(kw["jcw"]), eps=float(kw["eps"]),
+                squared=bool(kw["squared_joins"]), special=None)
 
 
 _ORACLE_IDS: dict = {}      # (voice, n_candidates, target bytes) -> the oracle's ids
@@ -1171,7 +1227,7 @@ def config3_split3cat(run: Run, db, held, short, out_highest):
         check(agree >= 0.99, f"split3cat oracle agreement {agree} < 0.99")
         check(gap <= 1e-4, f"split3cat f64 path-cost gap {gap} > 1e-4")
     ids = run.main_path("config 4", "topk_preselect_zt_split3cat",
-                        lambda: config4(db, synth, held[0]))
+                        lambda: config4(db, synth, held[0]), decode=("greedy_decode_stream",))
     config4_checks(run, synth, held[0], ids)
     return out
 
@@ -1221,7 +1277,8 @@ def config3_derived(run: Run, db, held, short, out_highest):
             check(gap <= 1e-4, f"{label}: f64 path-cost gap {gap} > 1e-4")
         if precision == "split3cat":
             ids = run.main_path("config 4 zero_transient 0", kernel,
-                                lambda: config4(db, synth, held[0], ("epoch-rate",)))
+                                lambda: config4(db, synth, held[0], ("epoch-rate",)),
+                                decode=("greedy_decode_stream",))
             config4_checks(run, synth, held[0], ids, kernel)
         del synth
         torch.cuda.empty_cache()
@@ -1305,7 +1362,10 @@ def config4_checks(run: Run, synth, utt, ids, kernel="topk_preselect_zt_split3ca
     from snickery_tpu_torch.synth import streaming_step
 
     with Phase("config-4 streamed vs synth_from_features(greedy=True)"):
-        ref = synth.synth_from_features(utt.features, greedy=True)["unit_ids"]
+        ref = run.main_path(
+            "greedy_search", kernel,
+            lambda: synth.synth_from_features(utt.features, greedy=True)["unit_ids"],
+            decode=("greedy_decode",))
         agree = float((ids == ref).mean()) if len(ids) == len(ref) else 0.0
         log(f"epoch-rate streamed ids vs one-shot greedy: {len(ids)} vs {len(ref)} units, "
             f"agreement {agree:.5f}")
@@ -1326,6 +1386,74 @@ def config4_checks(run: Run, synth, utt, ids, kernel="topk_preselect_zt_split3ca
                   ling_weights=None)
         run.kernel_at(kernel, synth, args[1], kw, (args[1].shape[0],), report=False,
                       matmul=True)
+
+
+# ------------------------------------------------------------------ decodes
+def no_sync(torch, fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: a host
+    synchronisation inside it raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def decode_at(run: Run, name: str, lat: dict, live_steps: int, out_bytes: int, smi: str,
+              reps: int = 5, sync_free: bool = False):
+    """One decode kernel against its plain version at a main path's shape
+    (``kernel_check.run_decode`` / ``judge_decode``, bit-identical twice),
+    both timed with CUDA events, the bound from this lattice's live steps;
+    with ``sync_free`` the first call runs under :func:`no_sync`."""
+    from snickery_tpu_torch.kernel_check import decode_bound_ms, judge_decode, run_decode
+    torch = run.torch
+    got = no_sync(torch, lambda: run_decode(lat)) if sync_free else run_decode(lat)
+    again = run_decode(lat)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{name}: two runs differ")
+    err, n_diff = judge_decode(lat, got, run_decode(lat, plain=True))
+    ms = time_ms(lambda: run_decode(lat), reps)
+    plain_ms = time_ms(lambda: run_decode(lat, plain=True), 1)
+    n, dj = lat["tc"].shape[-1], lat["jl"].shape[-1]
+    b_ms, b_by = decode_bound_ms(lat["kind"], live_steps, n, dj, out_bytes)
+    shape = (f"{' x '.join(map(str, lat['tc'].shape))} x {dj}, {live_steps} live steps"
+             + (", under set_sync_debug_mode('error')" if sync_free else ""))
+    run.errs[name] = max(run.errs.get(name, 0.0), err)
+    run.times[name], run.bounds[name] = (ms, plain_ms), (b_ms, b_by)
+    run.matmul[name], run.shapes[name] = None, shape
+    log(f"{name} at {shape}: kernel {ms:.3f} ms, plain {plain_ms:.2f} ms, bound {b_ms:.3f} ms "
+        f"({b_by}), max |total diff| {err:.3e}, paths differing {n_diff} [{smi}]")
+
+
+def decode_phase(run: Run, lat: dict, smi: str) -> None:
+    """Phase 31: the three decode kernels against their plain versions, on
+    ``kernel_check.DECODE_CASES`` and at config 3's batch lattice ``lat``
+    (phase 5's B = 32 x 2048 step: Viterbi and greedy over it, and a
+    config-4-shaped chunk of it, T = 64 with 32 live steps, for the stream
+    kernel), the Viterbi and the stream call under set_sync_debug_mode
+    ("error")."""
+    from snickery_tpu_torch.kernel_check import DECODE_CASES, run_decode_case
+    kernel_of = {"viterbi": "viterbi_decode", "greedy": "greedy_decode",
+                 "stream": "greedy_decode_stream"}
+    with Phase("decode kernels vs plain, cases"):
+        for name, case in DECODE_CASES.items():
+            err, n_diff = run_decode_case(name, "cuda")
+            kernel = kernel_of[case[0]]
+            run.errs[kernel] = max(run.errs.get(kernel, 0.0), err)
+            log(f"{name} ({kernel}, B={case[1]} T={case[2]} N={case[3]} dj={case[4]}): "
+                f"max |total diff| {err:.3e}, paths differing {n_diff}")
+    B, T = lat["tc"].shape[:2]
+    live = int(lat["length"].clamp(1, T).sum())
+    with Phase("decode kernels at config 3's batch lattice"):
+        decode_at(run, "viterbi_decode", lat, live, B * T * 8 + B * 4, smi, sync_free=True)
+        decode_at(run, "greedy_decode", dict(lat, kind="greedy"), live, B * T * 8 + B * 4, smi)
+        chunk = dict(kind="stream", tc=lat["tc"][0, :64].contiguous(),
+                     jl=lat["jl"][0, :64].contiguous(), jr=lat["jr"][0, :64].contiguous(),
+                     init_ctx=lat["jr"][1, 0, 0].contiguous(), jcw=lat["jcw"],
+                     jcw_first=lat["jcw"], n_live=STREAM_CHUNK, squared=lat["squared"],
+                     special=None)
+        decode_at(run, "greedy_decode_stream", chunk, STREAM_CHUNK,
+                  64 * 8 + 4 * chunk["jl"].shape[-1], smi, reps=20, sync_free=True)
 
 
 # ------------------------------------------------------------------ meshes
@@ -1360,8 +1488,9 @@ def mesh_synthesiser(run: Run, label, db, n_data, n_db, **over):
 
 def mesh_batch(run: Run, label, kernel, synth, db, feats, ref, voices=None, steps=2):
     """Phase 28's main path on one mesh: ``steps`` synth_batch steps (the
-    first a warm-up) with the counts at 0 before; the kernel must launch
-    once per member a step and nothing else launch; each member's exchange
+    first a warm-up) with the counts at 0 before; the kernel and the
+    Viterbi kernel must launch once per member a step each and nothing else
+    launch; each member's exchange
     payload equals the model rows x k_local x (5 x 4 + 8 dj) bytes; every
     shard contributes units; ids equal the single device's batch ``ref`` of
     the same targets except float64 near-ties (a differing utterance's path
@@ -1387,8 +1516,8 @@ def mesh_batch(run: Run, label, kernel, synth, db, feats, ref, voices=None, step
             audio_s = sum(len(r["wave"]) for r in out) / SR
             log(f"{label}: ms/step {[round(w, 1) for w in walls]} (the first a warm-up), "
                 f"{audio_s:.1f} s audio/step, RTF {walls[-1] / 1e3 / audio_s:.6f}")
-            check(got == {kernel: steps * n_mem},
-                  f"{label}: launches {got}, want {steps * n_mem} of {kernel}")
+            want = {kernel: steps * n_mem, "viterbi_decode": steps * n_mem}
+            check(got == want, f"{label}: launches {got}, want {want}")
             for r in out:
                 check_result(db, r)
         return out, walls, dict(sharded.EXCHANGE_BYTES)
@@ -1950,7 +2079,8 @@ def server_config5(run: Run, db, feats, voices, out_highest, held):
 
     try:
         responses, wall, (st_status, st_body) = run.main_path(
-            "server config 5", "topk_preselect_zt_split3cat_part", drive)
+            "server config 5", "topk_preselect_zt_split3cat_part", drive,
+            decode=("viterbi_decode", "greedy_decode_stream"))
         # the /stream handler ran synth_streaming on this Synthesiser
         st_ids = np.concatenate(synth.last_stream_unit_ids)
         stats = log_stats("server config 5", base, httpd, len(payloads), wall)
@@ -2689,10 +2819,12 @@ def bench_phase(run: Run, smi: str, device: str = "cuda") -> None:
     for block, kernel in BENCH_KERNELS.items():
         per_step = extra[block]["launches_per_step"]
         log(f"bench {block}: kernel launches a step {per_step}")
-        check(per_step.get(kernel, 0) > 0, f"bench {block} never launched {kernel}")
-        n = round(per_step[kernel] * len(extra[block]["step_ms"]))
-        name = ME2_ROW if block == "config3_me2" else kernel
-        run.launches[name] = run.launches.get(name, 0) + n
+        for name in (kernel, "viterbi_decode"):
+            check(per_step.get(name, 0) > 0, f"bench {block} never launched {name}")
+            n = round(per_step[name] * len(extra[block]["step_ms"]))
+            if block == "config3_me2" and name == kernel:
+                name = ME2_ROW
+            run.launches[name] = run.launches.get(name, 0) + n
     me2 = extra["config3_me2"]["kernel_at_shape"]
     check(me2["kd"] == 2 * KD, f"me2 ran the kernel at kd {me2['kd']}")
     b_ms, b_by = bound_ms(me2["T"], me2["m_rows"], me2["kd"], me2["k"], me2["precision"], False)
@@ -2756,7 +2888,9 @@ def main() -> int:
         sweep_path(run)
     with Phase("selection variants vs plain at the sweep's small shape"):
         selects_at_sweep_shape(run)
-    db, held, short, out32 = config3(run)
+    db, held, short, out32, lattice = config3(run)
+    decode_phase(run, lattice, smi)
+    del lattice
     torch.cuda.empty_cache()
     out_split = config3_split3cat(run, db, held, short, out32)
     torch.cuda.empty_cache()
@@ -2804,14 +2938,15 @@ def main() -> int:
 
     log(f"chip_smoke.py: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"meshes": run.meshes}))
+    replaces = {**REPLACES, **DECODE_REPLACES}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": kernel_source(name.split("@")[0]),
-        "replaces": REPLACES[name.split("@")[0]], "launches": run.launches[name],
+        "replaces": replaces[name.split("@")[0]], "launches": run.launches[name],
         "max_abs_err": run.errs[name], "ms": run.times[name][0],
         "plain_ms": run.times[name][1], "bound_ms": run.bounds[name][0],
         "bound_by": run.bounds[name][1], "library_ms": None,
         "matmul_ms": run.matmul[name], "shape": run.shapes[name]}
-        for name in (*REPLACES, ME2_ROW)]}))
+        for name in (*REPLACES, ME2_ROW, *DECODE_REPLACES)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

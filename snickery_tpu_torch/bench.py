@@ -34,9 +34,10 @@ Differences from ``bench.py``, all on purpose:
 
 - ``ms_per_step`` is the median of ``--iters`` steps, each synchronised
   with the device (the full record keeps every step's ms, their min and
-  max), not the mean of back-to-back enqueues: on the card a step moves by
-  up to 2x between runs, and the decode synchronises with the host every
-  lattice step anyway (``ops/viterbi.py``), so nothing would overlap;
+  max), not the mean of back-to-back enqueues: the step's wall is what a
+  caller waits for (it ends with the results copied to the host), and
+  steps moved by up to 2x between runs while the decode was a host-paced
+  loop;
 - a mode that raises is recorded as ``<mode>_error`` and the run goes on,
   but the exit code is then 1; a kill by SIGTERM, SIGALRM or the watchdog
   prints the line and exits non-zero; a skip for lack of budget
@@ -316,8 +317,9 @@ def _timed_ms(fn, dev=None) -> float:
 
 def timed_steps(step, n: int):
     """``n`` steps, each synchronised: (ms of each, the last output, kernel
-    launches a step by entry point).  The launch counts are set to 0 just
-    before and read just after."""
+    launches a step by entry point: the preselect's and the decode's, which
+    count in one counter).  The launch counts are set to 0 just before and
+    read just after."""
     from snickery_tpu_torch.ops import cuda_topk
     ms, out = [], None
     cuda_topk.LAUNCH_COUNTS.clear()

@@ -1,5 +1,6 @@
-"""Checks of the preselect kernel, shared by ``chip_smoke.py`` and the card
-tests (``tests/test_torch_cuda_kernel.py``).
+"""Checks of the preselect kernel and the decode kernels, shared by
+``chip_smoke.py`` and the card tests (``tests/test_torch_cuda_kernel.py``,
+``tests/test_torch_cuda_decode.py``).
 
 - :func:`compare` (and :func:`judge`, the rule alone, for results already
   computed): the kernel against its plain twin on the same tensors,
@@ -32,6 +33,12 @@ tests (``tests/test_torch_cuda_kernel.py``).
   kernel that splits lies within :data:`PROBE_RTOL`, one that multiplies
   in full f32 (or truncates the split) does not.  Kernel-vs-twin
   tolerances (1e-3 on scores of ~1e2) cannot tell the two apart.
+- :data:`DECODE_CASES`, :func:`run_decode_case` and :func:`judge_decode`:
+  the decode kernels (``ops/viterbi.py``) against their plain versions on
+  lattices made from a seed (ragged lengths with junk past them, a natural
+  chain that must cost exactly 0.0, exact ties, epsilon pruning, shapes
+  whose shared-memory plan stages once or keeps its backpointers in device
+  memory, stream chunks); :func:`decode_bound_ms` their bound.
 - The yardsticks a report puts beside a kernel's time: :func:`time_ms`
   (CUDA events on a card, the host clock on the CPU), :func:`bound_ms`
   (the least time the card could take for the call, from its published
@@ -460,3 +467,238 @@ def matmul_ms(x, rows, precision: str) -> float:
     ms = time_ms(run, 1, x.device)
     del pairs
     return ms
+
+
+# ------------------------------------------------------------------ decodes
+DECODE_RTOL = 1e-5       # totals, kernel vs plain: f32 sums of the same terms,
+                         # each join distance summed in another order
+PATH_RTOL = 1e-6         # a differing path may cost no more than this in float64
+DECODE_JCW = 0.7
+# name: (kind, B, T, N, dj, lengths, eps, squared, special); lengths "full"
+# (all T), "ragged" (T, 1, 0 and others, junk in the padded steps), "one"
+# (1 each), "none" (a stream chunk with no live step)
+DECODE_CASES = {
+    "viterbi_full": ("viterbi", 3, 128, 30, 151, "full", 0.0, False, None),
+    "viterbi_ragged": ("viterbi", 6, 160, 30, 151, "ragged", 0.0, False, None),
+    "viterbi_one": ("viterbi", 3, 64, 30, 151, "one", 0.0, False, None),
+    "viterbi_n1": ("viterbi", 3, 50, 1, 151, "ragged", 0.0, False, None),
+    "viterbi_n20_dj302": ("viterbi", 4, 128, 20, 302, "ragged", 0.0, False, None),
+    "viterbi_natural": ("viterbi", 4, 200, 30, 151, "ragged", 0.0, False, "natural"),
+    "viterbi_eps_bites": ("viterbi", 4, 200, 30, 151, "ragged", 0.3, False, None),
+    "viterbi_eps_huge": ("viterbi", 4, 200, 30, 151, "ragged", 1e9, False, None),
+    "viterbi_squared": ("viterbi", 4, 200, 30, 151, "ragged", 0.0, True, None),
+    "viterbi_ties": ("viterbi", 4, 200, 30, 151, "ragged", 0.3, False, "ties"),
+    "viterbi_bp_global": ("viterbi", 2, 8200, 30, 151, "ragged", 0.0, False, None),
+    "viterbi_single_buffer": ("viterbi", 2, 96, 64, 302, "ragged", 0.3, True, None),
+    "greedy_full": ("greedy", 3, 128, 30, 151, "full", 0.0, False, None),
+    "greedy_ragged": ("greedy", 6, 160, 30, 151, "ragged", 0.0, False, None),
+    "greedy_n1": ("greedy", 3, 50, 1, 151, "ragged", 0.0, False, None),
+    "greedy_n20_dj302_squared": ("greedy", 4, 128, 20, 302, "ragged", 0.0, True, None),
+    "greedy_natural": ("greedy", 4, 200, 30, 151, "ragged", 0.0, False, "natural"),
+    "greedy_ties": ("greedy", 4, 200, 30, 151, "ragged", 0.0, False, "ties"),
+    "greedy_single_buffer": ("greedy", 2, 96, 64, 302, "ragged", 0.0, False, None),
+    "stream_start": ("stream", 1, 64, 30, 151, "full", 0.0, False, "start"),
+    "stream_carry": ("stream", 1, 64, 30, 151, "ragged", 0.0, False, None),
+    "stream_carry_dj302": ("stream", 1, 64, 20, 302, "full", 0.0, True, None),
+    "stream_ties": ("stream", 1, 64, 30, 151, "full", 0.0, False, "ties"),
+    "stream_empty": ("stream", 1, 64, 30, 151, "none", 0.0, False, None),
+}
+
+
+def decode_lattice(name: str, device, seed: int = 0) -> dict:
+    """The lattice of one of :data:`DECODE_CASES`, made with numpy from
+    ``seed``: target costs uniform in [0, 5), contexts N(0, 0.3^2) (join
+    distances of a few units at dj 151), and per case: ragged lengths with
+    junk (costs 123, contexts 9 / -7) in the padded steps; "natural": a
+    chain of random states whose contexts join bit-equal and whose target
+    costs are 0, every other target cost at least 1, so the best path is
+    the chain at a total of exactly 0.0; "ties": every odd state a copy of
+    the even one before it, so every decision ties and only even states may
+    be chosen (the lowest index wins); a stream chunk's incoming context
+    (zeros at the start of a stream, with ``jcw_first`` 0).  Returns the
+    tensors on ``device`` and the call's keywords."""
+    kind, B, T, N, dj, lens, eps, squared, special = DECODE_CASES[name]
+    rng = np.random.default_rng(seed + 1000 * T + N + dj)
+    tc = rng.uniform(0.0, 5.0, (B, T, N)).astype(np.float32)
+    jl = (0.3 * rng.standard_normal((B, T, N, dj))).astype(np.float32)
+    jr = (0.3 * rng.standard_normal((B, T, N, dj))).astype(np.float32)
+    if lens == "full":
+        length = np.full(B, T)
+    elif lens == "one":
+        length = np.ones(B, np.int64)
+    elif lens == "none":
+        length = np.zeros(B, np.int64)
+    else:
+        length = np.asarray([T, 1, 0, T // 2 + 7, T - 1, 2][:B] if B > 2 else [T - 3, T // 3])
+    nat = None
+    if special == "natural":
+        tc += 1.0
+        nat = rng.integers(0, N, (B, T))
+        for b in range(B):
+            tc[b, np.arange(T), nat[b]] = 0.0
+            jl[b, np.arange(1, T), nat[b, 1:]] = jr[b, np.arange(T - 1), nat[b, :-1]]
+    if special == "ties":
+        tc[..., 1::2] = tc[..., 0:N - N % 2:2]
+        jl[..., 1::2, :] = jl[..., 0:N - N % 2:2, :]
+        jr[..., 1::2, :] = jr[..., 0:N - N % 2:2, :]
+    for b in range(B):
+        tc[b, length[b]:] = 123.0
+        jl[b, length[b]:] = 9.0
+        jr[b, length[b]:] = -7.0
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    out = dict(kind=kind, tc=put(tc), jl=put(jl), jr=put(jr), length=put(length.astype(np.int64)),
+               jcw=DECODE_JCW, eps=eps, squared=squared, special=special, nat=nat)
+    if kind == "stream":
+        start = special == "start"
+        ctx = np.zeros(dj, np.float32) if start else (0.3 * rng.standard_normal(dj)).astype(
+            np.float32)
+        out.update(tc=out["tc"][0], jl=out["jl"][0], jr=out["jr"][0], init_ctx=put(ctx),
+                   jcw_first=0.0 if start else DECODE_JCW, n_live=int(length[0]))
+    return out
+
+
+def run_decode(lat: dict, plain: bool = False):
+    """One decode of a :func:`decode_lattice` lattice: through the public
+    wrapper (the kernel on a card), or with ``plain`` its plain version."""
+    from snickery_tpu_torch.ops import viterbi as vit
+    kind = lat["kind"]
+    if kind == "stream":
+        fn = vit.greedy_decode_stream_plain if plain else vit.greedy_decode_stream
+        return fn(lat["tc"], lat["jl"], lat["jr"], lat["init_ctx"], lat["jcw_first"],
+                  lat["jcw"], lat["n_live"], squared_joins=lat["squared"])
+    if kind == "viterbi":
+        fn = vit.viterbi_decode_plain if plain else vit.viterbi_decode
+        return fn(lat["tc"], lat["jl"], lat["jr"], lat["jcw"], lat["eps"], lat["length"],
+                  squared_joins=lat["squared"])
+    fn = vit.greedy_decode_plain if plain else vit.greedy_decode
+    return fn(lat["tc"], lat["jl"], lat["jr"], lat["jcw"], lat["length"],
+              squared_joins=lat["squared"])
+
+
+def _dist64(a, b, squared: bool) -> torch.Tensor:
+    sq = ((a.double() - b.double()) ** 2).sum(-1)
+    return sq if squared else sq.sqrt()
+
+
+def path_cost64(tc, jl, jr, path, n: int, squared: bool, jcw: float,
+                init_ctx=None, jcw_first: float = 0.0) -> float:
+    """float64 cost of a path over the first ``n`` steps of one lattice
+    (tc (T, N), contexts (T, N, dj)): its target costs and ``jcw`` times its
+    join distances (from ``init_ctx`` at the first step, weighted by
+    ``jcw_first``, where there is one)."""
+    if n <= 0:
+        return 0.0
+    s = path[:n].long()
+    steps = torch.arange(n, device=tc.device)
+    cost = float(tc[steps, s].double().sum())
+    if n > 1:
+        d = _dist64(jr[steps[:-1], s[:-1]], jl[steps[1:], s[1:]], squared)
+        cost += jcw * float(d.sum())
+    if init_ctx is not None:
+        cost += jcw_first * float(_dist64(init_ctx, jl[0, s[0]], squared))
+    return cost
+
+
+def _greedy_tie(tc, jl, jr, pk, pp, n, squared, jcw, init_ctx=None, jcw_first=0.0) -> None:
+    """Two greedy paths that differ: at the first step where they do, both
+    choices follow the same context, and the kernel's must cost no more
+    there in float64 than the plain version's (an f32 near-tie)."""
+    t = int(torch.nonzero(pk[:n] != pp[:n])[0, 0])
+    if t == 0 and init_ctx is None:
+        ctx, w = None, 0.0
+    elif t == 0:
+        ctx, w = init_ctx, jcw_first
+    else:
+        ctx, w = jr[t - 1, pk[t - 1]], jcw
+
+    def step_cost(s):
+        c = float(tc[t, s].double())
+        return c if ctx is None else c + w * float(_dist64(ctx, jl[t, s], squared))
+    ck, cp = step_cost(pk[t]), step_cost(pp[t])
+    check(ck <= cp + PATH_RTOL * max(abs(cp), 1.0),
+          f"greedy step {t}: the kernel's choice costs {ck}, the plain version's {cp}")
+
+
+def judge_decode(lat: dict, got, want) -> tuple[float, int]:
+    """A decode against its plain version on the same lattice: paths equal,
+    or (an f32 near-tie) the kernel's no dearer in float64 (Viterbi: the
+    whole path, to :data:`PATH_RTOL`; greedy: the first differing
+    choice); totals to :data:`DECODE_RTOL` (a greedy pair after a tie
+    excepted); a stream's outgoing context equal; the rules of the
+    "natural" and "ties" cases.  Returns (max |total or context
+    difference|, utterances whose paths differ)."""
+    kind, squared = lat["kind"], lat["squared"]
+    (pk, vk), (pp, vp) = got, want
+    check(pk.dtype == torch.int64 and pk.shape == pp.shape, f"paths {pk.dtype} {tuple(pk.shape)}")
+    if kind == "stream":
+        n = lat["n_live"]
+        check(bool((pk[n:] == 0).all()), "a stream path is not 0 past n_live")
+        if torch.equal(pk, pp):
+            check(torch.equal(vk, vp), "equal paths left different outgoing contexts")
+            n_diff = 0
+        else:
+            _greedy_tie(lat["tc"], lat["jl"], lat["jr"], pk, pp, n, squared, lat["jcw"],
+                        lat["init_ctx"], lat["jcw_first"])
+            n_diff = 1
+        if lat["special"] == "ties":
+            check(bool((pk % 2 == 0).all()), "a tie went to the higher index")
+        return float((vk - vp).abs().max()), n_diff
+    B, T = pk.shape
+    lens = lat["length"].clamp(0, T).tolist()
+    err, n_diff = 0.0, 0
+    for b in range(B):
+        n = lens[b]
+        check(bool((pk[b, max(n, 1):] == 0).all()), f"utterance {b}: path not 0 past {n}")
+        tk, tp = float(vk[b]), float(vp[b])
+        same = torch.equal(pk[b], pp[b])
+        if not same:
+            n_diff += 1
+            args = (lat["tc"][b], lat["jl"][b], lat["jr"][b])
+            if kind == "viterbi":
+                ck = path_cost64(*args, pk[b], n, squared, lat["jcw"])
+                cp = path_cost64(*args, pp[b], n, squared, lat["jcw"])
+                check(ck <= cp * (1 + PATH_RTOL) + 1e-12,
+                      f"utterance {b}: the kernel's path costs {ck} in float64, the plain {cp}")
+            else:
+                _greedy_tie(*args, pk[b], pp[b], n, squared, lat["jcw"])
+        if same or kind == "viterbi":
+            check(abs(tk - tp) <= DECODE_RTOL * abs(tp),
+                  f"utterance {b}: totals {tk} vs {tp} (paths equal: {same})")
+            err = max(err, abs(tk - tp))
+        if lat.get("special") == "natural" and n > 0 and kind == "viterbi":
+            check(tk == 0.0 and tp == 0.0, f"utterance {b}: natural joins cost {tk} / {tp}")
+            check(bool((pk[b, :n].cpu() == torch.from_numpy(lat["nat"][b, :n])).all()),
+                  f"utterance {b}: the natural chain was not chosen")
+        if lat.get("special") == "ties":
+            check(bool((pk[b] % 2 == 0).all()), f"utterance {b}: a tie went to the higher index")
+    return err, n_diff
+
+
+def run_decode_case(name: str, device) -> tuple[float, int]:
+    """One of :data:`DECODE_CASES`: the public wrapper (the kernel on a card)
+    twice, bit-identical, and against the plain version (:func:`judge_decode`).
+    Returns what :func:`judge_decode` returns."""
+    lat = decode_lattice(name, device)
+    got = run_decode(lat)
+    again = run_decode(lat)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{name}: two runs of the decode differ")
+    return judge_decode(lat, got, run_decode(lat, plain=True))
+
+
+def decode_bound_ms(kind: str, live_steps: int, n: int, dj: int, out_bytes: int):
+    """(least time in ms, "operations" or "bytes") the card could take for
+    a decode over ``live_steps`` lattice steps in all (the steps the data
+    needs: each utterance's live ones) of N = ``n`` candidates: the Viterbi
+    reads each step's target costs and both contexts, (2 dj + 1) N f32, and
+    does N^2 dj subtractions, multiplications and additions; a greedy step
+    needs its N target costs and left contexts and one right context,
+    (dj + 1) N + dj f32, and N dj of each; ``out_bytes`` written (paths and
+    totals or the outgoing context).  FP32 work at the CUDA cores' peak."""
+    if kind == "viterbi":
+        nbytes, flops = 4.0 * live_steps * n * (2 * dj + 1), 3.0 * live_steps * n * n * dj
+    else:
+        nbytes, flops = 4.0 * live_steps * (n * (dj + 1) + dj), 3.0 * live_steps * n * dj
+    nbytes += out_bytes
+    t_ops, t_bytes = flops / PEAK_FLOPS["highest"], nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"

@@ -29,10 +29,13 @@ One step (:func:`batched_synth_step`), with ndb the size of the db axis:
    order), keeps n_cand, decodes its sub-batch (Viterbi or greedy) and
    concatenates its audio from the replicated waves.
 
-Every member's preselect is issued before the first host synchronisation
-(the decode's), so members on separate cards run their kernels together;
-the decodes then run one member after another (the decode loop is paced by
-the host).  With ndb = 1 there is no exchange: each member runs the
+Nothing between a member's preselect and its decode waits on the host:
+the rescore, the exchange (device-to-device copies) and the merge are
+device work, and the decode is one kernel launch that reads the lengths on
+the device.  The host only issues work until the results are copied back,
+so members on separate cards run their preselects and decodes together
+(the copy of a member's inputs to its card waits on that card's stream
+only).  With ndb = 1 there is no exchange: each member runs the
 single-device step on its slice, gathering the join contexts of only the
 kept candidates.
 

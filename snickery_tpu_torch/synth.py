@@ -12,14 +12,15 @@ halfphone voices and the voice partition mask for merged DBs),
 rescore the candidates in exact f32 and keep the top k in canonical
 (score, unit id) order (halfphone voices rank by the exact squared distance
 plus penalties and mask identity fallbacks in the lattice), gather join
-contexts, Viterbi (or greedy), and crossfade overlap-add on the device or,
+contexts, decode with the Viterbi (or greedy) kernel, one launch a batch
+with the backtrack on the card, and crossfade overlap-add on the device or,
 with ``preload_all_waves=False``, on the host.  One batched step
 (:func:`synth_pipeline_step`) serves ``synth_from_features`` (B = 1) and
 ``synth_batch``; :func:`streaming_step` serves ``synth_streaming``.
 
-The device is an explicit argument.  ``device="cuda"`` runs the CUDA kernel
-and raises where CUDA is absent; ``device="cpu"`` runs the kernel's plain
-PyTorch twin.  Nothing falls back from one to the other.
+The device is an explicit argument.  ``device="cuda"`` runs the CUDA kernels
+and raises where CUDA is absent; ``device="cpu"`` runs the kernels' plain
+PyTorch twins.  Nothing falls back from one to the other.
 
 With config ``mesh_data`` / ``mesh_db`` above 1, ``synth_batch`` runs
 :func:`snickery_tpu_torch.parallel.batched_synth_step` over a (data, db)
@@ -280,8 +281,9 @@ def decode_and_concatenate(db: DeviceDB, cand_idx, target_costs, jl, jr, lengths
                            squared_joins: bool, do_ola: bool, max_frag: int, out_len: int,
                            taper: int, stage=None):
     """Decode B utterances from their kept candidates (ids and target costs
-    (B*T, n), join contexts (B*T, n, dj); Viterbi, or greedy) and
-    concatenate the chosen units from ``db``'s waves, their cut points
+    (B*T, n), join contexts (B*T, n, dj); one launch of the Viterbi or the
+    greedy kernel, which reads ``lengths`` on the device, with nothing read
+    back to the host) and concatenate the chosen units from ``db``'s waves, their cut points
     looked up in ``db`` by id or, with ``cut_cands`` = (cut1, cut2) (B*T, n)
     of the candidates, picked from those (a mesh member, whose ids are
     global).  Returns (unit ids (B, T), total costs (B,), audio, total
@@ -293,7 +295,8 @@ def decode_and_concatenate(db: DeviceDB, cand_idx, target_costs, jl, jr, lengths
     kw = {} if greedy else {"search_epsilon": eps}
     with stage("decode"):
         paths, costs = decode(target_costs.reshape(B, T, n),
-                              jl.reshape(B, T, n, dj), jr.reshape(B, T, n, dj),
+                              jl.reshape(B, T, n, dj).contiguous(),
+                              jr.reshape(B, T, n, dj).contiguous(),
                               join_cost_weight=jcw, length=lengths,
                               squared_joins=squared_joins, **kw)
     with stage("ola"):
