@@ -196,12 +196,20 @@ Phases, each timed, any failure ending the run with a non-zero exit:
     exact ties, where the lowest index must win; backpointers in device
     memory at T = 8,200; one staging buffer a side at N = 64, dj = 302;
     stream chunks with and without an incoming context, and with none
-    live), each twice (bit-identical): paths equal, or float64 near-ties
-    no dearer (1e-6), totals rtol 1e-5; then at config 3's batch lattice
-    (phase 5's B = 32 x 2048 step, N = 30, dj = 151) the Viterbi and the
-    greedy kernel, and a config-4-shaped chunk of it (T = 64, 32 live) for
-    the stream kernel, timed against their plain versions with CUDA
-    events, the Viterbi and the stream call under
+    live; one utterance of 650 steps; 160 utterances, more than the card
+    has SMs; N = 33, one state past a warp, with ties at epsilon 0.25),
+    each twice (bit-identical): paths equal, or float64 near-ties no
+    dearer (1e-6), totals rtol 1e-5; each again at every forced cluster
+    size 1, 2, 4 and 8, bit-equal to the default plan's result; the
+    SHA-256 of every ``kernel_ab`` Viterbi case's paths and totals against
+    the first decode kernels' (``kernel_ab.PR13_DECODE_DIGESTS``; greedy's
+    are logged: it now sums a distance in another order); then at config
+    3's batch lattice (phase 5's B = 32 x 2048 step, N = 30, dj = 151) the
+    Viterbi and the greedy kernel, its first utterance cut to 650 steps
+    for the single-utterance Viterbi (the kernels line's ``@single`` row),
+    and a config-4-shaped chunk of it (T = 64, 32 live) for the stream
+    kernel, timed against their plain versions with CUDA events, the
+    Viterbi and the stream call under
     ``torch.cuda.set_sync_debug_mode("error")``.
 
 Each main path runs with the launch counts set to 0 just before it and read
@@ -213,8 +221,10 @@ with a JSON line of the meshes (phase 28: ms a step, exchange bytes a
 member, agreement, the kernel at a shard's shape), a JSON line of the
 kernels (launches on the main paths, max error against the twin, kernel,
 twin and ``torch.matmul``-of-the-product times, and the bound from the
-card's published peaks; the three decode kernels' rows last, with no
-matmul yardstick), the card's name and power limit from nvidia-smi,
+card's published peaks; the three decode kernels' rows and the
+single-utterance Viterbi's last, with no matmul yardstick; the ``@single``
+row counts the Viterbi launches of the natural-synth paths, one utterance
+a launch), the card's name and power limit from nvidia-smi,
 and ``{"ok": true, "device": {...}}``.
 """
 
@@ -279,6 +289,9 @@ REPLACES.update({
 
 
 # the decode kernels (phase 31): the XLA scans of the JAX package they replace
+SINGLE_ROW = "viterbi_decode@single"    # the kernels line's row of one utterance
+SINGLE_STEPS = 650                        # its steps: config 1's utterance (PERF.md)
+SINGLE_PATHS = ("natural synth", "front end natural synth")   # one utterance a decode
 DECODE_REPLACES = {
     "viterbi_decode": "snickery_tpu/ops/viterbi.py:102 (lax.scan; +:117, the backtrack)",
     "greedy_decode": "snickery_tpu/ops/viterbi.py:155 (lax.scan)",
@@ -826,7 +839,8 @@ class Run:
         """Drive one main path with every count set to 0 just before and
         read just after; its preselect kernel and each of its ``decode``
         kernels (the decode launches count in the same counter) must have
-        launched."""
+        launched.  The Viterbi launches of a path in :data:`SINGLE_PATHS`
+        (one utterance a launch) count for the ``@single`` row too."""
         counts = self.cuda_topk.LAUNCH_COUNTS
         counts.clear()
         out = fn()
@@ -835,6 +849,9 @@ class Run:
         for name in (kernel, *decode):
             check(got.get(name, 0) > 0, f"{label} never launched {name}")
             self.launches[name] = self.launches.get(name, 0) + got[name]
+        if label in SINGLE_PATHS:
+            self.launches[SINGLE_ROW] = (self.launches.get(SINGLE_ROW, 0)
+                                         + got["viterbi_decode"])
         return out
 
     def kernel_at(self, kernel, synth, tgts, kwargs, T_list, report=True, matmul=None):
@@ -1427,26 +1444,48 @@ def decode_at(run: Run, name: str, lat: dict, live_steps: int, out_bytes: int, s
 
 def decode_phase(run: Run, lat: dict, smi: str) -> None:
     """Phase 31: the three decode kernels against their plain versions, on
-    ``kernel_check.DECODE_CASES`` and at config 3's batch lattice ``lat``
-    (phase 5's B = 32 x 2048 step: Viterbi and greedy over it, and a
+    ``kernel_check.DECODE_CASES`` (each also at every forced cluster size,
+    bit-equal to the default plan), the ``kernel_ab`` Viterbi cases' digests
+    against the first decode kernels', and at config 3's batch lattice ``lat``
+    (phase 5's B = 32 x 2048 step: Viterbi and greedy over it, its first
+    utterance cut to 650 steps for the single-utterance Viterbi, and a
     config-4-shaped chunk of it, T = 64 with 32 live steps, for the stream
     kernel), the Viterbi and the stream call under set_sync_debug_mode
     ("error")."""
-    from snickery_tpu_torch.kernel_check import DECODE_CASES, run_decode_case
+    from snickery_tpu_torch import kernel_ab
+    from snickery_tpu_torch.kernel_check import DECODE_CASES, DECODE_CLUSTERS, run_decode_case
     kernel_of = {"viterbi": "viterbi_decode", "greedy": "greedy_decode",
                  "stream": "greedy_decode_stream"}
-    with Phase("decode kernels vs plain, cases"):
+    with Phase("decode kernels vs plain, cases, at every cluster size"):
         for name, case in DECODE_CASES.items():
-            err, n_diff = run_decode_case(name, "cuda")
+            err, n_diff = run_decode_case(name, "cuda", DECODE_CLUSTERS)
             kernel = kernel_of[case[0]]
             run.errs[kernel] = max(run.errs.get(kernel, 0.0), err)
             log(f"{name} ({kernel}, B={case[1]} T={case[2]} N={case[3]} dj={case[4]}): "
-                f"max |total diff| {err:.3e}, paths differing {n_diff}")
+                f"max |total diff| {err:.3e}, paths differing {n_diff}, bit-equal at cluster "
+                f"sizes {DECODE_CLUSTERS}")
+    with Phase("digests of kernel_ab's decode cases against the first decode kernels"):
+        for line in kernel_ab.run_decode_cases("chip_smoke", 3):
+            got = (line["paths_sha256"], line["totals_sha256"])
+            want = kernel_ab.PR13_DECODE_DIGESTS[line["case"]]
+            log(f"{line['case']} ({line['kind']}, {line['B']} x {line['T']} x {line['N']} x "
+                f"{line['dj']}, eps {line['eps']}): {line['ms']:.3f} ms, sha256 of paths "
+                f"{got[0]}, of totals {got[1]}; the first kernels': {want[0]}, {want[1]} "
+                f"[{smi}]")
+            if line["kind"] == "viterbi":      # the Viterbi kept their summation order
+                check(got == want, f"{line['case']}: digests differ from the first kernels'")
     B, T = lat["tc"].shape[:2]
     live = int(lat["length"].clamp(1, T).sum())
     with Phase("decode kernels at config 3's batch lattice"):
         decode_at(run, "viterbi_decode", lat, live, B * T * 8 + B * 4, smi, sync_free=True)
         decode_at(run, "greedy_decode", dict(lat, kind="greedy"), live, B * T * 8 + B * 4, smi)
+        one = dict(lat, tc=lat["tc"][:1, :SINGLE_STEPS].contiguous(),
+                   jl=lat["jl"][:1, :SINGLE_STEPS].contiguous(),
+                   jr=lat["jr"][:1, :SINGLE_STEPS].contiguous(),
+                   length=lat["length"][:1].clamp(max=SINGLE_STEPS).contiguous())
+        one_live = int(one["length"].clamp(1).sum())
+        decode_at(run, SINGLE_ROW, one, one_live, SINGLE_STEPS * 8 + 4, smi, reps=20,
+                  sync_free=True)
         chunk = dict(kind="stream", tc=lat["tc"][0, :64].contiguous(),
                      jl=lat["jl"][0, :64].contiguous(), jr=lat["jr"][0, :64].contiguous(),
                      init_ctx=lat["jr"][1, 0, 0].contiguous(), jcw=lat["jcw"],
@@ -2946,7 +2985,7 @@ def main() -> int:
         "plain_ms": run.times[name][1], "bound_ms": run.bounds[name][0],
         "bound_by": run.bounds[name][1], "library_ms": None,
         "matmul_ms": run.matmul[name], "shape": run.shapes[name]}
-        for name in (*REPLACES, ME2_ROW, *DECODE_REPLACES)]}))
+        for name in (*REPLACES, ME2_ROW, *DECODE_REPLACES, SINGLE_ROW)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

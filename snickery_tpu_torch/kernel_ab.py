@@ -1,5 +1,6 @@
-"""Times and checksums of the stream preselect kernels at the main-path
-shapes, for comparing two trees of this package on one card in one run.
+"""Times and checksums of the stream preselect kernels and of the decode
+kernels at the main-path shapes, for comparing two trees of this package on
+one card in one run.
 
     python -m snickery_tpu_torch.kernel_ab [--label NAME] [--reps 3] [--only CASES]
                                            [--split] [--out FILE]
@@ -39,6 +40,20 @@ device time of the ``topk_partial*`` and ``topk_merge*`` kernels, mean of
 ``--reps`` calls) at k = 1, 8, 40 and 64 (the small grids and the chunks)
 or at the case's own k (the batch shapes): the mainloop does not depend on
 k, so the slope in k is the list phase.
+
+The decode cases (:data:`DECODE_AB_CASES`, numpy-seeded lattices of
+uniform [0, 5) target costs and N(0, 0.3^2) contexts, through the public
+wrappers ``viterbi_decode``, ``greedy_decode`` and ``greedy_decode_stream``
+only, so that the file runs in an older tree): config 3's Viterbi and greedy
+at 32 x 2,048 x 30 x 151 all live, the same lattice with ragged lengths
+(Viterbi at ``search_epsilon`` 0.3), a 64-step stream chunk with 32 live
+steps, and one utterance of 650 steps.  Each prints the median time of
+``--reps`` launches and the SHA-256 of the paths and of the totals (a
+chunk's outgoing context).  :data:`PR13_DECODE_DIGESTS` records what the
+first decode kernels (one CTA an utterance) printed for them on an NVIDIA
+H100 80GB HBM3; the Viterbi kept their summation order, so
+``chip_smoke.py`` holds its cases to them (greedy now sums a distance in
+one thread, where they summed it over a warp).
 
 :data:`FIRST_DESIGN_DIGESTS` records what the first design of the kernels
 (64 x 64 tiles, a dense selection after every tile) printed for the two
@@ -112,6 +127,28 @@ PR9_DIGESTS = {
     "span_unaligned": ("3e4d10ee9c610aa8", "c0ac60bcf92e068b"),
     "span_gaps": ("4c0bc3770ebef4ed", "39e19a847a80edaf"),
     "span_padding_only": ("609d6b6ba89016a0", "7423375f832efff6")}
+
+
+# decode cases: name: (kind, B, T, N, dj, lengths, search_epsilon); lengths "full" (all T
+# live), "ragged" (seeded, 1 to T, one utterance of 1 step and one of 0), or a stream
+# chunk's live steps
+DECODE_AB_CASES = {
+    "decode_viterbi_config3": ("viterbi", 32, 2048, 30, KD, "full", 0.0),
+    "decode_greedy_config3": ("greedy", 32, 2048, 30, KD, "full", 0.0),
+    "decode_viterbi_config3_ragged_eps": ("viterbi", 32, 2048, 30, KD, "ragged", 0.3),
+    "decode_greedy_config3_ragged": ("greedy", 32, 2048, 30, KD, "ragged", 0.0),
+    "decode_stream_chunk": ("stream", 1, 64, 30, KD, 32, 0.0),
+    "decode_viterbi_single": ("viterbi", 1, 650, 30, KD, "full", 0.0),
+}
+DECODE_JCW = 0.7
+# case: (paths_sha256, totals_sha256) of the first decode kernels
+PR13_DECODE_DIGESTS = {
+    "decode_viterbi_config3": ("8189674c28a28a20", "25f986cfd474445d"),
+    "decode_greedy_config3": ("9f422a8fbf5cbf42", "6c7794306a3fa943"),
+    "decode_viterbi_config3_ragged_eps": ("3703fef2160dd259", "c34c88100acc39d9"),
+    "decode_greedy_config3_ragged": ("e935f59acb085220", "35886aff93c46333"),
+    "decode_stream_chunk": ("f815258f1bb50806", "bddb7e94b3e24f67"),
+    "decode_viterbi_single": ("60c1a780e955e8a5", "9e8c6dcc0d7b23af")}
 
 
 def digest(t: torch.Tensor) -> str:
@@ -275,6 +312,72 @@ def case_calls(names, dev):
 ALL_CASES = tuple(c[0] for c in CASES) + tuple(SMALL_CASES) + tuple(SPAN_CASES)
 
 
+def decode_lattice(name: str, dev, shapes: dict | None = None) -> dict:
+    """One of :data:`DECODE_AB_CASES` on ``dev``: the lattice made with numpy
+    from a seed of its shape (so the config-3 cases share one, kept in
+    ``shapes`` where given), ragged lengths from a seed of the name."""
+    kind, B, T, N, dj, lens, eps = DECODE_AB_CASES[name]
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    key = (B, T, N, dj)
+    if shapes is None or key not in shapes:
+        rng = np.random.default_rng(100003 * B + 31 * T + N)
+        tc = rng.uniform(0.0, 5.0, (B, T, N)).astype(np.float32)
+        jl = 0.3 * rng.standard_normal((B, T, N, dj), dtype=np.float32)
+        jr = 0.3 * rng.standard_normal((B, T, N, dj), dtype=np.float32)
+        made = (to(tc), to(jl), to(jr))
+        del tc, jl, jr
+        if shapes is None:
+            shapes = {}
+        shapes[key] = made
+    tc, jl, jr = shapes[key]
+    lat = dict(kind=kind, tc=tc, jl=jl, jr=jr, eps=eps, length=None)
+    if lens == "ragged":
+        length = np.random.default_rng(sum(map(ord, name))).integers(1, T + 1, B)
+        length[1], length[2] = 1, 0
+        lat["length"] = to(length.astype(np.int64))
+    if kind == "stream":
+        ctx = 0.3 * np.random.default_rng(7).standard_normal(dj, dtype=np.float32)
+        lat.update(tc=lat["tc"][0], jl=lat["jl"][0], jr=lat["jr"][0], init_ctx=to(ctx),
+                   n_live=lens)
+    lat["live_steps"] = (lens if kind == "stream" else
+                         B * T if lat["length"] is None else int(lat["length"].clamp(1).sum()))
+    return lat
+
+
+def decode_call(lat: dict):
+    """The public wrapper's call on a :func:`decode_lattice` lattice."""
+    from snickery_tpu_torch.ops import viterbi as vit
+    if lat["kind"] == "stream":
+        return lambda: vit.greedy_decode_stream(lat["tc"], lat["jl"], lat["jr"], lat["init_ctx"],
+                                                DECODE_JCW, DECODE_JCW, lat["n_live"])
+    if lat["kind"] == "viterbi":
+        return lambda: vit.viterbi_decode(lat["tc"], lat["jl"], lat["jr"], DECODE_JCW,
+                                          lat["eps"], lat["length"])
+    return lambda: vit.greedy_decode(lat["tc"], lat["jl"], lat["jr"], DECODE_JCW, lat["length"])
+
+
+def run_decode_cases(label: str = "change", reps: int = 10, only=()) -> list[dict]:
+    """Time and digest the decode cases named in ``only`` (all if empty) on
+    the current CUDA device, one dict a case."""
+    dev = torch.device("cuda")
+    card = card_line()
+    lines, shapes = [], {}
+    for name in DECODE_AB_CASES:
+        if only and name not in only:
+            continue
+        lat = decode_lattice(name, dev, shapes)
+        ms, (paths, second) = sweep_topk.time_call(decode_call(lat), reps, dev)
+        kind, B, T, N, dj, _, eps = DECODE_AB_CASES[name]
+        lines.append({"label": label, "case": name, "kind": kind, "B": B, "T": T, "N": N,
+                      "dj": dj, "eps": eps, "live_steps": lat["live_steps"], "ms": ms,
+                      "paths_sha256": digest(paths), "totals_sha256": digest(second),
+                      "card": card})
+        del lat, paths, second
+    del shapes
+    torch.cuda.empty_cache()
+    return lines
+
+
 def run_cases(label: str = "change", reps: int = 3, only=(), split: bool = False) -> list[dict]:
     """Time and digest the cases named in ``only`` (all if empty) on the
     current CUDA device; one dict a case (the JSON lines of the module),
@@ -302,7 +405,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", default="change")
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--only", default="", help="comma list of case names (default: all)")
+    ap.add_argument("--only", default="",
+                    help="comma list of case names, preselect or decode (default: all)")
     ap.add_argument("--split", action="store_true",
                     help="also time pass 1 and pass 2 apart, over the k-sweep")
     ap.add_argument("--out", default="", help="also append the JSON lines to this file")
@@ -311,10 +415,15 @@ def main(argv=None) -> int:
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     only = set(filter(None, args.only.split(",")))
-    unknown = only - set(ALL_CASES)
+    unknown = only - set(ALL_CASES) - set(DECODE_AB_CASES)
     if unknown:
-        ap.error(f"unknown cases {sorted(unknown)}; have {ALL_CASES}")
-    for line in run_cases(args.label, args.reps, only, args.split):
+        ap.error(f"unknown cases {sorted(unknown)}; have {ALL_CASES + tuple(DECODE_AB_CASES)}")
+    pre = only & set(ALL_CASES) if only else set(ALL_CASES)
+    dec = only & set(DECODE_AB_CASES) if only else set(DECODE_AB_CASES)
+    lines = run_cases(args.label, args.reps, pre, args.split) if pre else []
+    if dec:
+        lines += run_decode_cases(args.label, args.reps, dec)
+    for line in lines:
         print(json.dumps(line), flush=True)
         if args.out:
             with open(args.out, "a") as f:

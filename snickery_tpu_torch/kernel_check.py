@@ -37,8 +37,10 @@
   the decode kernels (``ops/viterbi.py``) against their plain versions on
   lattices made from a seed (ragged lengths with junk past them, a natural
   chain that must cost exactly 0.0, exact ties, epsilon pruning, shapes
-  whose shared-memory plan stages once or keeps its backpointers in device
-  memory, stream chunks); :func:`decode_bound_ms` their bound.
+  whose shared-memory plan holds one producer group or keeps its
+  backpointers in device memory, one long utterance, more utterances than
+  SMs, stream chunks), each also at every forced cluster size of
+  :data:`DECODE_CLUSTERS`; :func:`decode_bound_ms` their bound.
 - The yardsticks a report puts beside a kernel's time: :func:`time_ms`
   (CUDA events on a card, the host clock on the CPU), :func:`bound_ms`
   (the least time the card could take for the call, from its published
@@ -475,8 +477,9 @@ DECODE_RTOL = 1e-5       # totals, kernel vs plain: f32 sums of the same terms,
 PATH_RTOL = 1e-6         # a differing path may cost no more than this in float64
 DECODE_JCW = 0.7
 # name: (kind, B, T, N, dj, lengths, eps, squared, special); lengths "full"
-# (all T), "ragged" (T, 1, 0 and others, junk in the padded steps), "one"
-# (1 each), "none" (a stream chunk with no live step)
+# (all T), "ragged" (T, 1, 0 and others, repeated past six utterances, junk
+# in the padded steps), "one" (1 each), "none" (a stream chunk with no live
+# step)
 DECODE_CASES = {
     "viterbi_full": ("viterbi", 3, 128, 30, 151, "full", 0.0, False, None),
     "viterbi_ragged": ("viterbi", 6, 160, 30, 151, "ragged", 0.0, False, None),
@@ -490,6 +493,10 @@ DECODE_CASES = {
     "viterbi_ties": ("viterbi", 4, 200, 30, 151, "ragged", 0.3, False, "ties"),
     "viterbi_bp_global": ("viterbi", 2, 8200, 30, 151, "ragged", 0.0, False, None),
     "viterbi_single_buffer": ("viterbi", 2, 96, 64, 302, "ragged", 0.3, True, None),
+    "viterbi_single_650": ("viterbi", 1, 650, 30, 151, "full", 0.0, False, None),
+    "viterbi_b160": ("viterbi", 160, 64, 30, 151, "ragged", 0.0, False, None),
+    "viterbi_n33": ("viterbi", 4, 128, 33, 151, "ragged", 0.0, False, None),
+    "viterbi_n33_ties_eps": ("viterbi", 6, 160, 33, 151, "ragged", 0.25, False, "ties"),
     "greedy_full": ("greedy", 3, 128, 30, 151, "full", 0.0, False, None),
     "greedy_ragged": ("greedy", 6, 160, 30, 151, "ragged", 0.0, False, None),
     "greedy_n1": ("greedy", 3, 50, 1, 151, "ragged", 0.0, False, None),
@@ -497,6 +504,8 @@ DECODE_CASES = {
     "greedy_natural": ("greedy", 4, 200, 30, 151, "ragged", 0.0, False, "natural"),
     "greedy_ties": ("greedy", 4, 200, 30, 151, "ragged", 0.0, False, "ties"),
     "greedy_single_buffer": ("greedy", 2, 96, 64, 302, "ragged", 0.0, False, None),
+    "greedy_b160": ("greedy", 160, 64, 30, 151, "ragged", 0.0, False, None),
+    "greedy_n33": ("greedy", 4, 128, 33, 151, "ragged", 0.0, False, None),
     "stream_start": ("stream", 1, 64, 30, 151, "full", 0.0, False, "start"),
     "stream_carry": ("stream", 1, 64, 30, 151, "ragged", 0.0, False, None),
     "stream_carry_dj302": ("stream", 1, 64, 20, 302, "full", 0.0, True, None),
@@ -529,7 +538,8 @@ def decode_lattice(name: str, device, seed: int = 0) -> dict:
     elif lens == "none":
         length = np.zeros(B, np.int64)
     else:
-        length = np.asarray([T, 1, 0, T // 2 + 7, T - 1, 2][:B] if B > 2 else [T - 3, T // 3])
+        length = np.resize([T, 1, 0, T // 2 + 7, T - 1, 2], B) if B > 2 else \
+            np.asarray([T - 3, T // 3])
     nat = None
     if special == "natural":
         tc += 1.0
@@ -557,22 +567,24 @@ def decode_lattice(name: str, device, seed: int = 0) -> dict:
     return out
 
 
-def run_decode(lat: dict, plain: bool = False):
+def run_decode(lat: dict, plain: bool = False, cluster: int | None = None):
     """One decode of a :func:`decode_lattice` lattice: through the public
-    wrapper (the kernel on a card), or with ``plain`` its plain version."""
+    wrapper (the kernel on a card; ``cluster`` forces its cluster size), or
+    with ``plain`` its plain version."""
     from snickery_tpu_torch.ops import viterbi as vit
     kind = lat["kind"]
+    kw = {"squared_joins": lat["squared"]}
+    if cluster is not None:
+        kw["_cluster"] = cluster
     if kind == "stream":
         fn = vit.greedy_decode_stream_plain if plain else vit.greedy_decode_stream
         return fn(lat["tc"], lat["jl"], lat["jr"], lat["init_ctx"], lat["jcw_first"],
-                  lat["jcw"], lat["n_live"], squared_joins=lat["squared"])
+                  lat["jcw"], lat["n_live"], **kw)
     if kind == "viterbi":
         fn = vit.viterbi_decode_plain if plain else vit.viterbi_decode
-        return fn(lat["tc"], lat["jl"], lat["jr"], lat["jcw"], lat["eps"], lat["length"],
-                  squared_joins=lat["squared"])
+        return fn(lat["tc"], lat["jl"], lat["jr"], lat["jcw"], lat["eps"], lat["length"], **kw)
     fn = vit.greedy_decode_plain if plain else vit.greedy_decode
-    return fn(lat["tc"], lat["jl"], lat["jr"], lat["jcw"], lat["length"],
-              squared_joins=lat["squared"])
+    return fn(lat["tc"], lat["jl"], lat["jr"], lat["jcw"], lat["length"], **kw)
 
 
 def _dist64(a, b, squared: bool) -> torch.Tensor:
@@ -674,16 +686,25 @@ def judge_decode(lat: dict, got, want) -> tuple[float, int]:
     return err, n_diff
 
 
-def run_decode_case(name: str, device) -> tuple[float, int]:
+DECODE_CLUSTERS = (1, 2, 4, 8)   # the cluster sizes every case is forced to on a card
+
+
+def run_decode_case(name: str, device, clusters=()) -> tuple[float, int]:
     """One of :data:`DECODE_CASES`: the public wrapper (the kernel on a card)
-    twice, bit-identical, and against the plain version (:func:`judge_decode`).
-    Returns what :func:`judge_decode` returns."""
+    twice, bit-identical, and against the plain version (:func:`judge_decode`);
+    then at each forced cluster size of ``clusters``, bit-identical to the
+    default plan's result.  Returns what :func:`judge_decode` returns."""
     lat = decode_lattice(name, device)
     got = run_decode(lat)
     again = run_decode(lat)
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"{name}: two runs of the decode differ")
-    return judge_decode(lat, got, run_decode(lat, plain=True))
+    judged = judge_decode(lat, got, run_decode(lat, plain=True))
+    for c in clusters:
+        forced = run_decode(lat, cluster=c)
+        check(all(torch.equal(a, b) for a, b in zip(got, forced)),
+              f"{name}: the decode at cluster size {c} differs from the default plan's")
+    return judged
 
 
 def decode_bound_ms(kind: str, live_steps: int, n: int, dj: int, out_bytes: int):

@@ -2,9 +2,10 @@
 
 Counterpart of ``snickery_tpu.ops.viterbi`` (and of the greedy scan of
 ``snickery_tpu.synth._streaming_step``).  Each decode is one hand-written
-CUDA kernel on the card (``csrc/viterbi.cu``: one CTA an utterance, the loop
-over the lattice steps and the backtrack inside it, no host synchronisation)
-and its plain PyTorch version (:func:`viterbi_decode_plain`,
+CUDA kernel on the card (``csrc/viterbi.cu``: one thread-block cluster an
+utterance, whose producer warps compute the steps' join-cost tables ahead
+of the recursion warps that walk the steps and backtrack, no host
+synchronisation) and its plain PyTorch version (:func:`viterbi_decode_plain`,
 :func:`greedy_decode_plain`, :func:`greedy_decode_stream_plain`), in which
 the JAX ``vmap`` becomes the leading batch dimension and the ``lax.scan`` a
 Python loop over the steps.  The public functions dispatch on the tensors'
@@ -48,34 +49,52 @@ from snickery_tpu_torch.ops import cuda_topk
 
 MAX_STATES = 255             # a kernel backpointer is one byte
 SMEM_LIMIT = 227 * 1024      # shared memory a block may use on the card
+MAX_CLUSTER = 8              # the portable thread-block cluster size
+MAX_RING = 16                # ring slots of join-cost tables a cluster holds at most
+MAX_GROUPS = 4               # producer groups of two warps a CTA
+SHARED_FIRST_CTA = 4         # clusters up to this size make tables in every CTA
+H100_SMS = 132               # the SM count a plan assumes for CPU tensors
 KERNELS = ("viterbi_decode", "greedy_decode", "greedy_decode_stream")
 _KIND = {"viterbi": 0, "greedy": 1}
-
-
-def row_stride(dj: int) -> int:
-    """f32 columns of a context row staged in shared memory: ``dj`` rounded
-    up to a multiple of 4 with an odd number of float4s (``csrc/viterbi.cu``
-    ``row_stride``)."""
-    s = -(-dj // 4) * 4
-    return s + 4 if (s // 4) % 2 == 0 else s
 
 
 def _align16(x: int) -> int:
     return -(-x // 16) * 16
 
 
-def decode_smem(kind: str, n: int, dj: int, T: int, stages: int, bp_in_smem: bool) -> int:
+def cluster_size(B: int, sms: int) -> int:
+    """CTAs of the cluster that decodes one utterance (one chunk): enough
+    clusters to fill ``sms`` SMs with B utterances, at least 1 and at most
+    :data:`MAX_CLUSTER` (4 at B = 32 on 132 SMs, 8 at B = 1).  On the card
+    :func:`decode_plan` lowers it until the card holds all B clusters at
+    once."""
+    return max(1, min(MAX_CLUSTER, sms // max(1, B)))
+
+
+def producing_ctas(cluster: int) -> int:
+    """CTAs of a cluster that make tables: all of a cluster of up to
+    :data:`SHARED_FIRST_CTA`, all but the first (the recursion's) beyond."""
+    return cluster if cluster <= SHARED_FIRST_CTA else cluster - 1
+
+
+def decode_smem(kind: str, n: int, dj: int, T: int, groups: int, ring: int,
+                bp_in_smem: bool) -> int:
     """Bytes of dynamic shared memory a decode CTA uses (``csrc/viterbi.cu``
-    ``layout``): ``stages`` buffers each of join_left and join_right
-    (N, :func:`row_stride`) f32, two of target costs, the Viterbi's (N, N|1)
-    transition costs and N running costs (greedy: N totals and the incoming
-    context), 16 bytes, and with ``bp_in_smem`` the Viterbi's (T - 1, N)
+    ``layout``): ``ring`` + ``groups`` mbarriers; for each producer group a
+    staging buffer each of the join_left and join_right slabs (N dj f32 as
+    they lie in device memory, from the 16-byte boundary at or before the
+    first) and of N target costs; ``ring`` slots of an (N rounded up to 32,
+    N) f32 weighted join-cost table and N target costs, and one more a group
+    (its table before the copy); the Viterbi's two (32 ceil(N / 32)) f32
+    cost vectors; 16 bytes; and with ``bp_in_smem`` the Viterbi's (T - 1, N)
     byte backpointers."""
     viterbi = _KIND[kind] == 0
-    stride = row_stride(dj)
-    size = 2 * stages * _align16(n * stride * 4) + 2 * _align16(n * 4)
-    size += _align16(n * (n | 1) * 4) if viterbi else _align16(n * 4)
-    size += _align16(n * 4) if viterbi else _align16(stride * 4)
+    slot = _align16(-(-n // 32) * 32 * n * 4) + _align16(n * 4)
+    size = (_align16(8 * (ring + groups)) + groups * (2 * _align16((n * dj + 3) * 4)
+                                                      + _align16(n * 4))
+            + (ring + groups) * slot)
+    if viterbi:
+        size += 2 * _align16(32 * -(-n // 32) * 4)
     size += 16
     if viterbi and bp_in_smem and T > 1:
         size += _align16((T - 1) * n)
@@ -85,35 +104,70 @@ def decode_smem(kind: str, n: int, dj: int, T: int, stages: int, bp_in_smem: boo
 @dataclass(frozen=True)
 class DecodePlan:
     smem: int            # bytes of dynamic shared memory a CTA
-    stages: int          # 2: the next step is staged while this one computes
+    groups: int          # producer groups of two warps a CTA, each a table at a time
     bp_in_smem: bool     # Viterbi backpointers in shared memory, else in global scratch
+    cluster: int         # CTAs a cluster: one cluster an utterance (a chunk)
+    ring: int            # slots of join-cost tables between the producers and the recursion
 
 
-def decode_plan(kind: str, n: int, dj: int, T: int) -> DecodePlan:
-    """The kernel's shared-memory plan for an (N = ``n``, ``dj``, ``T``)
-    lattice, a pure function of the shape: a double buffer where it fits,
-    else a single one; the Viterbi backpointers beside the buffers where
-    they fit, else in device memory.  Raises ValueError where even a single
-    buffer does not fit in :data:`SMEM_LIMIT`."""
-    for stages in (2, 1):
-        base = decode_smem(kind, n, dj, T, stages, False)
-        if base > SMEM_LIMIT:
-            continue
-        with_bp = decode_smem(kind, n, dj, T, stages, True)
-        if _KIND[kind] == 0 and with_bp <= SMEM_LIMIT:
-            return DecodePlan(with_bp, stages, True)
-        return DecodePlan(base, stages, False)
+def decode_plan(kind: str, n: int, dj: int, T: int, B: int = 1, sms: int = H100_SMS,
+                cluster: int | None = None, max_clusters=None) -> DecodePlan:
+    """The kernel's plan for B (N = ``n``, ``dj``, ``T``) lattices on a card
+    of ``sms`` SMs, a pure function of them: the cluster size
+    :func:`cluster_size`, lowered (where ``max_clusters(cluster, smem)``, the
+    card's count of clusters it holds at once, is given) until all B fit,
+    or ``cluster`` forced (1 to 8); then the Viterbi backpointers in shared
+    memory where they fit, else in device memory; and the producer groups
+    (1 to 4 a CTA) and ring slots (1 to 16) that fit beside them with the
+    most tables in flight, min(groups x producing CTAs, ring), then the
+    most groups, then the deepest ring.  Raises ValueError where one group
+    and one slot do not fit in :data:`SMEM_LIMIT`."""
+    if cluster is not None:
+        if not 1 <= cluster <= MAX_CLUSTER:
+            raise ValueError(f"a decode cluster has 1 to {MAX_CLUSTER} CTAs, not {cluster}")
+        return _plan_at(kind, n, dj, T, cluster)
+    c = cluster_size(B, sms)
+    plan = _plan_at(kind, n, dj, T, c)
+    while max_clusters is not None and c > 1 and max_clusters(c, plan.smem) < B:
+        c -= 1
+        plan = _plan_at(kind, n, dj, T, c)
+    return plan
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_at(kind: str, n: int, dj: int, T: int, cluster: int) -> DecodePlan:
+    makers = producing_ctas(cluster)
+    for bp in ((True, False) if _KIND[kind] == 0 else (False,)):
+        best = None
+        for groups in range(MAX_GROUPS, 0, -1):
+            for ring in range(MAX_RING, 0, -1):
+                size = decode_smem(kind, n, dj, T, groups, ring, bp)
+                if size <= SMEM_LIMIT:
+                    key = (min(makers * groups, ring), groups, ring)
+                    if best is None or key > best[0]:
+                        best = (key, DecodePlan(size, groups, bp, cluster, ring))
+                    break
+        if best is not None:
+            return best[1]
     raise ValueError(f"a {kind} decode of N={n} candidates x dj={dj} needs "
-                     f"{decode_smem(kind, n, dj, T, 1, False)} bytes of shared memory, "
+                     f"{decode_smem(kind, n, dj, T, 1, 1, False)} bytes of shared memory, "
                      f"more than the {SMEM_LIMIT} a block has")
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def check_lattice(kind: str, target_costs, join_left, join_right, length=None,
-                  init_ctx=None) -> DecodePlan:
+                  init_ctx=None, cluster: int | None = None) -> DecodePlan:
     """Refuse what the kernels do not take, on any device: f32 costs and
     contexts, contiguous, on one device, of matching shapes, N <= 255, a
-    shared-memory plan that fits (:func:`decode_plan`, returned), and
-    ``length`` (a tensor) an integer vector on the same device."""
+    plan whose shared memory fits (:func:`decode_plan`, returned: B the
+    lattices, 1 for a chunk; the card's SM count, or :data:`H100_SMS` off
+    the card; ``cluster`` forced where given; on a card, RuntimeError where
+    it cannot place the plan's cluster), and ``length`` (a tensor) an
+    integer vector on the same device."""
     tensors = [target_costs, join_left, join_right]
     if init_ctx is not None:
         tensors.append(init_ctx)
@@ -139,7 +193,30 @@ def check_lattice(kind: str, target_costs, join_left, join_right, length=None,
             raise ValueError(f"length lies on {length.device}, the lattice on {dev}")
         if length.dtype.is_floating_point or length.dtype == torch.bool:
             raise ValueError(f"length must be an integer tensor, not {length.dtype}")
-    return decode_plan(kind, n, join_left.shape[-1], target_costs.shape[-2])
+    B = lead[0] if len(lead) == 2 else 1
+    if dev.type != "cuda":
+        return decode_plan(kind, n, join_left.shape[-1], target_costs.shape[-2], B, H100_SMS,
+                           cluster)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    fits = functools.partial(_max_clusters, index, 2 if init_ctx is not None else _KIND[kind], n)
+    plan = decode_plan(kind, n, join_left.shape[-1], target_costs.shape[-2], B,
+                       _sm_count(index), cluster, fits)
+    if fits(plan.cluster, plan.smem) < 1:
+        raise RuntimeError(f"the card cannot place a {kind} decode cluster of {plan.cluster} "
+                           f"CTAs with {plan.smem} bytes of shared memory each")
+    return plan
+
+
+@functools.cache
+def _max_clusters(index: int, code: int, n: int, cluster: int, smem: int) -> int:
+    """Clusters of ``cluster`` CTAs of decode kernel ``code`` (0 Viterbi, 1
+    greedy, 2 streamed greedy) at N = ``n`` and ``smem`` bytes that card
+    ``index`` holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    with torch.cuda.device(index):
+        got = _kernel().snk_decode_max_clusters(code, n, cluster, smem)
+    if got < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: cudaError_t {-got}")
+    return got
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -266,14 +343,16 @@ def _bound_library():
     from snickery_tpu_torch.ops._build import kernel_library
     lib = kernel_library().lib
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.snk_viterbi_decode.argtypes = [p] * 7 + [i] * 4 + [f, f] + [i] * 3 + [ctypes.c_size_t, p]
-    lib.snk_greedy_decode.argtypes = [p] * 6 + [i] * 4 + [f] + [i] * 2 + [ctypes.c_size_t, p]
-    lib.snk_greedy_decode_stream.argtypes = ([p] * 6 + [i] * 3 + [f, f] + [i] * 3
+    lib.snk_viterbi_decode.argtypes = [p] * 7 + [i] * 4 + [f, f] + [i] * 5 + [ctypes.c_size_t, p]
+    lib.snk_greedy_decode.argtypes = [p] * 6 + [i] * 4 + [f] + [i] * 4 + [ctypes.c_size_t, p]
+    lib.snk_greedy_decode_stream.argtypes = ([p] * 6 + [i] * 3 + [f, f] + [i] * 5
                                              + [ctypes.c_size_t, p])
     for name in KERNELS:
         getattr(lib, "snk_" + name).restype = ctypes.c_int
-    lib.snk_decode_smem.argtypes = [i] * 6
+    lib.snk_decode_smem.argtypes = [i] * 7
     lib.snk_decode_smem.restype = ctypes.c_size_t
+    lib.snk_decode_max_clusters.argtypes = [i] * 3 + [ctypes.c_size_t]
+    lib.snk_decode_max_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -281,7 +360,8 @@ def _library(kind: str, plan: DecodePlan, n: int, dj: int, T: int):
     """The kernel library, its layout of this plan checked against
     :func:`decode_smem`'s."""
     lib = _kernel()
-    if lib.snk_decode_smem(_KIND[kind], n, dj, T, plan.stages, int(plan.bp_in_smem)) != plan.smem:
+    if lib.snk_decode_smem(_KIND[kind], n, dj, T, plan.groups, plan.ring,
+                           int(plan.bp_in_smem)) != plan.smem:
         raise RuntimeError("the decode kernels' shared-memory layout is not decode_smem's")
     return lib
 
@@ -302,7 +382,7 @@ def _device_length(length, B: int, dev):
 
 
 def viterbi_decode(target_costs, join_left, join_right, join_cost_weight=1.0,
-                   search_epsilon=0.0, length=None, squared_joins=False):
+                   search_epsilon=0.0, length=None, squared_joins=False, *, _cluster=None):
     """Best paths through B candidate lattices.
 
     ``target_costs`` (B, T, N); ``join_left``/``join_right`` (B, T, N, dj),
@@ -310,8 +390,10 @@ def viterbi_decode(target_costs, join_left, join_right, join_cost_weight=1.0,
     steps (a tensor on the lattice's device) or None.  Returns (paths (B, T)
     int64 on the input device, total costs (B,)); paths are 0 at and past
     each length.  On a CUDA device one launch of ``snk_viterbi_decode``
-    with nothing read back; on the CPU :func:`viterbi_decode_plain`."""
-    plan = check_lattice("viterbi", target_costs, join_left, join_right, length)
+    with nothing read back; on the CPU :func:`viterbi_decode_plain`.
+    ``_cluster`` forces the cluster size (``kernel_check``'s cases only)."""
+    plan = check_lattice("viterbi", target_costs, join_left, join_right, length,
+                         cluster=_cluster)
     dev = target_costs.device
     if dev.type == "cpu":
         return viterbi_decode_plain(target_costs, join_left, join_right, join_cost_weight,
@@ -333,20 +415,21 @@ def viterbi_decode(target_costs, join_left, join_right, join_cost_weight=1.0,
             None if lens is None else lens.data_ptr(), paths.data_ptr(), totals.data_ptr(),
             None if scratch is None else scratch.data_ptr(), B, T, n, dj,
             float(join_cost_weight), float(search_epsilon), int(bool(squared_joins)),
-            plan.stages, int(plan.bp_in_smem), plan.smem,
+            plan.groups, plan.ring, plan.cluster, int(plan.bp_in_smem), plan.smem,
             torch.cuda.current_stream(dev).cuda_stream)
     _launched("viterbi_decode", err)
     return paths, totals
 
 
 def greedy_decode(target_costs, join_left, join_right, join_cost_weight=1.0,
-                  length=None, squared_joins=False):
+                  length=None, squared_joins=False, *, _cluster=None):
     """Greedy online selection: each step picks the candidate minimising
     target + join-from-the-previous-choice.  Shapes as for
     :func:`viterbi_decode`; returns (paths (B, T) int64, total costs (B,)).
     On a CUDA device one launch of ``snk_greedy_decode``; on the CPU
-    :func:`greedy_decode_plain`."""
-    plan = check_lattice("greedy", target_costs, join_left, join_right, length)
+    :func:`greedy_decode_plain`.  ``_cluster`` as for :func:`viterbi_decode`."""
+    plan = check_lattice("greedy", target_costs, join_left, join_right, length,
+                         cluster=_cluster)
     dev = target_costs.device
     if dev.type == "cpu":
         return greedy_decode_plain(target_costs, join_left, join_right, join_cost_weight,
@@ -363,15 +446,15 @@ def greedy_decode(target_costs, join_left, join_right, join_cost_weight=1.0,
         err = lib.snk_greedy_decode(
             target_costs.data_ptr(), join_left.data_ptr(), join_right.data_ptr(),
             None if lens is None else lens.data_ptr(), paths.data_ptr(), totals.data_ptr(),
-            B, T, n, dj, float(join_cost_weight), int(bool(squared_joins)), plan.stages,
-            plan.smem, torch.cuda.current_stream(dev).cuda_stream)
+            B, T, n, dj, float(join_cost_weight), int(bool(squared_joins)), plan.groups,
+            plan.ring, plan.cluster, plan.smem, torch.cuda.current_stream(dev).cuda_stream)
     _launched("greedy_decode", err)
     return paths, totals
 
 
 def greedy_decode_stream(target_costs, join_left, join_right, init_ctx,
                          jcw_first: float, jcw_rest: float, n_live: int,
-                         squared_joins: bool = False):
+                         squared_joins: bool = False, *, _cluster=None):
     """Greedy selection over one streaming chunk, from an incoming join
     context (the scan of ``snickery_tpu.synth._streaming_step``).
 
@@ -382,8 +465,10 @@ def greedy_decode_stream(target_costs, join_left, join_right, init_ctx,
     0 to T) are dead: they choose 0 and keep the context.  Nothing here
     waits on the device.  Returns (path (T,) int64, outgoing context (dj,)).
     On a CUDA device one launch of ``snk_greedy_decode_stream``; on the CPU
-    :func:`greedy_decode_stream_plain`."""
-    plan = check_lattice("greedy", target_costs, join_left, join_right, init_ctx=init_ctx)
+    :func:`greedy_decode_stream_plain`.  ``_cluster`` as for
+    :func:`viterbi_decode`."""
+    plan = check_lattice("greedy", target_costs, join_left, join_right, init_ctx=init_ctx,
+                         cluster=_cluster)
     T, n = target_costs.shape
     if not 0 <= n_live <= T:
         raise ValueError(f"n_live {n_live} is not within 0..{T}")
@@ -401,7 +486,8 @@ def greedy_decode_stream(target_costs, join_left, join_right, init_ctx,
         err = lib.snk_greedy_decode_stream(
             target_costs.data_ptr(), join_left.data_ptr(), join_right.data_ptr(),
             init_ctx.data_ptr(), path.data_ptr(), ctx.data_ptr(), T, n, dj, float(jcw_first),
-            float(jcw_rest), int(n_live), int(bool(squared_joins)), plan.stages, plan.smem,
+            float(jcw_rest), int(n_live), int(bool(squared_joins)), plan.groups, plan.ring,
+            plan.cluster, plan.smem,
             torch.cuda.current_stream(dev).cuda_stream)
     _launched("greedy_decode_stream", err)
     return path, ctx

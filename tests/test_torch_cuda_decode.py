@@ -2,7 +2,9 @@
 ``kernel_check.DECODE_CASES`` through the public wrapper, twice
 (bit-identical) and against the plain version (``judge_decode``: paths
 equal or float64 near-ties, totals rtol 1e-5, natural joins 0.0, ties to
-the lowest index), and one Viterbi and one streamed chunk under
+the lowest index); each case at every forced cluster size of
+``kernel_check.DECODE_CLUSTERS``, bit-equal to the default plan's result;
+and one Viterbi and one streamed chunk under
 ``torch.cuda.set_sync_debug_mode("error")``.
 
 Marked ``cuda``; each test skips where no card is visible.  This file
@@ -14,8 +16,8 @@ imports no jax:
 import pytest
 import torch
 
-from snickery_tpu_torch.kernel_check import (DECODE_CASES, decode_lattice, judge_decode,
-                                             run_decode, run_decode_case)
+from snickery_tpu_torch.kernel_check import (DECODE_CASES, DECODE_CLUSTERS, decode_lattice,
+                                             judge_decode, run_decode, run_decode_case)
 from snickery_tpu_torch.ops import cuda_topk
 
 
@@ -30,6 +32,19 @@ def cuda_device():
 @pytest.mark.parametrize("name", list(DECODE_CASES))
 def test_decode_kernel_matches_plain(cuda_device, name):
     run_decode_case(name, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", DECODE_CLUSTERS)
+@pytest.mark.parametrize("name", list(DECODE_CASES))
+def test_decode_kernel_cluster_sizes_agree(cuda_device, name, cluster):
+    """The result does not depend on the cluster size: each distance is
+    summed by one thread or one warp in one fixed order, whichever CTA makes
+    its table."""
+    lat = decode_lattice(name, cuda_device)
+    want = run_decode(lat)
+    got = run_decode(lat, cluster=cluster)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda
