@@ -210,7 +210,25 @@ Phases, each timed, any failure ending the run with a non-zero exit:
     and a config-4-shaped chunk of it (T = 64, 32 live) for the stream
     kernel, timed against their plain versions with CUDA events, the
     Viterbi and the stream call under
-    ``torch.cuda.set_sync_debug_mode("error")``.
+    ``torch.cuda.set_sync_debug_mode("error")``;
+32. the kernel sweep on the bench's real rows (after phase 30, on its cached
+    ``bench1m``, 1,048,052 units padded to 1,048,576): ``sweep_topk.main
+    --real`` in process (16,384 held-out targets, kd 151, k 30) for
+    ``--db-op zt`` and ``dv``, each as built, ``--cluster`` (k-means order,
+    host seconds logged) and ``--scatter``, and once with ``--db-op raw``,
+    over ``highest,stream``, ``split3cat`` at ``stream``, ``phase``,
+    ``packed`` and ``packed3diag``, and ``highest,packed3diag``; the counts
+    set to 0 around each call, every entry point asked for launched, every
+    line logged beside the card's name and power limit, then all of them as
+    one JSON line; on the first 2,048 targets against the whole DB, as built
+    and clustered, each combination in both operand forms against its twin
+    (``kernel_check.judge``; near-tie ids on up to 5% of the targets at a
+    packed selection at split3cat, where a key drops the score's low 7 bits,
+    1% elsewhere); at "highest" the stream kernel's scores on the
+    clustered DB equal to the built DB's, its ids the same rows through the
+    order up to bit-identical rows; then ``_zt`` and ``_zt_split3cat`` at
+    the sweep's full shape against their twins: the kernels line's
+    ``@real`` rows, with the sweep's launches.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after; the preselect kernel it needs and its decode kernel (Viterbi;
@@ -221,7 +239,8 @@ with a JSON line of the meshes (phase 28: ms a step, exchange bytes a
 member, agreement, the kernel at a shard's shape), a JSON line of the
 kernels (launches on the main paths, max error against the twin, kernel,
 twin and ``torch.matmul``-of-the-product times, and the bound from the
-card's published peaks; the three decode kernels' rows and the
+card's published peaks; after the stream and variant entry points the
+``@me2`` and ``@real`` rows, then the three decode kernels' rows and the
 single-utterance Viterbi's last, with no matmul yardstick; the ``@single``
 row counts the Viterbi launches of the natural-synth paths, one utterance
 a launch), the card's name and power limit from nvidia-smi,
@@ -245,8 +264,9 @@ import urllib.request
 
 import numpy as np
 
-from snickery_tpu_torch.kernel_check import (PROBE_RTOL, bound_ms, check, compare, matmul_ms,
-                                             partition_work, split_probe_error, time_ms)
+from snickery_tpu_torch.kernel_check import (F32_EPS, PROBE_RTOL, bound_ms, check, compare,
+                                             matmul_ms, partition_work, split_probe_error,
+                                             time_ms)
 from snickery_tpu_torch.synthetic_voices import (DATADIMS, KD, SR, make_halfphone_utterances,
                                                make_utterances, phone_means)
 
@@ -935,13 +955,16 @@ class Run:
 
 
     def variant_at(self, select, x, block, aff, m_rows, k, precision, matmul, sqn=None,
-                   n_real=None, row_bytes=None, reps=3, **masks):
+                   n_real=None, row_bytes=None, reps=3, row=None, max_differ=0.01, **masks):
         """One selection variant at one shape: the kernel timed (``reps``
         launches after a warm-up), the twin run and timed once, the kernel's
         result held to it (kernel_check.judge); the times, the stream
         kernel's bound (the same work) and ``matmul`` (the product alone,
         measured by the caller on these inputs) are what the kernels line
-        reports.  Returns the kernel's result."""
+        reports in ``row`` (default: the entry point's own row; "" reports
+        nothing but the entry point's max error).  ``max_differ``: the share
+        of rows whose ids may differ by near-ties (judge's).  Returns the
+        kernel's result."""
         from snickery_tpu_torch.kernel_check import judge
         from snickery_tpu_torch.ops.cuda_topk import (topk_preselect_dv_plain,
                                                       topk_preselect_zt_plain)
@@ -968,13 +991,17 @@ class Run:
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(stop)
         err, nbad, dead = judge(got, want, x, block, aff, m_rows, precision, sqn=sqn,
-                                n_real=n_real, **{**masks, "select": select})
+                                n_real=n_real, max_differ=max_differ,
+                                **{**masks, "select": select})
         del want
         b_ms, b_by = bound_ms(T, m_rows, kd, k, precision, bool(masks), row_bytes,
                               partition_work(masks, m_rows))
         self.errs[name] = max(self.errs.get(name, 0.0), err)
-        self.times[name], self.bounds[name], self.matmul[name] = (ms, plain_ms), (b_ms, b_by), matmul
-        self.shapes[name] = f"{T} x {m_rows} x {kd}, k {k}"
+        row = name if row is None else row
+        if row:
+            self.errs[row] = max(self.errs.get(row, 0.0), err)
+            self.times[row], self.bounds[row], self.matmul[row] = (ms, plain_ms), (b_ms, b_by), matmul
+            self.shapes[row] = f"{T} x {m_rows} x {kd}, k {k}"
         log(f"{name} ({select}) T={T} M={m_rows} kd={kd} k={k}: kernel {ms:.2f} ms, plain "
             f"{plain_ms:.2f} ms, bound {b_ms:.3f} ms ({b_by}), max_abs_err {err:.3e}, near-tie "
             f"id swaps {nbad}, dead slots {dead}")
@@ -2878,6 +2905,188 @@ def bench_phase(run: Run, smi: str, device: str = "cuda") -> None:
     log(f"bench: the bench phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 32: the preselect kernels swept on the bench's voice (phase 30's cache)
+BENCH_CACHE = os.path.join("build", "chip_smoke", "bench")
+REAL_COMBOS = ("highest,stream", "split3cat,stream", "split3cat,phase", "split3cat,packed",
+               "split3cat,packed3diag", "highest,packed3diag")
+REAL_RUNS = tuple((op, order) for op in ("zt", "dv") for order in ("built", "cluster", "scatter")
+                  ) + (("raw", "built"),)
+REAL_SLICE = 2048        # target rows of the kernel-vs-twin checks on the real rows
+REAL_K = 30
+# the share of those targets whose ids may differ from the twin's by float64
+# near-ties at a packed selection at split3cat (judge's default elsewhere,
+# 1%): a packed key drops a score's low 7 bits, and the kernel's split sums
+# differ from the twin's by up to ~50 ulp, so two rows within 128 ulp can
+# order either way; on the bench's voice ~13% of targets have such a rival at
+# rank k (7% an exact tie of bit-identical rows), and 1.1-2.1% flip
+REAL_PACKED_DIFFER = 0.05
+REAL_ROWS = {"topk_preselect_zt@real": "highest", "topk_preselect_zt_split3cat@real": "split3cat"}
+SWEEP_LINE = re.compile(r"^(\w+)\s+(\w+)\s*:\s+([\d.]+) ms(?:\s+overflow (\d+)/(\d+) cols)?$")
+
+
+def real_sweep_runs(run: Run, smi: str, device: str = "cuda") -> dict:
+    """Phase 32's sweeps: ``sweep_topk.main --real`` in process for each
+    operand form and order of :data:`REAL_RUNS`, over :data:`REAL_COMBOS`,
+    with the counts set to 0 just before each call and read just after;
+    every entry point asked for must have launched.  Returns the launches
+    of each entry point over all the calls, and logs every line the sweep
+    printed beside the card's name and power limit, then all its times as
+    one JSON line."""
+    import contextlib
+    import io
+    from snickery_tpu_torch import sweep_topk
+    torch, counts = run.torch, run.cuda_topk.LAUNCH_COUNTS
+    launches, table = {}, []
+    for op, order in REAL_RUNS:
+        argv = ["--real", "--cache-dir", BENCH_CACHE, "--db-op", op, "--device", device,
+                "--combos", " ".join(REAL_COMBOS)] + ([f"--{order}"] if order != "built" else [])
+        with Phase(f"real-row sweep main path: sweep_topk --real --db-op {op}, {order}"):
+            out, err = io.StringIO(), io.StringIO()
+            counts.clear()
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = sweep_topk.main(argv)
+            got = dict(counts)
+            for line in (err.getvalue() + out.getvalue()).splitlines():
+                if line.strip():
+                    log(f"sweep {op} {order}: {line} [{smi}]")
+            check(rc == 0, f"sweep_topk --real --db-op {op} ({order}) exited {rc}")
+            log(f"sweep {op} {order}: kernel launches {got}")
+            for combo in REAL_COMBOS:
+                precision, select = combo.split(",")
+                name = run.cuda_topk.kernel_name(False, False, precision, op == "zt", select)
+                check(got.get(name, 0) > 0, f"the real-row sweep ({op}, {order}) never "
+                      f"launched {name}")
+            for line in out.getvalue().splitlines():
+                m = SWEEP_LINE.match(line.strip())
+                if m:
+                    table.append(dict(db_op=op, order=order, precision=m[1], select=m[2],
+                                      ms=float(m[3]), overflow=None if m[4] is None
+                                      else int(m[4]), cols=None if m[5] is None else int(m[5])))
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        torch.cuda.empty_cache()
+    check(len(table) == len(REAL_RUNS) * len(REAL_COMBOS), "a sweep line did not parse")
+    log(json.dumps({"real_sweep": table, "card": smi}))
+    return launches
+
+
+def real_slice_checks(run: Run, smi: str, launches: dict, device: str = "cuda") -> None:
+    """Phase 32's checks on the sweep's data: on the first REAL_SLICE
+    held-out targets against the whole DB, as built and k-means-ordered,
+    each combination of REAL_COMBOS against its twin (``Run.variant_at``,
+    ``kernel_check.judge``; at a packed selection at split3cat up to
+    :data:`REAL_PACKED_DIFFER` of the targets may differ by near-ties, 1%
+    elsewhere) in both operand forms; at "highest" the stream
+    kernel's k scores a target on the clustered DB equal to the as-built
+    DB's to f32 rounding, and its ids the same rows through the order, up
+    to bit-identical rows (and near the k-th score, where an exact tie
+    between two rows goes to the lower index of each order); then the
+    kernels line's ``@real`` rows: the stream kernels at the sweep's full
+    shape against their twins, with the sweep's launches."""
+    from snickery_tpu_torch import sweep_topk
+    from snickery_tpu_torch.ops.cuda_topk import derive_operand
+    from snickery_tpu_torch.voicedb.db import VoiceDB
+    torch = run.torch
+    dev = torch.device(device)
+    db = VoiceDB.load(sweep_topk.real_voice_path(BENCH_CACHE))
+    n, kd = db.n_units, db.target_dim
+    with Phase("real rows: held-out targets"):
+        targets = torch.from_numpy(sweep_topk.real_targets(db, 16384, dev)).to(dev)
+    x = targets[:REAL_SLICE].contiguous()
+    highest, yardstick = {}, {}     # "highest,stream" by order; matmul ms by (zt, precision)
+    for order in ("built", "clustered"):
+        with Phase(f"real rows, {order}: the combinations vs their twins at "
+                   f"{REAL_SLICE} x the whole DB"):
+            raw, aff, m_rows, perm, how, secs = sweep_topk.real_block(
+                db, "zt", order == "clustered", False)
+            log(f"real rows {how}: {n} units in {m_rows} rows; k-means {secs:.1f} s (host)")
+            raw = torch.from_numpy(raw).to(dev)
+            aff = tuple(torch.from_numpy(a).to(dev) for a in aff)
+            if order == "built":
+                built = (raw, aff, m_rows)
+            for zt in (True, False):
+                forms = {}
+                for precision in ("highest", "split3cat"):
+                    rows, row_bytes = raw[:m_rows, :kd], None
+                    forms[precision] = dict(block=raw, aff=aff)
+                    if not zt:
+                        rows, sqn = derive_operand(raw, aff, n, m_rows, precision)
+                        row_bytes = rows.shape[1] * rows.element_size() + 4
+                        forms[precision] = dict(block=rows, aff=None, sqn=sqn,
+                                                row_bytes=row_bytes)
+                    if order == "built":        # the yardsticks at the sweep's full shape
+                        mm = yardstick[zt, precision] = matmul_ms(targets, rows, precision)
+                        b_ms, b_by = bound_ms(len(targets), m_rows, kd, REAL_K, precision,
+                                              False, row_bytes)
+                        log(f"real rows, {'zt' if zt else 'dv'} {precision} at {len(targets)} "
+                            f"x {m_rows} x {kd}, k {REAL_K}: bound {b_ms:.3f} ms ({b_by}), "
+                            f"torch.matmul {mm:.2f} ms [{smi}]")
+                for combo in REAL_COMBOS:
+                    precision, select = combo.split(",")
+                    packed = precision != "highest" and select.startswith("packed")
+                    got = run.variant_at(select, x, m_rows=m_rows, k=REAL_K,
+                                         precision=precision, matmul=None, n_real=n, reps=2,
+                                         row="", max_differ=REAL_PACKED_DIFFER if packed
+                                         else 0.01, **forms[precision])
+                    if zt and combo == "highest,stream":
+                        highest[order] = got
+                del forms, rows
+            del raw
+            torch.cuda.empty_cache()
+    raw, aff, m_rows = built
+    with Phase("real rows: clustered vs as built, highest, stream kernel"):
+        (ib, vb), (ic, vc) = highest["built"], highest["clustered"]
+        gap = float(((vc - vb).abs() / vb.abs().clamp(min=1.0)).max())
+        log(f"highest scores, clustered vs built: max relative difference {gap:.3e}")
+        check(gap <= 2 * F32_EPS, f"the clustered DB's scores differ from the built DB's "
+              f"by {gap:.3e} (relative)")
+        mapped = torch.from_numpy(perm).to(dev)[ic.long()]
+        w = torch.randint(1, 2**31 - 1, (kd,), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(32))
+
+        def canon(v, ids):
+            # each slot's row as a fingerprint of its bits, ordered by (score, fingerprint)
+            f = (raw[ids, :kd].contiguous().view(torch.int32).long() * w).sum(-1)
+            o = torch.sort(f, dim=1, stable=True).indices
+            v, f = v.gather(1, o), f.gather(1, o)
+            o = torch.sort(v, dim=1, stable=True).indices
+            return f.gather(1, o)
+
+        inner = vb < vb[:, -1:]       # below the k-th score: no tie at the boundary
+        same_rows = canon(vb, ib.long()) == canon(vc, mapped)
+        n_same, n_dup = int((mapped == ib.long()).sum()), int((mapped != ib.long()).sum())
+        log(f"highest ids, clustered vs built through the order: {n_same} slots the same "
+            f"row, {n_dup} another slot or a bit-identical row; {int((~same_rows).sum())} "
+            f"slots at the k-th score differ ({int((~same_rows[inner]).sum())} below it)")
+        check(bool(same_rows[inner].all()), "a clustered id below the k-th score is no "
+              "bit-identical row of the built DB's")
+    del highest
+    for row, precision in REAL_ROWS.items():
+        with Phase(f"real rows: {row} at the sweep's shape"):
+            mm = yardstick[True, precision]
+            run.variant_at("stream", targets, raw, aff, m_rows, REAL_K, precision, mm,
+                           n_real=n, row=row)
+            name = run.cuda_topk.kernel_name(False, False, precision)
+            run.launches[row] = launches.get(name, 0)
+            b_ms, b_by = run.bounds[row]
+            log(f"{row}: {run.shapes[row]}: kernel {run.times[row][0]:.3f} ms, twin "
+                f"{run.times[row][1]:.2f} ms, bound {b_ms:.3f} ms ({b_by}), torch.matmul "
+                f"{mm:.2f} ms, sweep launches {run.launches[row]} [{smi}]")
+
+
+def real_sweep_phase(run: Run, smi: str, device: str = "cuda") -> None:
+    """Phase 32: the preselect kernels swept on the port bench's 1M-unit
+    voice (``bench1m`` in :data:`BENCH_CACHE`, built by phase 30)."""
+    t_phase = time.perf_counter()
+    launches = real_sweep_runs(run, smi, device)
+    for name, n in launches.items():
+        if name not in STREAM_KERNELS:
+            run.launches[name] = run.launches.get(name, 0) + n
+    real_slice_checks(run, smi, launches, device)
+    run.torch.cuda.empty_cache()
+    log(f"real rows: phase 32 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     t_start = time.perf_counter()
@@ -2974,6 +3183,7 @@ def main() -> int:
     corpus_front_end(run, smi, cfg_path, ids, held)
     torch.cuda.empty_cache()
     bench_phase(run, smi)
+    real_sweep_phase(run, smi)
 
     log(f"chip_smoke.py: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"meshes": run.meshes}))
@@ -2985,7 +3195,7 @@ def main() -> int:
         "plain_ms": run.times[name][1], "bound_ms": run.bounds[name][0],
         "bound_by": run.bounds[name][1], "library_ms": None,
         "matmul_ms": run.matmul[name], "shape": run.shapes[name]}
-        for name in (*REPLACES, ME2_ROW, *DECODE_REPLACES, SINGLE_ROW)]}))
+        for name in (*REPLACES, ME2_ROW, *REAL_ROWS, *DECODE_REPLACES, SINGLE_ROW)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -343,7 +343,8 @@ def gen_utterance(seed: int, n_segments: int):
     return synth_utterance(seed, n_segments=n_segments)
 
 
-def bulk_analyse(waves: list, epochs_list: list, group_epochs: int = GROUP_EPOCHS):
+def bulk_analyse(waves: list, epochs_list: list, group_epochs: int = GROUP_EPOCHS,
+                 device=None):
     """Magphase analysis of many utterances in few device calls, as
     ``bench.py`` groups them: the waves joined with 2,048-sample silence
     gaps, the epoch grids offset, one analysis a group of at most
@@ -353,10 +354,12 @@ def bulk_analyse(waves: list, epochs_list: list, group_epochs: int = GROUP_EPOCH
     equals the per-utterance analysis's; those two may not, since their
     windows' outer gaps reach the group's neighbouring utterance or padding
     (``bench.py`` groups alike).  lf0 is computed per utterance (a group's
-    grid has the wrong gaps at the boundaries)."""
+    grid has the wrong gaps at the boundaries).  ``device``: where the
+    analysis runs (default: the bench's device, set by :func:`main`)."""
     from snickery_tpu_torch.features.epochs import f0_from_epochs
     from snickery_tpu_torch.features.magphase import magphase_analysis
 
+    device = device or _STATE["device"]
     out = [None] * len(waves)
     if not waves:
         return out
@@ -386,7 +389,7 @@ def bulk_analyse(waves: list, epochs_list: list, group_epochs: int = GROUP_EPOCH
         big_eps = np.concatenate(
             [big_eps, np.full(e_uniform - len(big_eps), big_eps[-1], np.int64)])
         streams = magphase_analysis(big_wave, big_eps, SR, n_mag=DATADIMS["mag"],
-                                    n_phase=DATADIMS["real"], device=device())
+                                    n_phase=DATADIMS["real"], device=device)
         feats = np.concatenate(
             [streams["mag"], streams["real"], streams["imag"], streams["lf0"]],
             axis=1).astype(np.float32)
@@ -456,12 +459,13 @@ def get_voice(name: str, builder, cfg, rebuild: bool, mmap: bool = True):
     return db
 
 
-def held_out_features(n_utts: int, n_segments: int, seed0: int = 90_000):
-    """Held-out target trajectories (in no bench voice: disjoint seeds)."""
+def held_out_features(n_utts: int, n_segments: int, seed0: int = 90_000, device=None):
+    """Held-out target trajectories (in no bench voice: disjoint seeds),
+    analysed on ``device`` (default: the bench's device)."""
     from snickery_tpu_torch.features.epochs import detect_epochs_batch
     waves = [gen_utterance(seed0 + i, n_segments)[0] for i in range(n_utts)]
     eps = detect_epochs_batch(waves, SR)
-    return bulk_analyse(waves, eps), waves, eps
+    return bulk_analyse(waves, eps, device=device), waves, eps
 
 
 def oracle_arrays(db, synth, targets_raw):

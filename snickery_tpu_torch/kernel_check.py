@@ -201,15 +201,15 @@ def compare(targets, raw, aff, m_rows, k, precision="highest", sqn=None, n_real=
 
 
 def judge(got, want, targets, raw, aff, m_rows, precision="highest", sqn=None, n_real=None,
-          select="stream", **masks):
+          select="stream", max_differ=0.01, **masks):
     """Hold a kernel's result ``got`` to the twin's ``want`` (each (ids,
     scores) or, at "packed3diag", (ids, scores, flags)) for the inputs of
     :func:`compare`; with ``n_real``, no live slot of the kernel may hold a
     padding row.  Per row: scores ascending; the same number of dead slots,
     each (+inf, 0); id sets equal, except where the differing ids are f32
     near-ties of the k-th score (checked in float64, penalties included, on
-    the three bf16 products at a split precision), on at most 1% of the
-    rows (at "packed3diag": of the rows neither side flags); scores of shared ids within SCORE_ATOL (at a split precision the
+    the three bf16 products at a split precision), on at most ``max_differ``
+    (1%) of the rows (at "packed3diag": of the rows neither side flags); scores of shared ids within SCORE_ATOL (at a split precision the
     larger of that and :func:`split_slack`) plus one f32 ulp of the score
     (penalised scores sit near 2^24, ulp 2) plus :func:`packed_slack`.  At
     "packed3diag" the flags are equal at "highest" and differ on at most
@@ -263,7 +263,7 @@ def judge(got, want, targets, raw, aff, m_rows, precision="highest", sqn=None, n
         # a near-tie boundary in every crowded block, not only at rank k: the
         # 1% rule counts the columns that neither side flags
         counted = bad[(fk[0][bad] == 0) & (fp[0][bad] == 0)] if fk else bad
-        check(len(counted) <= 0.01 * targets.shape[0], f"{len(counted)} rows differ")
+        check(len(counted) <= max_differ * targets.shape[0], f"{len(counted)} rows differ")
     return err, int(len(bad)), int(dead_k.sum())
 
 
