@@ -1086,13 +1086,26 @@ def timed_batch(torch, synth, reps: int, *args, **kw):
     return out
 
 
-def stage_split(label, synth, tgts, lengths, kwargs):
+def device_stages(step):
+    """{stage: device ms} of ``step(timer)``, its stages timed on the card's
+    stream while ``torch.profiler`` records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     from snickery_tpu_torch import utils
+    timer = utils.StageTimer()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        step(timer)
+        torch.cuda.synchronize()
+    return {k: round(1e3 * s, 3) for k, (s, _) in timer.device_times().items()}
+
+
+def stage_split(label, synth, tgts, lengths, kwargs):
     from snickery_tpu_torch.synth import synth_pipeline_step
-    with Phase(f"{label} per-stage split (synchronised stage edges)"):
-        timer = utils.StageTimer()
-        synth_pipeline_step(synth.device_db, tgts, lengths, stage_timer=timer, **kwargs)
-        log("stages ms: " + json.dumps({k: round(1e3 * v, 1) for k, v in timer.report().items()}))
+    with Phase(f"{label} per-stage split (device time of each stage's span)"):
+        split = device_stages(lambda timer: synth_pipeline_step(
+            synth.device_db, tgts, lengths, timer=timer, **kwargs))
+        log("stages ms: " + json.dumps(split))
 
 
 def check_result(db, res):
@@ -1402,7 +1415,6 @@ def config4_checks(run: Run, synth, utt, ids, kernel="topk_preselect_zt_split3ca
     """After the config-4 main path: the epoch-rate stream's ids against
     one-shot greedy, one chunk's device stage split, and the kernel against
     its twin on the last chunk's targets (the streaming shape, T = 64)."""
-    from snickery_tpu_torch import utils
     from snickery_tpu_torch.synth import streaming_step
 
     with Phase("config-4 streamed vs synth_from_features(greedy=True)"):
@@ -1414,15 +1426,9 @@ def config4_checks(run: Run, synth, utt, ids, kernel="topk_preselect_zt_split3ca
         log(f"epoch-rate streamed ids vs one-shot greedy: {len(ids)} vs {len(ref)} units, "
             f"agreement {agree:.5f}")
         check(agree >= 0.99, f"streamed-vs-greedy agreement {agree} < 0.99")
-    with Phase("config-4 one chunk's device stage split (synchronised stage edges)"):
+    with Phase("config-4 one chunk's device stage split (device time of each stage's span)"):
         args, kwargs = synth._last_stream_step
-        timer = utils.StageTimer()
-        out = streaming_step(*args, stage_timer=timer, **kwargs)
-        t0 = time.perf_counter()
-        _, event = synth._to_host((out[0], out[2], out[3]))
-        event.synchronize()
-        split = {k: round(1e3 * v, 3) for k, v in timer.report().items()}
-        split["fetch"] = round(1e3 * (time.perf_counter() - t0), 3)
+        split = device_stages(lambda timer: streaming_step(*args, timer=timer, **kwargs))
         log(f"chunk of {args[2]} units (bucket {args[1].shape[0]}), stages ms: "
             + json.dumps(split))
     with Phase("config-4 kernel vs plain at the streaming shape"):

@@ -264,7 +264,7 @@ def batched_synth_step(voice: ShardedVoice, targets, lengths, jcw, eps, voice_id
             db = voice.members[d][0]
             tgt, lens, codes, ctx, vids = inputs(dev, d * b_local, (d + 1) * b_local)
             _, *cand = _candidates(db, tgt, lens, codes, ctx, vids, n_cand=n_cand,
-                                   stage=None, **select)
+                                   **select)
             cands.append((db, *cand, lens))
         for args in cands:
             outs.append(decode_and_concatenate(*args, **finish))

@@ -126,29 +126,28 @@ def device_db_from_numpy(arrays: dict[str, np.ndarray], device) -> DeviceDB:
                        for n in names})
 
 
-def _stage_fn(stage_timer, device):
-    def stage(name):
-        if stage_timer is None:
-            return contextlib.nullcontext()
-        return _synced_stage(stage_timer, name, device)
-    return stage
+def _span(timer: utils.StageTimer | None, name: str, device):
+    """``timer``'s span of stage ``name``, whose work runs on ``device``
+    (:meth:`~snickery_tpu_torch.utils.StageTimer.stage`); nothing without a
+    timer."""
+    return contextlib.nullcontext() if timer is None else timer.stage(name, device)
 
 
 def _candidates(db: DeviceDB, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, *,
                 n_cand: int, margin: int, halfphone: bool, multivoice: bool,
                 ling_weights: tuple | None, precision: str, zero_transient: int,
-                stage):
+                timer: utils.StageTimer | None = None):
     """Normalise and weight the (B, T, kd) targets, preselect k + margin with
     the kernel at ``precision`` (:func:`preselect`), rescore in exact f32 and
-    keep ``n_cand``.  Returns (live (B, T), candidate ids (B*T, n), target
-    costs (B*T, n), join-left and join-right contexts (B*T, n, dj))."""
-    stage = stage or _stage_fn(None, targets.device)
+    keep ``n_cand`` (stage "rescore" of ``timer``).  Returns (live (B, T),
+    candidate ids (B*T, n), target costs (B*T, n), join-left and join-right
+    contexts (B*T, n, dj))."""
     tw, live, idx, scores, ling = preselect(
         db, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, n_cand=n_cand,
         margin=margin, halfphone=halfphone, multivoice=multivoice,
         ling_weights=ling_weights, precision=precision,
-        zero_transient=zero_transient, stage=stage)
-    with stage("rescore"):
+        zero_transient=zero_transient, timer=timer)
+    with _span(timer, "rescore", targets.device):
         cand_idx, target_costs, jl, jr = _rescore(db, tw, idx, scores, live, n_cand, ling)
     return live, cand_idx, target_costs, jl, jr
 
@@ -156,51 +155,51 @@ def _candidates(db: DeviceDB, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, *,
 def preselect(db: DeviceDB, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, *,
               n_cand: int, margin: int, halfphone: bool, multivoice: bool,
               ling_weights: tuple | None, precision: str, zero_transient: int,
-              stage=None):
+              timer: utils.StageTimer | None = None):
     """Normalise and weight the (B, T, kd) targets (steps past ``lengths``
     zeroed) and preselect ``k = min(n_cand + margin, rows of db)`` with the
     kernel at ``precision`` over the ``db.cut1.shape[0]`` rows of ``db`` (a
     whole DB or one shard of it).  ``zero_transient`` (config key: -1 auto,
     0, 1) picks the kernel's operand: the resident raw block, or (0) the
-    operand derived from it for this step (stage "derive", rows at or past
-    ``db.n_real`` pinned), with the margin of that form (none at "highest").
-    Returns (weighted targets (B*T, kd), live (B, T), ids (B*T, k) int64,
-    kernel scores (B*T, k), ``ling`` = (codes, contexts, weights) in
-    halfphone mode or None)."""
-    stage = stage or _stage_fn(None, targets.device)
+    operand derived from it for this step (stage "derive" of ``timer``, rows
+    at or past ``db.n_real`` pinned), with the margin of that form (none at
+    "highest").  Stage "preselect" holds the targets' normalisation, the
+    fused masks and the kernel.  Returns (weighted targets (B*T, kd), live
+    (B, T), ids (B*T, k) int64, kernel scores (B*T, k), ``ling`` = (codes,
+    contexts, weights) in halfphone mode or None)."""
     B, T, kd = targets.shape
     dev = targets.device
     m_pad = db.cut1.shape[0]
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    tw = (targets - db.mean_t) / db.std_t
-    tw = tw * db.sqrt_wt
-    live = torch.arange(T, device=dev)[None, :] < lengths.reshape(B, 1)
-    tw = torch.where(live[:, :, None], tw, zero).reshape(B * T, kd)
-
     if halfphone and ling_weights is None:
         ling_weights = (*QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE)
-    masks = fused_masks(db, tgt_codes, tgt_ctx, tgt_vids, halfphone=halfphone,
-                        multivoice=multivoice, ling_weights=ling_weights)
-    ling = ((tgt_codes.reshape(B * T), tgt_ctx.reshape(B * T, 5), ling_weights)
-            if halfphone else None)
     aff = (db.mean_t, db.std_t, db.sqrt_wt)
     zt = resolve_zero_transient(zero_transient, precision)
     k_sel = min(n_cand + preselect_margin(True, precision, halfphone,
                                           zero_transient=zt, override=margin),
                 m_pad)
-    if zt:
-        with stage("preselect"):
+    if not zt:
+        with _span(timer, "derive", dev):
+            operand, sqn = derive_operand(db.raw, aff, db.n_real, m_pad, precision)
+    with _span(timer, "preselect", dev):
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        tw = (targets - db.mean_t) / db.std_t
+        tw = tw * db.sqrt_wt
+        live = torch.arange(T, device=dev)[None, :] < lengths.reshape(B, 1)
+        tw = torch.where(live[:, :, None], tw, zero).reshape(B * T, kd)
+        masks = fused_masks(db, tgt_codes, tgt_ctx, tgt_vids, halfphone=halfphone,
+                            multivoice=multivoice, ling_weights=ling_weights)
+        ling = ((tgt_codes.reshape(B * T), tgt_ctx.reshape(B * T, 5), ling_weights)
+                if halfphone else None)
+        if zt:
             idx, scores = cuda_topk_preselect(tw, db.raw, k_sel, aff, m_pad,
                                               precision=precision, **masks)
-    else:
-        with stage("derive"):
-            operand, sqn = derive_operand(db.raw, aff, db.n_real, m_pad, precision)
-        with stage("preselect"):
+        else:
             idx, scores = cuda_topk_preselect(tw, operand, k_sel, None, m_pad,
                                               precision=precision, zero_transient=False,
                                               sqn=sqn, **masks)
-        del operand, sqn
-    return tw, live, idx.long(), scores, ling
+            del operand, sqn
+        idx = idx.long()
+    return tw, live, idx, scores, ling
 
 
 def _concatenate(db: DeviceDB, unit_ids, live, lengths, *, do_ola: bool,
@@ -239,7 +238,7 @@ def synth_pipeline_step(db: DeviceDB, targets: torch.Tensor,
                         ling_weights: tuple | None = None,
                         precision: str = "highest", zero_transient: int = -1,
                         do_ola: bool = True,
-                        stage_timer: utils.StageTimer | None = None):
+                        timer: utils.StageTimer | None = None):
     """Select, decode and concatenate B utterances in one step.
 
     ``targets`` (B, T, kd) raw unit-rate target features, ``lengths`` (B,)
@@ -259,47 +258,47 @@ def synth_pipeline_step(db: DeviceDB, targets: torch.Tensor,
     (unit_ids (B, T), total costs (B,), audio (B, out_len), total samples
     (B,)).
 
-    ``stage_timer``: when given, each stage (derive, with ``zero_transient:
-    0``; preselect, rescore, decode, ola) is timed into it, the device
-    synchronised at every stage edge; for measurement runs only, since the
-    synchronisations serialise the step.
+    ``timer`` (the ``Synthesiser``'s): each stage is a span of it (derive,
+    with ``zero_transient: 0``; preselect, rescore, decode, ola), which
+    together hold every device operation of the step; see
+    :class:`~snickery_tpu_torch.utils.StageTimer` for what a span records.
     """
-    stage = _stage_fn(stage_timer, targets.device)
     _, cand_idx, target_costs, jl, jr = _candidates(
         db, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, n_cand=n_cand,
         margin=margin, halfphone=halfphone, multivoice=multivoice,
         ling_weights=ling_weights, precision=precision,
-        zero_transient=zero_transient, stage=stage)
+        zero_transient=zero_transient, timer=timer)
     return decode_and_concatenate(db, cand_idx, target_costs, jl, jr, lengths, jcw=jcw,
                                   eps=eps, greedy=greedy, squared_joins=squared_joins,
                                   do_ola=do_ola, max_frag=max_frag, out_len=out_len,
-                                  taper=taper, stage=stage)
+                                  taper=taper, timer=timer)
 
 
 def decode_and_concatenate(db: DeviceDB, cand_idx, target_costs, jl, jr, lengths,
                            cut_cands=None, *, jcw: float, eps: float, greedy: bool,
                            squared_joins: bool, do_ola: bool, max_frag: int, out_len: int,
-                           taper: int, stage=None):
+                           taper: int, timer: utils.StageTimer | None = None):
     """Decode B utterances from their kept candidates (ids and target costs
     (B*T, n), join contexts (B*T, n, dj); one launch of the Viterbi or the
     greedy kernel, which reads ``lengths`` on the device, with nothing read
-    back to the host) and concatenate the chosen units from ``db``'s waves, their cut points
+    back to the host; stage "decode" of ``timer``) and concatenate the
+    chosen units from ``db``'s waves (stage "ola"), their cut points
     looked up in ``db`` by id or, with ``cut_cands`` = (cut1, cut2) (B*T, n)
     of the candidates, picked from those (a mesh member, whose ids are
     global).  Returns (unit ids (B, T), total costs (B,), audio, total
     samples)."""
-    stage = stage or _stage_fn(None, cand_idx.device)
+    dev = cand_idx.device
     B, n, dj = lengths.shape[0], cand_idx.shape[1], jl.shape[-1]
     T = cand_idx.shape[0] // B
     decode = greedy_decode if greedy else viterbi_decode
     kw = {} if greedy else {"search_epsilon": eps}
-    with stage("decode"):
+    with _span(timer, "decode", dev):
         paths, costs = decode(target_costs.reshape(B, T, n),
                               jl.reshape(B, T, n, dj).contiguous(),
                               jr.reshape(B, T, n, dj).contiguous(),
                               join_cost_weight=jcw, length=lengths,
                               squared_joins=squared_joins, **kw)
-    with stage("ola"):
+    with _span(timer, "ola", dev):
         pick = paths.reshape(B * T, 1)
         live = torch.arange(T, device=lengths.device)[None, :] < lengths.reshape(B, 1)
 
@@ -322,7 +321,7 @@ def streaming_step(db: DeviceDB, targets: torch.Tensor, n_live: int,
                    taper: int, squared_joins: bool = False, margin: int = -1,
                    multivoice: bool = False, precision: str = "highest",
                    zero_transient: int = -1, do_ola: bool = True,
-                   stage_timer: utils.StageTimer | None = None):
+                   timer: utils.StageTimer | None = None):
     """One streaming chunk: preselect, rescore, greedy decode from an
     incoming join context, and the chunk's OLA (counterpart of
     ``snickery_tpu.synth._streaming_step``).
@@ -337,9 +336,10 @@ def streaming_step(db: DeviceDB, targets: torch.Tensor, n_live: int,
     :func:`synth_pipeline_step`.  The audio
     covers the chunk's units including both tapers; the caller crossfades
     consecutive chunks by summing the trailing ``2 * taper`` samples into
-    the next chunk's head.  Returns (unit ids (T,), outgoing context (dj,),
-    audio (out_len,) or the host-OLA placeholder, total samples ())."""
-    stage = _stage_fn(stage_timer, targets.device)
+    the next chunk's head.  ``timer``: the stages of
+    :func:`synth_pipeline_step` are its spans, "greedy" in place of
+    "decode".  Returns (unit ids (T,), outgoing context (dj,), audio
+    (out_len,) or the host-OLA placeholder, total samples ())."""
     T, kd = targets.shape
     dev = targets.device
     dj = db.sqrt_wj.shape[0]
@@ -352,14 +352,14 @@ def streaming_step(db: DeviceDB, targets: torch.Tensor, n_live: int,
         torch.zeros((1, T, 5), dtype=torch.int32, device=dev), vids,
         n_cand=n_cand, margin=margin, halfphone=False, multivoice=multivoice,
         ling_weights=None, precision=precision, zero_transient=zero_transient,
-        stage=stage)
+        timer=timer)
     n = cand_idx.shape[1]
-    with stage("greedy"):
+    with _span(timer, "greedy", dev):
         path, ctx = greedy_decode_stream(target_costs, jl.reshape(T, n, dj),
                                          jr.reshape(T, n, dj), init_ctx,
                                          jcw_first, jcw_rest, n_live,
                                          squared_joins=squared_joins)
-    with stage("ola"):
+    with _span(timer, "ola", dev):
         sel = torch.gather(cand_idx, 1, path.reshape(T, 1)).reshape(1, T)
         unit_ids = torch.where(live, sel, 0)
         audio, total = _concatenate(db, unit_ids, live, lengths, do_ola=do_ola,
@@ -381,16 +381,6 @@ def fused_masks(db: DeviceDB, tgt_codes, tgt_ctx, tgt_vids, *, halfphone: bool,
                 db_meta=db.meta, partition=multivoice,
                 ling_weights=ling_weights if halfphone else None,
                 voice_spans=db.spans if multivoice else None)
-
-
-@contextlib.contextmanager
-def _synced_stage(timer: utils.StageTimer, name: str, device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    with timer.stage(name):
-        yield
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
 
 
 def exact_scores(db: DeviceDB, tw, idx, scores, ling=None):
@@ -689,19 +679,21 @@ class Synthesiser:
 
     def _prepare(self, feature_list, segments_list, voices):
         """Unit-rate targets and per-utterance voice ids, with the JAX
-        package's checks of the halfphone and multi-voice arguments."""
+        package's checks of the halfphone and multi-voice arguments (stage
+        "prepare")."""
         if self.is_multivoice and voices is None:
             raise ValueError(
                 "this is a multi-voice DB: pass a voice name or id per "
                 f"utterance (available: {self.db.voice_names})")
-        if self.halfphone:
-            if segments_list is None:
-                raise ValueError("halfphone mode needs target segments")
-            prepped = [(np.asarray(f, np.float32), len(f)) for f in feature_list]
-        else:
-            prepped = [self.targets_from_features(f) for f in feature_list]
-        vids = ([self._voice_code(v) for v in voices] if self.is_multivoice
-                else [0] * len(prepped))
+        with self.timer.stage("prepare"):
+            if self.halfphone:
+                if segments_list is None:
+                    raise ValueError("halfphone mode needs target segments")
+                prepped = [(np.asarray(f, np.float32), len(f)) for f in feature_list]
+            else:
+                prepped = [self.targets_from_features(f) for f in feature_list]
+            vids = ([self._voice_code(v) for v in voices] if self.is_multivoice
+                    else [0] * len(prepped))
         return prepped, vids
 
     # ----------------------------------------------------------------- public
@@ -713,33 +705,36 @@ class Synthesiser:
         lengths, padded to the shared length bucket.  ``segments_list``
         (halfphone voices): one HalfphoneSegment list per utterance;
         ``voice_ids`` (merged DBs): one voice id per utterance.  Steps past
-        an utterance's length get code, contexts and voice id -1."""
+        an utterance's length get code, contexts and voice id -1.  Stages:
+        "pad" (the host arrays), "copy_in" (their copies to the device)."""
         cfg = self.cfg
         B = len(prepped)
         t_bucket = utils.bucket_length(max(n for _, n in prepped),
                                        tuple(cfg.length_buckets))
-        tgts = np.zeros((B, t_bucket, self.db.target_dim), np.float32)
-        lengths = np.zeros(B, np.int64)
-        codes = np.full((B, t_bucket), -1, np.int32)
-        ctx = np.full((B, t_bucket, 5), -1, np.int32)
-        vids = np.full((B, t_bucket), -1, np.int32)
-        for b, (tu, n) in enumerate(prepped):
-            tgts[b, :n] = tu
-            lengths[b] = n
-            if self.halfphone:
-                segs = segments_list[b]
-                codes[b, :n] = [self._unit_vocab.get(s.name, -1) for s in segs]
-                ctx[b, :n] = [[self._phone_vocab.get(p, 0) for p in s.quinphone]
-                              for s in segs]
-            else:
-                codes[b, :n] = 0
-                ctx[b, :n] = 0
-            vids[b, :n] = 0 if voice_ids is None else voice_ids[b]
+        with self.timer.stage("pad"):
+            tgts = np.zeros((B, t_bucket, self.db.target_dim), np.float32)
+            lengths = np.zeros(B, np.int64)
+            codes = np.full((B, t_bucket), -1, np.int32)
+            ctx = np.full((B, t_bucket, 5), -1, np.int32)
+            vids = np.full((B, t_bucket), -1, np.int32)
+            for b, (tu, n) in enumerate(prepped):
+                tgts[b, :n] = tu
+                lengths[b] = n
+                if self.halfphone:
+                    segs = segments_list[b]
+                    codes[b, :n] = [self._unit_vocab.get(s.name, -1) for s in segs]
+                    ctx[b, :n] = [[self._phone_vocab.get(p, 0) for p in s.quinphone]
+                                  for s in segs]
+                else:
+                    codes[b, :n] = 0
+                    ctx[b, :n] = 0
+                vids[b, :n] = 0 if voice_ids is None else voice_ids[b]
         dev = self.device
+        with self.timer.stage("copy_in", dev):
+            tgts, lengths, codes, ctx, vids = (torch.from_numpy(a).to(dev) for a in
+                                               (tgts, lengths, codes, ctx, vids))
         kwargs = dict(
-            tgt_codes=torch.from_numpy(codes).to(dev),
-            tgt_ctx=torch.from_numpy(ctx).to(dev),
-            tgt_vids=torch.from_numpy(vids).to(dev),
+            tgt_codes=codes, tgt_ctx=ctx, tgt_vids=vids,
             n_cand=min(cfg.n_candidates, self.n_units_padded),
             jcw=cfg.join_cost_weight, eps=cfg.search_epsilon,
             max_frag=self.max_frag,
@@ -752,16 +747,17 @@ class Synthesiser:
             ling_weights=self._ling_weights(),
             precision=cfg.preselect_precision, zero_transient=cfg.zero_transient,
             do_ola=cfg.preload_all_waves)
-        return (torch.from_numpy(tgts).to(dev), torch.from_numpy(lengths).to(dev),
-                kwargs)
+        return tgts, lengths, kwargs
 
     def _run(self, prepped: list[tuple[np.ndarray, int]], greedy: bool,
              segments_list: list | None, voice_ids: list[int]) -> list[dict]:
         tgts, lengths, kwargs = self.batch_inputs(prepped, segments_list, voice_ids)
         with self.timer.stage("synth_step"):
             out = synth_pipeline_step(self.device_db, tgts, lengths, greedy=greedy,
-                                      **kwargs)
-            unit_ids, costs, audio, totals = (t.cpu().numpy() for t in out)
+                                      timer=self.timer, **kwargs)
+            with self.timer.stage("copy_out", self.device):
+                unit_ids, costs, audio, totals = (t.cpu().numpy() for t in out)
+        self.timer.resolve()
         return self._results(prepped, unit_ids, costs, audio, totals)
 
     def _run_sharded(self, prepped: list[tuple[np.ndarray, int]], greedy: bool,
@@ -790,12 +786,13 @@ class Synthesiser:
 
     def _results(self, prepped, unit_ids, costs, audio, totals) -> list[dict]:
         results = []
-        for b, (_, n) in enumerate(prepped):
-            ids = unit_ids[b, :n].astype(np.int32)
-            wave = (audio[b, : int(totals[b])] if self.cfg.preload_all_waves
-                    else self._host_ola(ids))
-            results.append({"wave": wave, "unit_ids": ids,
-                            "total_cost": float(costs[b]), "n_units": int(n)})
+        with self.timer.stage("results"):
+            for b, (_, n) in enumerate(prepped):
+                ids = unit_ids[b, :n].astype(np.int32)
+                wave = (audio[b, : int(totals[b])] if self.cfg.preload_all_waves
+                        else self._host_ola(ids))
+                results.append({"wave": wave, "unit_ids": ids,
+                                "total_cost": float(costs[b]), "n_units": int(n)})
         return results
 
     def _host_ola(self, unit_ids: np.ndarray) -> np.ndarray:
@@ -831,10 +828,17 @@ class Synthesiser:
         ``mesh_data`` / ``mesh_db``) through :meth:`_run_sharded`.
         ``voices``: one voice name or id per utterance (merged DBs);
         ``segments_list``: one HalfphoneSegment list per utterance
-        (halfphone voices, whose ``feature_list`` entries are unit-rate)."""
-        prepped, vids = self._prepare(feature_list, segments_list, voices)
-        run = self._run if self.mesh_size == 1 else self._run_sharded
-        return run(prepped, greedy, segments_list, vids)
+        (halfphone voices, whose ``feature_list`` entries are unit-rate).
+
+        The call is the host span "synth_batch" of ``timer``; on one device
+        its stages follow in order: "prepare", "pad", "copy_in", then inside
+        "synth_step" the step's (:func:`synth_pipeline_step`) and
+        "copy_out", then "results".  Each device operation of the call lies
+        in one of "copy_in" .. "copy_out"."""
+        with self.timer.stage("synth_batch"):
+            prepped, vids = self._prepare(feature_list, segments_list, voices)
+            run = self._run if self.mesh_size == 1 else self._run_sharded
+            return run(prepped, greedy, segments_list, vids)
 
     def synth_streaming(self, feature_chunks, greedy: bool = True, voice=None,
                         fixed_frameshift: float = 0.0):
@@ -918,6 +922,7 @@ class Synthesiser:
             if event is not None:
                 event.synchronize()
             stages["fetch_ms"].append((time.perf_counter() - t0) * 1e3)
+            self.timer.resolve()
             ids = ids.numpy()[:t_units].astype(np.int32)
             self.last_stream_unit_ids.append(ids)
             audio = (audio.numpy()[: int(total)].copy() if cfg.preload_all_waves
@@ -965,7 +970,7 @@ class Synthesiser:
                           do_ola=cfg.preload_all_waves)
             stages["prep_ms"].append((time.perf_counter() - t_prep) * 1e3)
             t_disp = time.perf_counter()
-            unit_ids, ctx, audio, total = streaming_step(*args, **kwargs)
+            unit_ids, ctx, audio, total = streaming_step(*args, timer=self.timer, **kwargs)
             started = True
             fetched = self._to_host((unit_ids, audio, total))
             stages["dispatch_ms"].append((time.perf_counter() - t_disp) * 1e3)

@@ -1,23 +1,37 @@
-"""The partition kernels' voice spans, on the CPU: the per-voice table
+"""Spans of two kinds, on the CPU (and, marked ``cuda``, on a card).
+
+The partition kernels' voice spans: the per-voice table
 (``cuda_topk.voice_spans_of``), the per-tile spans (``tile_spans``), the
 CTAs' row mapping (``cta_rows``, the kernel's ``cta_rows`` / ``Rows::base``
-in Python) and the split plan over the spans.
+in Python) and the split plan over the spans.  A tile's scanned rows must
+hold every row that can score finite for one of its targets (a row of the
+target's voice; for a dead step, voice id -1, a padding row), each scanned
+once whatever the split plan; then the twin with every other row forced to
++inf equals the full twin bit for bit, which is what lets the kernel skip
+them.
 
-A tile's scanned rows must hold every row that can score finite for one
-of its targets (a row of the target's voice; for a dead step, voice id
--1, a padding row), each scanned once whatever the split plan; then the
-twin with every other row forced to +inf equals the full twin bit for
-bit, which is what lets the kernel skip them.
+The synthesiser's stage spans (``utils.StageTimer`` as ``Synthesiser.timer``):
+under ``torch.profiler`` a ``synth_batch`` call is the range
+``snk.synth_batch`` holding its stages' ranges in order, each stage that
+covers device work gets device time once a call, a stream chunk shows its
+greedy decode and OLA, nothing is recorded with the profiler off, and the
+answers do not change.
 """
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from snickery_tpu_torch.ops import cuda_topk
 from snickery_tpu_torch.ops.cuda_topk import (MIN_SPLIT_ROWS, BLOCK_ROWS, cta_rows,
                                               pack_meta, split_plan, tile_spans,
                                               topk_preselect_zt_plain, voice_spans_of)
+from snickery_tpu_torch import utils
+from snickery_tpu_torch.config import SnickeryConfig
+from snickery_tpu_torch.synth import Synthesiser
+from snickery_tpu_torch.synthetic_voices import DATADIMS, SR, make_utterances
+from snickery_tpu_torch.voicedb.build import build_voicedb
 from snickery_tpu_torch.voicedb.device_layout import build_raw_blocks
 
 N_SM = 132
@@ -234,3 +248,216 @@ def test_device_db_carries_its_spans_and_the_masks_pass_them():
                        ling_weights=None)["voice_spans"] is db.spans
     assert fused_masks(db, *args, halfphone=True, multivoice=False,
                        ling_weights=None)["voice_spans"] is None
+
+
+# ------------------------------------------------------------- stage spans
+# the stages of one single-device synth_batch call, in order; "derive" comes
+# before "preselect" where the config's zero_transient is 0
+CALL_STAGES = ["synth_batch", "prepare", "pad", "copy_in", "synth_step", "preselect",
+               "rescore", "decode", "ola", "copy_out", "results"]
+STEP_STAGES = {"derive", "preselect", "rescore", "decode", "ola", "copy_out"}
+DEVICE_STAGES = {"copy_in", "derive", "preselect", "rescore", "decode", "ola", "copy_out"}
+
+
+def stage_voice(device: str, zero_transient: int):
+    """A Synthesiser over a small numpy voice (~700 epoch units) and three
+    held-out trajectories of 64 units."""
+    cfg = SnickeryConfig(stream_list=list(DATADIMS), datadims=dict(DATADIMS), sample_rate=SR,
+                         n_candidates=8, taper_length=50, length_buckets=[64],
+                         voice_name="spans", preselect_precision="split3cat",
+                         zero_transient=zero_transient)
+    db = build_voicedb(cfg, make_utterances(np.random.default_rng(3), 6, 120, "u"))
+    held = [u.features for u in make_utterances(np.random.default_rng(4), 3, 66, "h")]
+    return Synthesiser(cfg, db=db, device=device), held
+
+
+@pytest.fixture(scope="module", params=[1, 0], ids=["raw_block", "derived"])
+def voice(request):
+    return (*stage_voice("cpu", request.param), request.param)
+
+
+def call_stages(zero_transient: int) -> list:
+    stages = list(CALL_STAGES)
+    if zero_transient == 0:
+        stages.insert(stages.index("preselect"), "derive")
+    return stages
+
+
+def snk_ranges(prof) -> list:
+    """(start, end, stage) of each ``snk.*`` host range the profiler recorded,
+    in order of start (not the copies a card trace mirrors on its timeline)."""
+    host = torch.autograd.DeviceType.CPU
+    return sorted((e.time_range.start, e.time_range.end, e.name[len("snk."):])
+                  for e in prof.events()
+                  if e.name.startswith("snk.") and e.device_type == host)
+
+
+def within(inner, outer) -> bool:
+    return outer[0] <= inner[0] and inner[1] <= outer[1]
+
+
+def traced(fn, cuda: bool = False):
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        out = fn()
+    return out, prof
+
+
+@pytest.mark.parametrize("greedy", [False, True], ids=["viterbi", "greedy"])
+def test_synth_batch_spans_nest_in_order_once_a_call(voice, greedy):
+    synth, held, zt = voice
+    before = dict(synth.timer.device_times())
+    calls = 2
+    _, prof = traced(lambda: [synth.synth_batch(held, greedy=greedy) for _ in range(calls)])
+    ranges = snk_ranges(prof)
+    want = call_stages(zt)
+    assert [r[2] for r in ranges] == want * calls
+    for c in range(calls):
+        call = ranges[c * len(want):(c + 1) * len(want)]
+        by_name = {r[2]: r for r in call}
+        assert all(within(r, by_name["synth_batch"]) for r in call)
+        assert all(within(r, by_name["synth_step"]) for r in call if r[2] in STEP_STAGES)
+        # siblings follow one another without overlapping
+        top = [r for r in call[1:] if r[2] not in STEP_STAGES]
+        step = [r for r in call if r[2] in STEP_STAGES]
+        for level in (top, step):
+            assert all(a[1] <= b[0] for a, b in zip(level, level[1:]))
+    times = synth.timer.device_times()
+    assert set(times) == DEVICE_STAGES - ({"derive"} if zt else set())
+    for name, (seconds, n) in times.items():
+        assert n - before.get(name, (0.0, 0))[1] == calls
+        assert seconds > before.get(name, (0.0, 0))[0]
+
+
+def test_a_stream_chunk_shows_its_greedy_decode_and_ola(voice):
+    synth, held, zt = voice
+    before = synth.timer.device_times()
+    chunks = [held[0][i:i + 20] for i in range(0, len(held[0]), 20)]
+    _, prof = traced(lambda: list(synth.synth_streaming(iter(chunks))))
+    names = [r[2] for r in snk_ranges(prof)]
+    n_chunks = names.count("greedy")
+    assert n_chunks >= 3 and names.count("ola") == n_chunks and "decode" not in names
+    step = ["derive"] if zt == 0 else []
+    assert names == (step + ["preselect", "rescore", "greedy", "ola"]) * n_chunks
+    after = synth.timer.device_times()
+    for name in ("greedy", "ola"):
+        assert after[name][1] - before.get(name, (0.0, 0))[1] == n_chunks
+
+
+def test_with_the_profiler_off_nothing_is_recorded_or_pending(voice):
+    synth, held, _ = voice
+    synth.timer = utils.StageTimer()
+    synth.synth_batch(held)
+    list(synth.synth_streaming(iter([held[0][:40], held[0][40:]])))
+    assert synth.timer._pending == [] and synth.timer.device_times() == {}
+    # the host clock still times every stage
+    assert synth.timer.counts["synth_batch"] == 1 and synth.timer.counts["copy_in"] == 1
+    assert synth.timer.counts["ola"] >= 2 and synth.timer.counts["greedy"] >= 1
+
+
+@pytest.mark.parametrize("greedy", [False, True], ids=["viterbi", "greedy"])
+def test_answers_are_bit_equal_with_the_profiler_on_and_off(voice, greedy):
+    synth, held, _ = voice
+    off = synth.synth_batch(held, greedy=greedy)
+    on, _ = traced(lambda: synth.synth_batch(held, greedy=greedy))
+    for a, b in zip(off, on):
+        assert np.array_equal(a["unit_ids"], b["unit_ids"])
+        assert np.array_equal(a["wave"], b["wave"]) and a["total_cost"] == b["total_cost"]
+
+
+@pytest.mark.parametrize("device", [None, "cpu"], ids=["host", "cpu_device"])
+def test_a_span_is_a_profiler_range_and_times_the_cpu_device_by_the_host(device):
+    timer = utils.StageTimer()
+    dev = None if device is None else torch.device(device)
+    with timer.stage("outside", dev):
+        pass
+
+    def span():
+        with timer.stage("a", dev):
+            pass
+
+    _, prof = traced(span)
+    assert [r[2] for r in snk_ranges(prof)] == ["a"]
+    assert timer.counts == {"outside": 1, "a": 1}
+    times = timer.device_times()
+    if device is None:
+        assert times == {}
+    else:
+        assert list(times) == ["a"] and times["a"][1] == 1
+        assert times["a"][0] <= timer.totals["a"]
+
+
+class FakeEvent:
+    """A timing event on a made-up stream: recording one advances the clock
+    by 1 ms; it completes when ``finish`` or ``synchronize`` says so."""
+    clock = 0.0
+
+    def __init__(self, enable_timing=False):
+        self.t, self.done = None, False
+
+    def record(self, stream=None):
+        FakeEvent.clock += 1.0
+        self.t = FakeEvent.clock
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.done = True
+
+    def elapsed_time(self, end):
+        assert end.done           # and so the start, recorded before it on the stream
+        return end.t - self.t
+
+
+def test_card_spans_record_event_pairs_resolved_later_and_bounded(monkeypatch):
+    """The card's path of a span, with the events faked: a pair a span, no
+    device time until the pair completes, and never more than
+    ``MAX_PENDING`` pairs waiting."""
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: "stream")
+    timer = utils.StageTimer()
+    timer.MAX_PENDING = 4
+    card = torch.device("cuda")
+    waiting = []
+
+    def spans():
+        for i in range(3):
+            with timer.stage("a", card):
+                pass
+        timer.resolve()
+        waiting.append(len(timer._pending))
+        timer._pending[0][2].done = True
+        timer.resolve()
+        waiting.append(len(timer._pending))
+        for i in range(7):
+            with timer.stage("b", card):
+                pass
+            waiting.append(len(timer._pending))
+
+    traced(spans)
+    assert waiting[:2] == [3, 2] and max(waiting) <= timer.MAX_PENDING
+    assert timer.device_times() == {"a": (3e-3, 3), "b": (7e-3, 7)}
+    assert timer._pending == []
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: device-timed spans are read on the card")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("greedy", [False, True], ids=["viterbi", "greedy"])
+def test_every_device_timed_stage_reads_above_zero_on_the_card(card, greedy):
+    synth, held = stage_voice("cuda", 0)
+    synth.synth_batch(held, greedy=greedy)                        # builds the kernels
+    _, prof = traced(lambda: synth.synth_batch(held, greedy=greedy), cuda=True)
+    assert [r[2] for r in snk_ranges(prof)] == call_stages(0)
+    times = synth.timer.device_times()
+    assert set(times) == DEVICE_STAGES
+    assert all(seconds > 0 and n == 1 for seconds, n in times.values())
+    chunks = [held[0][i:i + 20] for i in range(0, len(held[0]), 20)]
+    traced(lambda: list(synth.synth_streaming(iter(chunks))), cuda=True)
+    times = synth.timer.device_times()
+    assert times["greedy"][0] > 0 and times["greedy"][1] >= 3
