@@ -725,7 +725,7 @@ def first_design_digests() -> None:
     precisions, which no redesign of the list phase, the spans or pass 2
     changes, and the selection is exact, so no bit may move."""
     from snickery_tpu_torch import kernel_ab
-    cases = set(kernel_ab.ALL_CASES) - set(kernel_ab.SPAN_CASES)
+    cases = set(kernel_ab.PR9_DIGESTS) - set(kernel_ab.SPAN_CASES)
     for line in kernel_ab.run_cases("chip_smoke", 1, cases):
         got, case = (line["ids_sha256"], line["scores_sha256"]), line["case"]
         want = kernel_ab.PR9_DIGESTS[case]
@@ -1584,7 +1584,9 @@ def mesh_batch(run: Run, label, kernel, synth, db, feats, ref, voices=None, step
                 out = synth.synth_batch(feats, **kw)
                 torch.cuda.synchronize()
                 walls.append(1e3 * (time.perf_counter() - t0))
-            got = dict(run.cuda_topk.LAUNCH_COUNTS)
+            # (a launch made as thread-block clusters is counted once more,
+            # under "<kernel>.cluster<n>")
+            got = {n: c for n, c in run.cuda_topk.LAUNCH_COUNTS.items() if ".cluster" not in n}
             audio_s = sum(len(r["wave"]) for r in out) / SR
             log(f"{label}: ms/step {[round(w, 1) for w in walls]} (the first a warm-up), "
                 f"{audio_s:.1f} s audio/step, RTF {walls[-1] / 1e3 / audio_s:.6f}")

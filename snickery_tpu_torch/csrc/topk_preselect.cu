@@ -32,6 +32,42 @@ int snk_topk_db_tile_rows(int precision) { return precision == HIGHEST ? R1 : R2
 // Rows of a packed3 block: a packed3 split is a whole number of them.
 int snk_topk_block_rows() { return BLOCK; }
 
+// CTAs a clustered launch of pass 1 puts in a cluster (CLUSTER).
+int snk_topk_cluster_ctas() { return CLUSTER; }
+
+// Clusters of `cluster` CTAs of pass 1 at "split3cat" (this form, no masks,
+// the tile of a large T) at this kd and k that the card holds at once
+// (cudaOccupancyMaxActiveClusters); negative: a cudaError_t.
+int snk_topk_max_clusters(int kd, int k, int cluster) {
+  const int tt = tile_rows(kd, k, false, SPLIT3CAT, STREAM, 1 << 20);
+  const size_t smem = tt == 0 ? 0 : partial_smem(tt, kd, k, false, SPLIT3CAT, STREAM);
+  if (smem == 0 || smem > SMEM_LIMIT || cluster < 1) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = tt == 128 ? &topk_partial_split<128, SPLIT3CAT, false, false, false, STREAM, true>
+                          : &topk_partial_split<64, SPLIT3CAT, false, false, false, STREAM, true>;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(THREADS2, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -static_cast<int>(err);
+  }
+  return clusters;
+}
+
 SNK_ZT_ENTRIES(, STREAM)
 
 }  // extern "C"

@@ -17,7 +17,7 @@
 // bf16-split precisions "split3" (_split3_dot :77-93) and "split3cat"
 // (_bf16_split :96-99, the [hi|hi|lo] concat :112-130, :158-178), with the
 // same fused masks applied after the product (:156-208 composed):
-// topk_partial_split<TT, PREC, PART, LING, PRESPLIT, SEL>.  One exported
+// topk_partial_split<TT, PREC, PART, LING, PRESPLIT, SEL, CL>.  One exported
 // entry point per (form, precision, masks, selection), 96 in all: 24 a
 // selection, exported by one source per (form, selection).
 //
@@ -118,6 +118,39 @@
 //     which goes back to the producer as soon as the sqn are in registers
 //     (after the scores in the masked variants).  "split3" runs at TT = 64
 //     (three accumulators).
+//     Clusters (f32 rows, no partition mask, two target tiles or more:
+//     ops/cuda_topk.py::launch_shape; the kernel's CL).  Every CTA of a
+//     split streams the same rows, and on f32 rows its producer's loads and
+//     split stand beside the tensor cores' time (PERF.md: the pre-split
+//     operand, whose producer only copies, is 35% faster on the same rows).
+//     So pass 1 runs as clusters of CLUSTER CTAs along the target-tile axis
+//     (a tile count that is not a multiple is padded with dead tiles, t0 >=
+//     T, which write nothing: one launch and one code path for the rare
+//     ragged count): the producer of rank r loads and splits only rows
+//     [r R2 / CS, (r + 1) R2 / CS) of each stage, their sqn and metadata
+//     rows too, and stores them into the same slot of its own ring and of
+//     every other CTA's, so a DB row is loaded and split once for CS target
+//     tiles.  A remote store is st.async at the address mapa gives, whose
+//     bytes complete on the receiving CTA's full barrier of the stage
+//     (complete_tx): the producer neither waits for it nor fences, a full
+//     barrier still counts the CTA's own 128 producer threads, one of which
+//     expects the bytes the others bring, and the consumers make the stage
+//     visible to wgmma after their wait (fence.proxy.async).  A slot is
+//     empty only when the consumers of every CTA have read it: the empty
+//     barrier counts the own group's 128 threads and lane 0 of each warp of
+//     the other groups.  The CTAs meet at a cluster barrier once their
+//     barriers are made and again before they exit, as a CTA's barriers
+//     may take the others' arrivals to the end.  The ring, the consumers,
+//     the lists, the split plan and pass 2 are those of a CTA alone, and a
+//     score is the same wgmma chain over the same bf16 values, so the
+//     result does not depend on the launch's shape.  Budget: no shared
+//     memory beyond a CTA's (223 KB at kd 151, k 48: one CTA an SM), so a
+//     cluster needs CS SMs of one GPC free at once: the H100 holds 66
+//     clusters of 2 (all 132 SMs) and 30 of 4 (120), and at 4 the stores to
+//     three rings cost more than they save (PERF.md).  What bounds it then:
+//     the ring of four stages (1.33 DB tiles for two consumer groups that
+//     take alternate tiles) hands each stage over just in time, so both
+//     sides wait on each other's barriers about half the time.
 //   pass 2 (topk_merge): gw warps a target (1 to 8: more where there are
 //     few targets and many splits) merge the S sorted partial lists under
 //     the same (score, index) order, each warp its share by sorted-list
@@ -238,7 +271,11 @@
 // near what L2 delivers in the tensor cores' time), its latency behind a
 // ring of four stages, the epilogue's instructions (the sums live in the
 // register file, so they do not run under the other warpgroup's wgmma for
-// free) and, for f32 rows, the producer's loads and split arithmetic.
+// free) and, for f32 rows, the producer's loads and split arithmetic, which
+// a cluster shares among its CTAs (the L2 stream of f32 rows falls to 1 /
+// CLUSTER, the producer's work a stage to 1 / CLUSTER plus the remote stores
+// and arrivals); what remains beside the products is the consumers' side:
+// the ring's latency and the epilogue.
 
 #pragma once
 
@@ -1443,6 +1480,65 @@ __device__ __forceinline__ void fence_async_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// ---------------------------------------------- the cluster of pass 1 (split)
+// Target tiles a cluster of topk_partial_split holds over the same DB rows,
+// where its launch is clustered (ops/cuda_topk.py::launch_shape decides).
+constexpr int CLUSTER = 2;
+
+__device__ __forceinline__ int cluster_rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster (not .aligned: the roles reach
+// it at different points of their code).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The shared::cluster address of shared address `a` of this CTA in CTA `rank`.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t a, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(a), "r"(rank));
+  return out;
+}
+
+// A store into another CTA's shared memory (shared::cluster address `a`)
+// whose bytes, once written, count on that CTA's barrier at `bar` (its
+// complete_tx): the producer neither waits for it nor fences.
+__device__ __forceinline__ void st_async(uint32_t a, uint32_t v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(a),
+               "r"(v), "r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t a, int4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(a),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+// Arrive, and expect `bytes` more on the barrier's current phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Arrive on another CTA's barrier (shared::cluster address `a`), only where
+// `on` (predicated inside the asm statement, so that the consumers' code
+// stays straight-line).
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t a, bool on) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cluster.b64 _, [%0];\n}\n" ::"r"(a),
+      "r"(static_cast<uint32_t>(on))
+      : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -1642,7 +1738,7 @@ int split_stages(int TT, int kd, int k, bool masked, int sel) {
 // size_t: the capacity block has 8.4 M rows x 153 columns.  The fused masks
 // are applied to each score in the epilogue, after the product and before
 // the screen, in the order of topk_partial (fused_score).
-template <int TT, int PREC, bool PART, bool LING, bool PRESPLIT, int SEL>
+template <int TT, int PREC, bool PART, bool LING, bool PRESPLIT, int SEL, bool CL>
 __global__ void __launch_bounds__(THREADS2, 1)
 topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
                    const float* __restrict__ sqn, int sqn_stride,
@@ -1689,6 +1785,11 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
   const int split = blockIdx.y;
   const auto rows = cta_rows<PART>(spans, blockIdx.x, split, splits, rows_per_split, m_rows, R2);
   const int n_tiles = rows.n_tiles;
+  // CL: a clustered launch (never with PART, whose tiles scan rows of their
+  // own, nor PRESPLIT, which has no split to share), whose CS CTAs hold
+  // neighbouring target tiles over the same rows and fill each stage together
+  static_assert(!CL || (!PART && !PRESPLIT), "clusters share f32 rows of one split");
+  constexpr int CS = CL ? CLUSTER : 1;
 
   // the target tile, split once: word w of row t holds columns 2 w, 2 w + 1
   for (int e = tid; e < TT * nch * 32; e += THREADS2) {
@@ -1713,16 +1814,24 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
                   4, tid, THREADS2);
   if (tid < 4) queues[QINTS + 3 * QCAP2 + tid] = 0;     // the second queue's counters
   if (tid == 0) {
+    // full: every producer thread arrives (in a cluster the other CTAs'
+    // stores complete bytes it expects); empty: every thread of the
+    // consuming group and, in a cluster, each warp of the other CTAs'
     for (int s = 0; s < ns; ++s) {
-      mbar_init(full + s, 128);           // every producer thread arrives
+      mbar_init(full + s, 128);
       mbar_init(full + NS2 + s, 128);
-      mbar_init(empty + s, 128);          // every thread of the consuming group
+      mbar_init(empty + s, 128 + 4 * (CS - 1));
     }
     *mutex = 0;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   fence_async_proxy();                    // the target tile, for wgmma
-  __syncthreads();
+  // in a cluster no CTA touches another's barriers before they are made
+  if constexpr (CL) {
+    cluster_sync();
+  } else {
+    __syncthreads();
+  }
 
   if (wgroup == 2) {
     // ---- producer: stage g = (tile g / nch, column block g % nch) into
@@ -1734,17 +1843,19 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
       const int jt = g / nch;
       return full + ((SEL == PACKED3 ? jt >> 1 : jt) & 1) * NS2 + g % ns;
     };
-    // the tile's sqn and metadata rows, with its last stage
-    auto side_rows = [&](int base, int slot, auto copy4, auto copy16) {
-      if (ptid < R2) {
-        const int u = base + ptid;
-        copy4(sSqn + slot * R2 + ptid, sqn + static_cast<size_t>(u) * sqn_stride,
+    // the sqn and metadata rows [r0, r0 + n) of the tile, with its last stage
+    auto side_rows = [&](int base, int slot, int r0, int n, auto copy4, auto copy16) {
+      if (ptid < n) {
+        const int u = base + r0 + ptid;
+        copy4(sSqn + slot * R2 + r0 + ptid, sqn + static_cast<size_t>(u) * sqn_stride,
               u < m_rows);
       }
       if constexpr (MASKED) {
-        const int u = base + (ptid >> 1);
-        copy16(sDM + (slot * R2 + (ptid >> 1)) * META + (ptid & 1) * 4,
-               dmeta + static_cast<size_t>(u) * META + (ptid & 1) * 4, u < m_rows);
+        if (ptid < 2 * n) {
+          const int r = r0 + (ptid >> 1), u = base + r;
+          copy16(sDM + (slot * R2 + r) * META + (ptid & 1) * 4,
+                 dmeta + static_cast<size_t>(u) * META + (ptid & 1) * 4, u < m_rows);
+        }
       }
     };
     if constexpr (PRESPLIT) {
@@ -1767,7 +1878,7 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
         }
         if (c == nch - 1) {
           side_rows(
-              base, slot,
+              base, slot, 0, R2,
               [&](float* d, const float* s, bool ok) { cp_async4(d, ok ? s : sqn, ok ? 4 : 0); },
               [&](int* d, const int* s, bool ok) { cp_async16(d, ok ? s : dmeta, ok ? 16 : 0); });
         }
@@ -1782,13 +1893,29 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
         }
       }
     } else {
-      // f32 rows: lane l loads columns 2 l, 2 l + 1 of the block (a warp
-      // reads 256 contiguous bytes of a row), rows pwarp + 4 i.  Three sets
-      // of registers rotate, so that the loads of stages g + 1 and g + 2
-      // are in flight while stage g is split and stored
+      // f32 rows, split here.  Lane l loads columns 2 l, 2 l + 1 of the
+      // block (a warp reads 256 contiguous bytes of a row), rows row0 + 4 i.
+      // NSET sets of registers rotate, so that the loads of the next two
+      // stages are in flight while one is stored (four, which the registers
+      // of a cluster's fewer rows would hold, were slower: PERF.md).  In a
+      // cluster the producer of rank r takes rows [r R2 / CS, (r + 1) R2 /
+      // CS) of each stage and stores them into the same slot of every CTA's
+      // ring: its own by st.shared, the others' by st.async, whose bytes
+      // complete on their full barrier of the stage.
       const float* raw = static_cast<const float*>(db);
+      constexpr int RPT = R2 / 4 / CS;    // rows a thread loads a stage
+      constexpr int NSET = 3;
+      constexpr int NP = CS > 1 ? CS - 1 : 1;   // the other CTAs (none alone)
+      const int rank = CL ? cluster_rank() : 0;
+      const int row0 = rank * (R2 / CS) + pwarp;
+      // the other CTAs' shared::cluster address of this CTA's base p: a
+      // CTA's shared memory is one window, laid out alike in each
+      uint32_t peer[NP];
+#pragma unroll
+      for (int d = 0; d < CS - 1; ++d) peer[d] = cluster_addr(smem_u32(p), (rank + 1 + d) % CS);
+      auto at = [&](int d, const void* q) { return peer[d] + (smem_u32(q) - smem_u32(p)); };
       int ljt = 0, lbase = rows.base(0, R2);  // the tile of the last load, its row
-      auto load = [&](int g, float (&x)[32]) {
+      auto load = [&](int g, float (&x)[2 * RPT]) {
         const int jt = g / nch, c = g - jt * nch;
         const int col = c * KC2 + 2 * lane;
         if (jt != ljt) {
@@ -1797,50 +1924,90 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
         }
         const int base = lbase;
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const int u = base + pwarp + 4 * i;
+        for (int i = 0; i < RPT; ++i) {
+          const int u = base + row0 + 4 * i;
           const float* src = raw + static_cast<size_t>(u) * width + col;
           x[2 * i] = (u < m_rows && col < kd) ? __ldg(src) : 0.f;
           x[2 * i + 1] = (u < m_rows && col + 1 < kd) ? __ldg(src + 1) : 0.f;
         }
       };
-      auto emit = [&](int g, const float (&x)[32]) {
+      // bytes a stage brings from each other CTA: its rows' hi and lo,
+      // with the tile's last stage their sqn and metadata rows
+      auto peer_bytes = [&](int g) {
+        return (R2 / CS) * 256 + (g % nch == nch - 1 ? (R2 / CS) * (MASKED ? 36 : 4) : 0);
+      };
+      auto emit = [&](int g, const float (&x)[2 * RPT]) {
         const int slot = g % ns;
+        // split before the wait (the empty asm statement keeps the
+        // compiler from sinking it past), so that a freed slot waits for
+        // the stores and the arrival alone
+        uint32_t hw[RPT], lw[RPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          split_pair(x[2 * i], x[2 * i + 1], hw[i], lw[i]);
+          asm volatile("" : "+r"(hw[i]), "+r"(lw[i]));
+        }
+        // the slot is free once the consumers of every CTA released it
         mbar_wait(empty + slot, ((g / ns) & 1) ^ 1);
         unsigned char* stage = ring + slot * 2 * HALF2;
+        uint32_t bar[NP];                 // the others' full barrier of stage g
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          uint32_t hi, lo;
-          split_pair(x[2 * i], x[2 * i + 1], hi, lo);
-          const int off = swizzled_word(pwarp + 4 * i, lane);
-          *reinterpret_cast<uint32_t*>(stage + off) = hi;
-          *reinterpret_cast<uint32_t*>(stage + HALF2 + off) = lo;
+        for (int d = 0; d < CS - 1; ++d) bar[d] = at(d, full_of(g));
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const int off = swizzled_word(row0 + 4 * i, lane);
+          *reinterpret_cast<uint32_t*>(stage + off) = hw[i];
+          *reinterpret_cast<uint32_t*>(stage + HALF2 + off) = lw[i];
+#pragma unroll
+          for (int d = 0; d < CS - 1; ++d) {
+            st_async(at(d, stage + off), hw[i], bar[d]);
+            st_async(at(d, stage + HALF2 + off), lw[i], bar[d]);
+          }
         }
         if (g % nch == nch - 1) {
           side_rows(
-              rows.base(g / nch, R2), slot,
-              [](float* d, const float* s, bool ok) { *d = ok ? __ldg(s) : 0.f; },
-              [](int* d, const int* s, bool ok) {
-                *reinterpret_cast<int4*>(d) =
+              rows.base(g / nch, R2), slot, rank * (R2 / CS), R2 / CS,
+              [&](float* d, const float* s, bool ok) {
+                const float v = ok ? __ldg(s) : 0.f;
+                *d = v;
+#pragma unroll
+                for (int e = 0; e < CS - 1; ++e) st_async(at(e, d), __float_as_uint(v), bar[e]);
+              },
+              [&](int* d, const int* s, bool ok) {
+                const int4 v =
                     ok ? __ldg(reinterpret_cast<const int4*>(s)) : make_int4(0, 0, 0, 0);
+                *reinterpret_cast<int4*>(d) = v;
+#pragma unroll
+                for (int e = 0; e < CS - 1; ++e) st_async(at(e, d), v, bar[e]);
               });
         }
-        fence_async_proxy();
-        mbar_arrive(full_of(g));
-      };
-      float xa[32], xb[32], xc[32];
-      if (n_stages > 0) load(0, xa);
-      if (n_stages > 1) load(1, xb);
-      for (int g = 0; g < n_stages; g += 3) {
-        if (g + 2 < n_stages) load(g + 2, xc);
-        emit(g, xa);
-        if (g + 1 < n_stages) {
-          if (g + 3 < n_stages) load(g + 3, xa);
-          emit(g + 1, xb);
+        if constexpr (!CL) {
+          fence_async_proxy();
+          mbar_arrive(full_of(g));
+        } else {
+          // alone, the stores are made visible to wgmma here; in a
+          // cluster the consumers fence after their wait, which covers the
+          // other CTAs' stores as well.  One thread announces the bytes
+          // the others' stores bring.
+          if (ptid == 0) {
+            mbar_arrive_expect_tx(full_of(g), (CS - 1) * peer_bytes(g));
+          } else {
+            mbar_arrive(full_of(g));
+          }
         }
-        if (g + 2 < n_stages) {
-          if (g + 4 < n_stages) load(g + 4, xb);
-          emit(g + 2, xc);
+      };
+      float x[NSET][2 * RPT];
+#pragma unroll
+      for (int j = 0; j < NSET - 1; ++j) {
+        if (j < n_stages) load(j, x[j]);
+      }
+      for (int g = 0; g < n_stages; g += NSET) {
+#pragma unroll
+        for (int j = 0; j < NSET; ++j) {
+          if (g + j < n_stages) {
+            if (g + j + NSET - 1 < n_stages) load(g + j + NSET - 1, x[(j + NSET - 1) % NSET]);
+            emit(g + j, x[j]);
+          }
         }
       }
     }
@@ -1856,6 +2023,23 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
     const int r0 = wwarp * 16 + g8;       // this thread's DB rows: r0, r0 + 8
     float acc[NACC][N];
     unsigned phases = 0;                  // bit s: parity of full[wg][s]'s next phase
+    // a stage read is released to this CTA's producer by every thread and,
+    // in a cluster, to each other CTA's producer by lane 0 of each warp
+    uint32_t peer_empty[CLUSTER - 1];
+    if constexpr (CL) {
+      const int rank = cluster_rank();
+#pragma unroll
+      for (int d = 0; d < CS - 1; ++d) {
+        peer_empty[d] = cluster_addr(smem_u32(empty), (rank + 1 + d) % CS);
+      }
+    }
+    auto release = [&](int s) {
+      mbar_arrive(empty + s);
+      if constexpr (CL) {
+#pragma unroll
+        for (int d = 0; d < CS - 1; ++d) mbar_arrive_remote(peer_empty[d] + 8 * s, lane == 0);
+      }
+    };
     for (int jt = 0; jt < n_tiles; ++jt) {
       if ((SEL == PACKED3 ? jt >> 1 : jt) % 2 != wg) continue;
       const int base = rows.base(jt, R2);
@@ -1873,6 +2057,7 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
         mbar_wait(full + wg * NS2 + slot, phases >> slot & 1);
         phases ^= 1u << slot;
         if constexpr (PRESPLIT) fence_async_proxy();    // the copies, for wgmma
+        if constexpr (CL) fence_async_proxy();          // every CTA's stores, for wgmma
         if constexpr (!FIRST) {
 #pragma unroll
           for (int a = 0; a < NACC; ++a) fence_sums(acc[a]);
@@ -1893,7 +2078,7 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
         wgmma_commit();
         if constexpr (!FIRST) {           // the stage before this one is read
           wgmma_wait<1>();
-          mbar_arrive(empty + prev);
+          release(prev);
         }
       };
       stage(0, std::true_type{});
@@ -1909,8 +2094,12 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
       float vals[N];
       float sq[2] = {sSqn[slot * R2 + r0], sSqn[slot * R2 + r0 + 8]};
       // the tile's last stage goes back to the producer before the scores
-      // are formed, unless they read its metadata rows
-      if constexpr (!MASKED) mbar_arrive(empty + slot);
+      // are formed, unless they read its metadata rows (in a cluster lane 0
+      // releases for its warp: after every lane's reads)
+      if constexpr (!MASKED) {
+        if constexpr (CL) __syncwarp();
+        release(slot);
+      }
       if constexpr (!KEYS && !MASKED) {
         // the common case in two instructions a score, as in topk_partial
         if (base + r0 >= m_rows) sq[0] = pos_inf();
@@ -1956,7 +2145,10 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
           pass |= static_cast<unsigned long long>(ok) << e;
         }
       }
-      if constexpr (MASKED) mbar_arrive(empty + slot);
+      if constexpr (MASKED) {
+        if constexpr (CL) __syncwarp();
+        release(slot);
+      }
       auto t_of = [&](int e) { return (e >> 2) * 8 + 2 * q4 + (e & 1); };
       auto u_of = [&](int e) { return base + r0 + 8 * ((e >> 1) & 1); };
       // a 128-row block is two tiles jt & ~1, jt | 1 (chunks and pieces are
@@ -1986,6 +2178,8 @@ topk_partial_split(const float* __restrict__ t2, const void* __restrict__ db,
   __syncthreads();
   store_lists<TT>(lv, li, sB3, 2, part_v, part_i, part_third, k, t0, T, split,
                   splits, tid >> 5, THREADS2 / 32, lane);
+  // the other CTAs' consumers may still arrive on this CTA's empty barriers
+  if constexpr (CL) cluster_sync();
 }
 
 constexpr int WARPS = THREADS / 32;     // warps a CTA of pass 2
@@ -2158,6 +2352,7 @@ int merge(const Outputs& o, const float* comp, int T, int k, int splits,
 
 struct Shape {
   int T, kd, m_rows, k, splits, rows_per_split;
+  int cluster;                            // CTAs a cluster of pass 1: 1 or CLUSTER
 };
 
 // Pass 1 with TT target rows a CTA; returns a cudaError_t.
@@ -2186,16 +2381,42 @@ cudaError_t launch_partial(const float* t2, const Operand& db, const int* tmeta,
     }
     return run(topk_partial<TT, PART, LING, SEL, false>, false);
   } else {
-    err = cudaFuncSetAttribute(
-        topk_partial_split<TT, PREC, PART, LING, PRESPLIT, SEL>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    topk_partial_split<TT, PREC, PART, LING, PRESPLIT, SEL>
-        <<<grid, THREADS2, smem, stream>>>(
-            t2, db.rows, db.sqn, db.sqn_stride, tmeta, dmeta, spans, pen, o.part_v,
-            o.part_i, part_third, s.T, s.kd, db.width, s.m_rows,
-            s.rows_per_split, s.k, s.splits,
-            split_stages(TT, s.kd, s.k, PART || LING, SEL));
+    const int ns = split_stages(TT, s.kd, s.k, PART || LING, SEL);
+    if (s.cluster == 1) {
+      auto kernel = topk_partial_split<TT, PREC, PART, LING, PRESPLIT, SEL, false>;
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      kernel<<<grid, THREADS2, smem, stream>>>(
+          t2, db.rows, db.sqn, db.sqn_stride, tmeta, dmeta, spans, pen, o.part_v, o.part_i,
+          part_third, s.T, s.kd, db.width, s.m_rows, s.rows_per_split, s.k, s.splits, ns);
+    } else if constexpr (!PART && !PRESPLIT) {
+      // clusters of s.cluster neighbouring target tiles of one split, the
+      // tile count padded with dead tiles (t0 >= T: thresholds -inf, nothing
+      // written) to a whole number of clusters
+      auto kernel = topk_partial_split<TT, PREC, PART, LING, PRESPLIT, SEL, true>;
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      cudaLaunchConfig_t cfg = {};
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = s.cluster;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.gridDim = dim3((grid.x + s.cluster - 1) / s.cluster * s.cluster, grid.y);
+      cfg.blockDim = dim3(THREADS2);
+      cfg.dynamicSmemBytes = smem;
+      cfg.stream = stream;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      err = cudaLaunchKernelEx(&cfg, kernel, t2, db.rows, db.sqn, db.sqn_stride, tmeta, dmeta,
+                               spans, pen, o.part_v, o.part_i, part_third, s.T, s.kd,
+                               db.width, s.m_rows, s.rows_per_split, s.k, s.splits, ns);
+      if (err != cudaSuccess) return err;
+    } else {
+      return cudaErrorInvalidValue;         // launch() refuses it first
+    }
   }
   return cudaGetLastError();
 }
@@ -2209,7 +2430,7 @@ template <int PREC, bool PART, bool LING, bool PRESPLIT, int SEL>
 int launch(const float* t2, const Operand& db, const float* comp,
            const int* tmeta, const int* dmeta, const int* spans, Penalties pen,
            const Outputs& o, int T, int kd, int m_rows, int k, int splits,
-           int rows_per_split, cudaStream_t stream) {
+           int rows_per_split, int cluster, cudaStream_t stream) {
   static_assert(!PRESPLIT || PREC == SPLIT3CAT, "only split3cat is pre-split");
   constexpr bool MASKED = PART || LING;
   const int tt = tile_rows(kd, k, MASKED, PREC, SEL, T);
@@ -2221,11 +2442,13 @@ int launch(const float* t2, const Operand& db, const float* comp,
       (!PART && static_cast<long long>(splits) * rows_per_split < m_rows) ||
       (PRESPLIT && reinterpret_cast<uintptr_t>(db.rows) % 16 != 0) ||
       (SEL == PACKED3 && (rows_per_split % BLOCK != 0 ||
-                          o.part_third == nullptr || o.flags == nullptr))) {
+                          o.part_third == nullptr || o.flags == nullptr)) ||
+      // clusters share the f32 rows of one split among the target tiles
+      (cluster != 1 && (cluster != CLUSTER || PREC == HIGHEST || PART || PRESPLIT))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int* part_third = SEL == PACKED3 ? o.part_third : nullptr;
-  const Shape s = {T, kd, m_rows, k, splits, rows_per_split};
+  const Shape s = {T, kd, m_rows, k, splits, rows_per_split, cluster};
   cudaError_t err;
   if (tt == 128) {
     if constexpr (PREC == SPLIT3) {
@@ -2253,6 +2476,8 @@ int launch(const float* t2, const Operand& db, const float* comp,
 // nullptr (cta_rows), the penalties p0..p4 read by the linguistic ones only, the partial and final
 // outputs (part_third (T, splits) and flags (T,) written by the packed3
 // selection only, null elsewhere), the shape, the split plan and the
+// CTAs a cluster of pass 1 (1, or CLUSTER at the split precisions on f32
+// rows without the partition mask: ops/cuda_topk.py::launch_shape) and the
 // stream.  It launches both passes and returns the cudaError_t of the
 // launches.
 #define SNK_TOPK_SIGNATURE(NAME, DB_T, THIRD)                                 \
@@ -2261,7 +2486,7 @@ int launch(const float* t2, const Operand& db, const float* comp,
            float p1, float p2, float p3, float p4, float* part_v,           \
            int* part_i, int* part_third, float* out_v, int* out_i,          \
            int* flags, int T, int kd, int width, int m_rows, int k,         \
-           int splits, int rows_per_split, cudaStream_t stream)
+           int splits, int rows_per_split, int cluster, cudaStream_t stream)
 
 // Zero-transient form: t2 (T, kd) prescaled targets; db_rows the (q, width)
 // raw block, width >= kd + 2, whose column kd is the squared norm; comp (T,).
@@ -2274,7 +2499,7 @@ int launch(const float* t2, const Operand& db, const float* comp,
     return launch<PREC, PART, LING, false, SEL>(t2, db, comp, tmeta, dmeta,  \
                                                 spans, pen, o, T, kd, m_rows, \
                                                 k, splits, rows_per_split,   \
-                                                stream);                     \
+                                                cluster, stream);            \
   }
 
 // Derived form: t2 (T, kd) normalised, weighted targets; db_rows the derived
@@ -2288,7 +2513,8 @@ int launch(const float* t2, const Operand& db, const float* comp,
     return launch<PREC, PART, LING, PRESPLIT, SEL>(t2, db, nullptr, tmeta,   \
                                                    dmeta, spans, pen, o, T,  \
                                                    kd, m_rows, k, splits,    \
-                                                   rows_per_split, stream);  \
+                                                   rows_per_split, cluster,  \
+                                                   stream);                  \
   }
 
 // The twelve entry points of a form at one selection: SFX is the name's

@@ -23,7 +23,10 @@ d 151, seed 0), so two trees see the same tensors.  Cases, all
   "split3cat" with the partition mask, k 48); a config-5 step (64
   utterances of 256 steps, one voice each, the tail of some dead,
   "highest" with the partition mask, k 40); a config-2 step (512 x 57,344
-  x 453, the quinphone penalties, k 30).
+  x 453, the quinphone penalties, k 30); natural synthesis and the config-2
+  step again at "split3cat" (k 48 and 40), whose target tiles run as
+  thread-block clusters.  A last line gives what the card holds at once of
+  the batch shape's first pass at "split3cat", by cluster size.
 
 Each case prints one JSON line: the median of ``--reps`` timed launches
 (CUDA events, after a warm-up) and the SHA-256 of the returned ids and of
@@ -99,6 +102,8 @@ SMALL_CASES = {
                                 48, "part"),
     "zt_part_config5": (16384, 8 * VOICE_ROWS, 8 * VOICE_ROWS, KD, "highest", 40, "part"),
     "zt_ling_config2": (512, 57344, 57344, 453, "highest", 30, "ling"),
+    "zt_split3cat_natural": (1024, 57344, 49527, KD, "split3cat", 48, "none"),
+    "zt_split3cat_ling_config2": (512, 57344, 57344, 453, "split3cat", 40, "ling"),
 }
 # the partition kernels' span edge cases, 300 targets x 151 dims: name: (precision, k,
 # the DB's voice-id runs (id, rows); -1 the padding rows)
@@ -176,7 +181,7 @@ def small_case(name: str, dev) -> tuple:
     jr = np.empty_like(feats)
     jr[:-1], jr[-1] = feats[1:], feats[0]
     raw = build_raw_blocks(feats, jr, m_rows, affine=aff)[0]
-    if name == "zt_natural":             # the voice's own rows, as natural synthesis
+    if name.endswith("natural"):         # the voice's own rows, as natural synthesis
         targets = (feats[8192:8192 + T] - mean) / std
     else:
         targets = ar1_walks(rng, -(-T // walk), walk, kd).reshape(-1, kd)[:T]
@@ -421,6 +426,11 @@ def main(argv=None) -> int:
     pre = only & set(ALL_CASES) if only else set(ALL_CASES)
     dec = only & set(DECODE_AB_CASES) if only else set(DECODE_AB_CASES)
     lines = run_cases(args.label, args.reps, pre, args.split) if pre else []
+    if pre and hasattr(cuda_topk, "max_active_clusters"):
+        lines.append({"label": args.label, "case": "occupancy", "kd": KD, "k": 48,
+                      "max_active_clusters": {c: cuda_topk.max_active_clusters(KD, 48, c)
+                                              for c in (1, 2, 4)},
+                      "card": card_line()})
     if dec:
         lines += run_decode_cases(args.label, args.reps, dec)
     for line in lines:

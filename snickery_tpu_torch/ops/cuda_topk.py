@@ -84,7 +84,12 @@ products on the bf16 tensor cores with ``wgmma`` (64 DB rows x 128 or 64
 targets a step) from a ring that one producer warpgroup fills for two
 consumer warpgroups; there the DB stream from L2 behind a ring of four
 stages, and for f32 rows the producer's loads and split arithmetic, stand
-beside the tensor cores' time.  Neither kernel writes its scores anywhere:
+beside the tensor cores' time.  So on f32 rows without the partition mask
+two target tiles or more run as thread-block clusters of
+:data:`CLUSTER_CTAS` (:func:`launch_shape`): the CTAs of a cluster hold
+neighbouring target tiles over the same DB rows, and each producer splits
+its share of a stage's rows into every CTA's ring, so a row is split once a
+cluster.  Neither kernel writes its scores anywhere:
 a score is compared in registers with its target's threshold (the worst kept
 score) and only the survivors are queued and inserted into the k-slot lists
 (:data:`MAX_K` slots at most); ``tests/test_torch_screen.py`` models that
@@ -162,6 +167,9 @@ MIN_SPLIT_ROWS = 1024      # DB rows of a split, at the least (split_plan)
 # stream, from the pass-1 k-sweep of kernel_ab --split on the H100 (PERF.md)
 COLD_ROWS = 3299
 _NO_ROW = 1 << 30          # the low end of an empty span
+# target tiles a clustered launch of the split kernels' first pass puts in one
+# thread-block cluster over the same DB rows (the kernels' CLUSTER: launch_shape)
+CLUSTER_CTAS = 2
 
 
 def kernel_name(partition: bool, linguistic: bool, precision: str = "highest",
@@ -672,7 +680,7 @@ def _bound_library():
     for name in ALL_ENTRY_POINTS:
         fn = getattr(lib, "snk_" + name)
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float] * 5
-                       + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                       + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     lib.snk_topk_partial_smem.argtypes = [ctypes.c_int] * 5
     lib.snk_topk_partial_smem.restype = ctypes.c_size_t
@@ -683,7 +691,40 @@ def _bound_library():
     lib.snk_topk_block_rows.restype = ctypes.c_int
     if lib.snk_topk_block_rows() != BLOCK_ROWS:
         raise RuntimeError("the kernels' packed3 block is not BLOCK_ROWS")
+    lib.snk_topk_cluster_ctas.restype = ctypes.c_int
+    if lib.snk_topk_cluster_ctas() != CLUSTER_CTAS:
+        raise RuntimeError("the kernels' cluster is not CLUSTER_CTAS")
+    lib.snk_topk_max_clusters.argtypes = [ctypes.c_int] * 3
+    lib.snk_topk_max_clusters.restype = ctypes.c_int
     return lib
+
+
+def max_active_clusters(kd: int, k: int, cluster: int, device=None) -> int:
+    """Clusters of ``cluster`` CTAs of the "split3cat" first pass (zero-transient
+    form, no masks, the tile of a large batch) that the card holds at once at
+    this kd and k (``cudaOccupancyMaxActiveClusters``)."""
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        got = _kernel().snk_topk_max_clusters(kd, k, cluster)
+    if got < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: cudaError_t {-got}")
+    return got
+
+
+def launch_shape(n_tiles: int, precision: str, partition: bool,
+                 presplit: bool) -> tuple[int, int]:
+    """(CTAs a cluster, target tiles of the grid) of the first pass over
+    ``n_tiles`` target tiles.  At the split precisions the producer of a CTA
+    loads f32 DB rows and splits them into bf16 hi / lo; a cluster of
+    :data:`CLUSTER_CTAS` CTAs holds that many target tiles over the same
+    rows and splits each stage once for all of them, so two tiles or more
+    run clustered, their count padded with dead tiles (no live target:
+    nothing written) to a whole number of clusters.  Not at "highest"
+    (no split), not on the pre-split operand (nothing to split), not with
+    the partition mask (a tile scans its own voices' rows), not for a single
+    tile (a stream chunk): one CTA a cluster, the grid as it is."""
+    if precision == "highest" or partition or presplit or n_tiles < 2:
+        return 1, n_tiles
+    return CLUSTER_CTAS, -(-n_tiles // CLUSTER_CTAS) * CLUSTER_CTAS
 
 
 @functools.lru_cache(maxsize=512)
@@ -785,6 +826,8 @@ def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
     dev = raw_block.device
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     tt = lib.snk_topk_tile_rows(kd, k, int(masked), prec_code, sel_code, T)
+    cluster, _ = launch_shape(-(-T // tt), precision, partition,
+                              not zero_transient and precision == "split3cat")
     spans, scan_rows = None, m_rows
     if partition:
         if voice_spans is None:
@@ -820,11 +863,13 @@ def cuda_topk_preselect(targets, raw_block, k, db_affine, m_rows, *,
             spans.data_ptr() if partition else None, *pens,
             part_v.data_ptr(), part_i.data_ptr(), part_third.data_ptr() if three else None,
             out_v.data_ptr(), out_i.data_ptr(), flags.data_ptr() if three else None,
-            T, kd, raw_block.shape[1], m_rows, k, splits, rows, stream)
+            T, kd, raw_block.shape[1], m_rows, k, splits, rows, cluster, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
     with _LOCK:
         LAUNCH_COUNTS[name] += 1
+        if cluster > 1:
+            LAUNCH_COUNTS[f"{name}.cluster{cluster}"] += 1
     if select == "packed3diag":
         return out_i, out_v, flags
     if select == "packed3" and bool(flags.any()):

@@ -473,8 +473,10 @@ def test_derived_synthesiser_on_card_matches_cpu(cuda_device, precision):
     before = dict(cuda_topk.LAUNCH_COUNTS)
     out_g = gpu.synth_batch(held)
     after = dict(cuda_topk.LAUNCH_COUNTS)
-    assert {n: after[n] - before.get(n, 0) for n in after if after[n] != before.get(n, 0)} == {
-        name: 1, "viterbi_decode": 1}
+    want = {name: 1, "viterbi_decode": 1}
+    if precision == "split3":            # f32 rows, many target tiles: a clustered launch
+        want[f"{name}.cluster{cuda_topk.CLUSTER_CTAS}"] = 1
+    assert {n: after[n] - before.get(n, 0) for n in after if after[n] != before.get(n, 0)} == want
     for g, c in zip(out_g, cpu.synth_batch(held)):
         np.testing.assert_array_equal(g["unit_ids"], c["unit_ids"])
         np.testing.assert_allclose(g["wave"], c["wave"], atol=1e-5)
@@ -620,3 +622,91 @@ def test_partition_kernel_over_voice_spans(cuda_device, case, precision, zt):
     err, nbad, dead = compare(x, block, aff, m_rows, k, prec, **kw)
     if prec == "highest":
         assert err == 0.0 and nbad == 0
+
+
+def _cluster_delta(before):
+    """The launch counts that moved since ``before``."""
+    after = dict(cuda_topk.LAUNCH_COUNTS)
+    return {n: after[n] - before.get(n, 0) for n in after if after[n] != before.get(n, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,k,variant,zt,T", [
+    ("split3cat", 48, "none", True, 256), ("split3cat", 48, "none", True, 384),
+    ("split3cat", 48, "none", True, 300), ("split3", 40, "none", True, 256),
+    ("split3", 40, "none", True, 300), ("split3cat", 48, "ling", True, 256),
+    ("split3", 40, "none", False, 256)])
+def test_clustered_kernel_equals_its_tiles_alone(cuda_device, precision, k, variant, zt, T):
+    """Target tiles run as thread-block clusters (each DB stage split once
+    and shared between the CTAs of a cluster; 300 targets make an odd tile
+    count at split3cat, padded with a dead tile) give the ids and scores,
+    bit for bit, of the same targets run one tile at a time (one CTA a
+    cluster): a score is the same wgmma chain over the same bf16 values and
+    the selection is exact."""
+    M = 8229
+    rng, raw, aff = _block(T + k + len(variant), M, True)
+    D = lambda a: torch.from_numpy(a).to(cuda_device)
+    tg = D(rng.standard_normal((T, KD)).astype(np.float32))
+    kw = {}
+    if variant == "ling":
+        kw = dict(tgt_meta=pack_meta(D(rng.integers(0, 80, T).astype(np.int32)),
+                                     D(rng.integers(0, 40, (T, 5)).astype(np.int32)),
+                                     D(np.zeros(T, np.int32))),
+                  db_meta=pack_meta(D(rng.integers(0, 80, M).astype(np.int32)),
+                                    D(rng.integers(0, 40, (M, 5)).astype(np.int32)),
+                                    D(np.zeros(M, np.int32))),
+                  ling_weights=VARIANTS["ling"][1])
+    R, A = D(raw), tuple(map(D, aff))
+    if not zt:
+        R, sqn = derive_operand(R, A, M, M, precision)
+        kw.update(zero_transient=False, sqn=sqn)
+        A = None
+    name = cuda_topk.kernel_name(False, variant == "ling", precision, zt)
+    run = lambda a, b: cuda_topk_preselect(
+        tg[a:b].contiguous(), R, k, A, M, precision=precision,
+        **{key: (v[a:b].contiguous() if key == "tgt_meta" else v) for key, v in kw.items()})
+    before = dict(cuda_topk.LAUNCH_COUNTS)
+    ids, scores = run(0, T)
+    assert _cluster_delta(before) == {name: 1, f"{name}.cluster2": 1}
+    tt = cuda_topk._kernel().snk_topk_tile_rows(
+        KD, k, int(variant != "none"), cuda_topk.PRECISIONS.index(precision), 0, T)
+    step = -(-T // -(-T // tt))          # chunks of one tile each, tiles of tt rows
+    before = dict(cuda_topk.LAUNCH_COUNTS)
+    alone = [run(a, min(a + step, T)) for a in range(0, T, step)]
+    assert _cluster_delta(before) == {name: len(alone)}
+    assert torch.equal(ids, torch.cat([i for i, _ in alone]))
+    assert torch.equal(scores.view(torch.int32), torch.cat([v for _, v in alone]).view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["chunk", "part"])
+def test_cluster_launch_only_where_tiles_share_rows(cuda_device, case):
+    """A 64-target stream chunk (one tile) launches without clusters and
+    gives, bit for bit, the rows of the same targets in a clustered call of
+    two tiles ("split3": 64-target tiles either way); a partition call (each
+    tile scans its own voices' rows) launches without clusters and matches
+    the twin under the rule of kernel_check.compare."""
+    M = 8229
+    rng, raw, aff = _block(M + len(case), M, True)
+    D = lambda a: torch.from_numpy(a).to(cuda_device)
+    R, A = D(raw), tuple(map(D, aff))
+    if case == "chunk":
+        name = cuda_topk.kernel_name(False, False, "split3")
+        tg = D(rng.standard_normal((128, KD)).astype(np.float32))
+        before = dict(cuda_topk.LAUNCH_COUNTS)
+        ids, scores = cuda_topk_preselect(tg[:64].contiguous(), R, 40, A, M, precision="split3")
+        assert _cluster_delta(before) == {name: 1}
+        both = cuda_topk_preselect(tg, R, 40, A, M, precision="split3")
+        assert _cluster_delta(before) == {name: 2, f"{name}.cluster2": 1}
+        assert torch.equal(ids, both[0][:64])
+        assert torch.equal(scores.view(torch.int32), both[1][:64].view(torch.int32))
+        return
+    T = 300
+    zeros = lambda *n: D(np.zeros(n, np.int32))
+    kw = dict(tgt_meta=pack_meta(zeros(T), zeros(T, 5), D(rng.integers(0, 7, T).astype(np.int32))),
+              db_meta=pack_meta(zeros(M), zeros(M, 5), D(rng.integers(0, 7, M).astype(np.int32))),
+              partition=True)
+    tg = D(rng.standard_normal((T, KD)).astype(np.float32))
+    before = dict(cuda_topk.LAUNCH_COUNTS)
+    compare(tg, R, A, M, 48, "split3cat", **kw)
+    assert _cluster_delta(before) == {cuda_topk.kernel_name(True, False, "split3cat"): 1}

@@ -278,3 +278,37 @@ def test_split_plan_of_packed3_is_whole_blocks(T, m_rows):
                                   db_tile_rows=cuda_topk.BLOCK_ROWS)
         assert rows % 128 == 0 and rows % 64 == 0
         assert (splits - 1) * rows < m_rows <= splits * rows
+
+
+@pytest.mark.parametrize("precision", ["highest", "split3", "split3cat"])
+@pytest.mark.parametrize("partition", [False, True], ids=["nopart", "part"])
+@pytest.mark.parametrize("presplit", [False, True], ids=["f32", "presplit"])
+def test_launch_shape_clusters_tiles_that_share_rows(precision, partition, presplit):
+    """Pass 1 runs as clusters of CLUSTER_CTAS target tiles only at a split
+    precision, on f32 rows (not the pre-split operand), without the
+    partition mask and with two tiles or more; the grid is then padded with
+    dead tiles to a whole number of clusters, by fewer than a cluster."""
+    c = cuda_topk.CLUSTER_CTAS
+    shares = precision != "highest" and not partition and not presplit
+    for n_tiles in (*range(1, 2 * c + 2), 512, 513):
+        cluster, grid = cuda_topk.launch_shape(n_tiles, precision, partition, presplit)
+        if shares and n_tiles >= 2:
+            assert cluster == c
+            assert grid % c == 0 and n_tiles <= grid < n_tiles + c
+        else:
+            assert (cluster, grid) == (1, n_tiles)
+
+
+def test_launch_shape_at_the_main_path_shapes():
+    """The batch step (512 tiles of 128 targets), an odd count (300 targets:
+    3 tiles, one dead tile added), a stream chunk (one tile) and a
+    multi-voice step (partition)."""
+    c = cuda_topk.CLUSTER_CTAS
+    assert c == 2
+    assert cuda_topk.launch_shape(512, "split3cat", False, False) == (2, 512)
+    assert cuda_topk.launch_shape(3, "split3cat", False, False) == (2, 4)
+    assert cuda_topk.launch_shape(32, "split3", False, False) == (2, 32)
+    assert cuda_topk.launch_shape(1, "split3cat", False, False) == (1, 1)
+    assert cuda_topk.launch_shape(128, "split3cat", True, False) == (1, 128)
+    assert cuda_topk.launch_shape(512, "split3cat", False, True) == (1, 512)
+    assert cuda_topk.launch_shape(512, "highest", False, False) == (1, 512)
