@@ -1,8 +1,8 @@
 """The control of a cell's comparison: the reference put in the program's
-place and computed one precision lower (distances from TF32 products with
-no exact rescore, float32 lattice costs, audio from bfloat16 waves; see
-``reference/search.py``), judged by the cell's own comparison.  It has to
-come out not correct.
+place and computed one precision lower (the unit kind's ``control``; for
+``epoch``: distances from TF32 products with no exact rescore, float32
+lattice costs, audio from bfloat16 waves; see ``reference/search.py``),
+judged by the cell's own comparison.  It has to come out not correct.
 
 For each seed it makes the cell's inputs, asks the control what a run's
 first answers ask of the program (a closed loop's first call; an open
@@ -27,32 +27,23 @@ from benchmark import run as harness  # noqa: E402
 
 
 def control_numbers(cell, seed: int, seconds: float, device: str, log=harness.log) -> dict:
-    from benchmark import traffic, voices
-    from benchmark.reference import compare, search
-    from benchmark.reference import voice as ref_voice
+    from benchmark import registry, traffic
+    from benchmark.reference import compare
 
-    tr, syn = cell.traffic, cell.config["synth"]
-    utts, pool = voices.cell_data(cell.config, tr, seed, device, log)
+    tr = cell.traffic
+    units = registry.units(cell)
+    utts, pool = units.inputs(cell.config, tr, seed, device, log)
     if tr["loop"] == "closed":
-        asks = next(traffic.batches(tr, seed))
+        asks = next(traffic.batches(tr, seed, len(utts)))
     else:
         asks = traffic.arrivals(tr, seed, seconds, len(utts))
     longest = max(range(len(asks)), key=lambda i: asks[i].epochs)
     sample = traffic.sample(len(asks), longest, tr["sample"], seed)
     asks = [asks[i] for i in sample]
-    feats = [pool[a.pool]["features"][: a.epochs] for a in asks]
-    vids = [a.voice for a in asks]
-    streams = syn["stream_list"]
-    ref = ref_voice.build(utts, syn["datadims"], streams,
-                          syn.get("target_stream_weights", [1.0] * len(streams)),
-                          syn.get("join_stream_weights", [1.0] * len(streams)), device)
+    ref = units.reference(cell.config, utts, device)
     t0 = time.perf_counter()
-    answers = [{"unit_ids": a["unit_ids"], "total_cost": a["total"], "wave": a["wave"]}
-               for a in search.synthesise(ref, feats, vids, syn["n_candidates"],
-                                          syn["join_cost_weight"], syn["taper_length"],
-                                          precision="tf32")]
-    nums = compare.numbers(ref, answers, feats, vids, list(range(len(asks))),
-                           syn["n_candidates"], syn["join_cost_weight"], syn["taper_length"])
+    answers = units.control(ref, cell.config, pool, asks)
+    nums = units.numbers(ref, cell.config, answers, pool, asks, list(range(len(asks))))
     correct, _ = compare.judge(nums, cell.limits)
     log(f"control: {len(asks)} answers, {time.perf_counter() - t0:.2f} s")
     return {"seed": seed, "correct": correct, **nums}

@@ -13,6 +13,7 @@ class Run:
     device: str
     log: object                   # log(message): a line on standard error
     tracer: object                # trace.Tracer
+    units: object = None          # the unit kind's module (registry.units)
     pool: list = None             # held-out target utterances (dicts)
     voice_rows: list = None       # units a voice, as the benchmark counts them
     synth: object = None          # the program's Synthesiser
@@ -36,5 +37,5 @@ class Run:
         return self.tracer.trace
 
     def features(self, ask):
-        """The epoch-rate target trajectory of ``ask``."""
-        return self.pool[ask.pool]["features"][: ask.epochs]
+        """The target trajectory a call passes for ``ask``."""
+        return self.units.features(self.pool, ask)

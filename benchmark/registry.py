@@ -1,10 +1,15 @@
 """Finds everything of a cell by name: its entry in ``BENCHMARK.json``, the
-configuration file, the traffic file, the limits of its comparison, the
-entry that drives it and the readers of its metrics.
+configuration file, the traffic file, the limits of its comparison, its
+unit kind, the entry that drives it and the readers of its metrics.
 
 Layout under the benchmark folder (``root/benchmark``):
 
 - ``configs/<config>.json``: a configuration (the ``file`` of its entry);
+  its ``units`` names the unit kind, ``epoch`` where the key is missing;
+- ``units/<kind>.py``: a unit kind: the cell's inputs from the seed, the
+  program built from them, what a call passes for each ask and the targets
+  it makes, the row width the roofline counts, and the reference and its
+  comparison (``units/epoch.py`` lists the functions);
 - ``traffic/<traffic>.json``: a traffic mix, parameters for
   :mod:`benchmark.traffic`; its ``entry`` names what drives the program;
 - ``entries/<entry>.py``: what drives the program (``warm`` and ``window``);
@@ -41,6 +46,10 @@ class Cell:
     @property
     def bench_dir(self) -> Path:
         return self.root / "benchmark"
+
+    @property
+    def unit_kind(self) -> str:
+        return self.config.get("units", "epoch")
 
 
 def _load_json(path: Path):
@@ -89,6 +98,16 @@ def cell(root: Path, name: str) -> Cell:
 def entry(c: Cell):
     return load_module(c.bench_dir / "entries" / f"{c.traffic['entry']}.py",
                        f"bench_entry_{c.traffic['entry']}")
+
+
+def units(c: Cell):
+    """The module of the cell's unit kind, ``units/<kind>.py``."""
+    path = c.bench_dir / "units" / f"{c.unit_kind}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"configuration {c.config_name!r} names unit kind "
+                                f"{c.unit_kind!r}, and there is no benchmark/units/"
+                                f"{c.unit_kind}.py")
+    return load_module(path, f"bench_units_{c.unit_kind}")
 
 
 def reader(c: Cell, kind: str, metric: str):

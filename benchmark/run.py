@@ -6,9 +6,11 @@ From the root of a checkout.  The cell's entry in ``BENCHMARK.json`` names
 its configuration and traffic mix; everything else is found by name (see
 ``benchmark/registry.py``).  A run:
 
-1. makes its inputs from ``--seed`` on the card (``benchmark/voices.py``);
-2. builds the port's voice and ``Synthesiser`` from them
-   (``benchmark/system.py``) and warms the mix's shapes (its entry);
+1. makes its inputs from ``--seed`` on the card, through the unit kind the
+   configuration names (``benchmark/units/<kind>.py``; ``epoch``:
+   ``benchmark/voices.py``);
+2. builds the port's voice and ``Synthesiser`` from them (the unit kind;
+   ``epoch``: ``benchmark/system.py``) and warms the mix's shapes (its entry);
 3. measures for ``--seconds`` (under ``torch.profiler`` with ``--trace 1``);
 4. reads the device's memory peak, frees the program, and compares the
    program's answers with the plain float64 reference
@@ -99,24 +101,25 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
 
     import torch
 
-    from benchmark import registry, system, voices
+    from benchmark import registry
     from benchmark.record import Run
     from benchmark.reference import compare
-    from benchmark.reference import voice as ref_voice
     from benchmark.trace import Tracer
 
     t_start = time.time() if t_start is None else t_start
     cuda = device == "cuda"
-    run = Run(cell=cell, seed=seed, device=device, log=log, tracer=Tracer(trace, cuda))
-    utts, run.pool = voices.cell_data(cell.config, cell.traffic, seed, device, log)
-    run.voice_rows = [sum(len(u["epochs"]) - 2 for u in v) for v in utts]
+    units = registry.units(cell)
+    run = Run(cell=cell, seed=seed, device=device, log=log, tracer=Tracer(trace, cuda),
+              units=units)
+    utts, run.pool = units.inputs(cell.config, cell.traffic, seed, device, log)
+    run.voice_rows = units.voice_rows(utts)
     peak = 0
     if cuda:
         _sync(device)
         peak = torch.cuda.max_memory_allocated()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    run.synth = system.build(cell.config, utts, device, log)
+    run.synth = units.build(cell.config, utts, device, log)
     entry = registry.entry(cell)
     run.state["seconds"] = seconds
     t0 = time.perf_counter()
@@ -155,20 +158,14 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
 
     # the program's state goes before the reference runs
     answers, asked, sample = run.answers, run.asked, run.sample
-    feats = [run.features(a) for a in asked]
     run.synth = None
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    syn = cell.config["synth"]
-    ref = ref_voice.build(utts, syn["datadims"], syn["stream_list"],
-                          syn.get("target_stream_weights", [1.0] * len(syn["stream_list"])),
-                          syn.get("join_stream_weights", [1.0] * len(syn["stream_list"])),
-                          device)
+    ref = units.reference(cell.config, utts, device)
     log(f"reference: voice built, {time.perf_counter() - t0:.2f} s")
-    nums = compare.numbers(ref, answers, feats, [a.voice for a in asked], sample,
-                           syn["n_candidates"], syn["join_cost_weight"], syn["taper_length"])
+    nums = units.numbers(ref, cell.config, answers, run.pool, asked, sample)
     line["correct"], checks = compare.judge(nums, cell.limits)
     log(f"reference: {nums['compared']} answers searched, {time.perf_counter() - t0:.2f} s; "
         + ", ".join(f"{k} {v!r}" for k, v in nums.items() if k not in cell.limits))

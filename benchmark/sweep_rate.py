@@ -43,7 +43,7 @@ def main(argv=None) -> int:
 
     from pathlib import Path
 
-    from benchmark import registry, system, voices
+    from benchmark import registry
     from benchmark.record import Run
     from benchmark.trace import Tracer
 
@@ -53,13 +53,14 @@ def main(argv=None) -> int:
     harness.log(f"card: {harness.card_line()}")
     cell = registry.cell(Path(harness.ROOT), args.workload)
     entry = registry.entry(cell)
+    units = registry.units(cell)
     log = harness.log
-    utts, pool = voices.cell_data(cell.config, cell.traffic, args.seed, "cuda", log)
-    synth = system.build(cell.config, utts, "cuda", log)
-    rows = [sum(len(u["epochs"]) - 2 for u in v) for v in utts]
+    utts, pool = units.inputs(cell.config, cell.traffic, args.seed, "cuda", log)
+    synth = units.build(cell.config, utts, "cuda", log)
+    rows = units.voice_rows(utts)
     for rate in [float(r) for r in args.rates.split(",")]:
         run = Run(cell=cell, seed=args.seed, device="cuda", log=log, tracer=Tracer(False),
-                  pool=pool, voice_rows=rows, synth=synth)
+                  units=units, pool=pool, voice_rows=rows, synth=synth)
         run.state.update(seconds=args.seconds, rate=rate)
         try:
             entry.warm(run)

@@ -1,8 +1,8 @@
-"""A benchmark tree at tiny sizes for the CPU tests: the real entries and
-readers, small configurations, mixes and limits, and a ``BENCHMARK.json``
-naming two cells, ``tiny.batch`` (the closed loop of ``epoch1m.batch``) and
-``tiny.served`` (the served path, whose full-size cell waits for a steadier
-host; see ``PERF.md``)."""
+"""A benchmark tree at tiny sizes for the CPU tests: the real entries, unit
+kinds and readers, small configurations, mixes and limits, and a
+``BENCHMARK.json`` naming two cells, ``tiny.batch`` (the closed loop of
+``epoch1m.batch``) and ``tiny.served`` (the served path, whose full-size
+cell waits for a steadier host; see ``PERF.md``)."""
 
 from __future__ import annotations
 
@@ -51,7 +51,7 @@ def make_root(tmp: Path) -> Path:
     """``tmp`` laid out as a checkout's root holding the tiny cells."""
     real = json.loads((REPO / "BENCHMARK.json").read_text())
     bench = tmp / "benchmark"
-    for sub in ("entries", "e2e", "metrics"):
+    for sub in ("entries", "units", "e2e", "metrics"):
         shutil.copytree(REPO / "benchmark" / sub, bench / sub)
     for sub in ("configs", "traffic", "limits"):
         (bench / sub).mkdir(parents=True)

@@ -12,19 +12,22 @@ A mix's keys:
   ``sigma``, cut to [``min``, ``max``] (``sigma`` 0: every target ``median``
   epochs long); a target is the first that many epochs of its utterance;
 - ``batch`` (closed loop): utterances a call; ``rate_per_s`` (open loop):
-  the Poisson rate of requests; ``voices``: ``{"zipf_s": s}`` draws each
-  request's voice with weights ``1 / rank^s`` over the configuration's
-  voices (one voice: always voice 0);
+  the Poisson rate of requests; ``voices``: ``{"zipf_s": s}`` gives the
+  requests (open loop) or each call's utterances (closed loop) voices in
+  shares of ``1 / rank^s`` over the configuration's voices (without the
+  key, or with one voice: always voice 0);
 - ``greedy``: the decode; ``sample``: answers the reference searches
   itself, besides the longest; ``drain_s``: how long answers are waited for
   after the window.
 
 Every seed gets the same work: lengths are the quantiles of the length
-distribution and voices come in exact Zipf shares, in an order the seed
-draws, with utterances the seed picks; the gaps between arrivals are the
-quantiles of the exponential at the mix's rate, in one fixed order for every
-seed (so the queue's course does not turn on the seed).  Seeds change the
-inputs, not the amount or the timing of the work.
+distribution and voices come in exact Zipf shares (in a closed loop, within
+every call, drawn from a generator of their own, so that the picks and
+lengths are those of a mix without ``voices``), in an order the seed draws,
+with utterances the seed picks; the gaps between arrivals are the quantiles
+of the exponential at the mix's rate, in one fixed order for every seed (so
+the queue's course does not turn on the seed).  Seeds change the inputs,
+not the amount or the timing of the work.
 """
 
 from __future__ import annotations
@@ -73,15 +76,16 @@ def voices_of(spec: dict | None, n_voices: int, n: int, rng: np.random.Generator
     return rng.permutation(np.repeat(np.arange(n_voices), counts))
 
 
-def batches(traffic: dict, seed: int):
+def batches(traffic: dict, seed: int, n_voices: int):
     """Closed loop: calls of ``batch`` utterances without end, each drawn
-    without repeats from the pool."""
-    rng = _rng(seed, "batches")
+    without repeats from the pool, over ``n_voices`` voices."""
+    rng, voice_rng = _rng(seed, "batches"), _rng(seed, "batch_voices")
     b = traffic["batch"]
     while True:
         picks = rng.permutation(traffic["pool"])[:b]
         ep = lengths(traffic["epochs"], b, rng)
-        yield [Ask(int(p), int(e), 0) for p, e in zip(picks, ep)]
+        vo = voices_of(traffic.get("voices"), n_voices, b, voice_rng)
+        yield [Ask(int(p), int(e), int(v)) for p, e, v in zip(picks, ep, vo)]
 
 
 def arrivals(traffic: dict, seed: int, seconds: float, n_voices: int,
