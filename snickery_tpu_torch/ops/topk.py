@@ -13,7 +13,8 @@
   quinphone penalties and voice partition.  The kernel form is in
   :mod:`snickery_tpu_torch.ops.cuda_topk`.
 - :func:`quinphone_penalties`, :func:`halfphone_exact_rank`,
-  :func:`halfphone_lattice_mask`: the halfphone helpers, exact ports.
+  :func:`halfphone_lattice_mask`: the halfphone helpers, exact ports;
+  :func:`halfphone_has_match`, the mask's test for an identity fallback.
 """
 
 from __future__ import annotations
@@ -224,11 +225,21 @@ def halfphone_exact_rank(sq_exact: torch.Tensor, kernel_scores: torch.Tensor,
     return torch.where(torch.isinf(kernel_scores), float("inf"), sq_exact + pen)
 
 
-def halfphone_lattice_mask(ac: torch.Tensor, mism: torch.Tensor) -> torch.Tensor:
+def halfphone_has_match(ac: torch.Tensor, mism: torch.Tensor) -> torch.Tensor:
+    """Whether each step keeps a live (finite-cost) candidate of the
+    target's own halfphone name; a step without one is an identity
+    fallback."""
+    return torch.any(~mism & torch.isfinite(ac), dim=-1)
+
+
+def halfphone_lattice_mask(ac: torch.Tensor, mism: torch.Tensor,
+                           has_match: torch.Tensor | None = None) -> torch.Tensor:
     """Identity fallback rule on lattice target costs, in mask form: a
     mismatched candidate is raised to at least ``BIG_PENALTY`` only at steps
-    where a live same-name candidate exists; elsewhere the acoustic costs
-    stay as they are (see the JAX function for the f32 rationale)."""
-    has_match = torch.any(~mism & torch.isfinite(ac), dim=-1)
+    where a live same-name candidate exists (``has_match``, computed by
+    :func:`halfphone_has_match` where not given); elsewhere the acoustic
+    costs stay as they are (see the JAX function for the f32 rationale)."""
+    if has_match is None:
+        has_match = halfphone_has_match(ac, mism)
     return torch.where(mism & has_match[..., None],
                        torch.maximum(ac, _f32(BIG_PENALTY, ac)), ac)

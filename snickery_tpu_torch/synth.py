@@ -34,8 +34,11 @@ on the same device.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import math
+import mmap
 import time
 from dataclasses import dataclass, field, fields
 
@@ -49,7 +52,7 @@ from snickery_tpu_torch.const import QUINPHONE_CONTEXT_WEIGHTS, QUINPHONE_SCALE
 from snickery_tpu_torch.ops.cuda_topk import (PRECISIONS, VoiceSpans, cuda_topk_preselect,
                                               derive_operand, pack_meta, voice_spans_of)
 from snickery_tpu_torch.ops.ola import host_overlap_add, overlap_add_units
-from snickery_tpu_torch.ops.topk import (halfphone_exact_rank,
+from snickery_tpu_torch.ops.topk import (halfphone_exact_rank, halfphone_has_match,
                                          halfphone_lattice_mask,
                                          order_topk_positions, preselect_margin,
                                          resolve_zero_transient)
@@ -133,22 +136,37 @@ def _span(timer: utils.StageTimer | None, name: str, device):
     return contextlib.nullcontext() if timer is None else timer.stage(name, device)
 
 
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """``t`` copied to a host array.  A copy from a card lands in pages mapped
+    in one call (``MAP_POPULATE``) rather than faulted in one at a time while
+    the copy writes them: a call's 108 MB of halfphone audio in 18-30 ms
+    rather than 46-50 on an H100's host."""
+    if t.device.type == "cpu":
+        return t.numpy()
+    buf = mmap.mmap(-1, t.nbytes, flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS | mmap.MAP_POPULATE)
+    out = np.frombuffer(buf, torch.empty(0, dtype=t.dtype).numpy().dtype).reshape(t.shape)
+    torch.from_numpy(out).copy_(t)
+    return out
+
+
 def _candidates(db: DeviceDB, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, *,
                 n_cand: int, margin: int, halfphone: bool, multivoice: bool,
                 ling_weights: tuple | None, precision: str, zero_transient: int,
-                timer: utils.StageTimer | None = None):
+                timer: utils.StageTimer | None = None, counts: dict | None = None):
     """Normalise and weight the (B, T, kd) targets, preselect k + margin with
     the kernel at ``precision`` (:func:`preselect`), rescore in exact f32 and
-    keep ``n_cand`` (stage "rescore" of ``timer``).  Returns (live (B, T),
-    candidate ids (B*T, n), target costs (B*T, n), join-left and join-right
-    contexts (B*T, n, dj))."""
+    keep ``n_cand`` (stage "rescore" of ``timer``; ``counts`` as
+    :func:`_rescore` fills it).  Returns (live (B, T), candidate ids (B*T,
+    n), target costs (B*T, n), join-left and join-right contexts (B*T, n,
+    dj))."""
     tw, live, idx, scores, ling = preselect(
         db, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, n_cand=n_cand,
         margin=margin, halfphone=halfphone, multivoice=multivoice,
         ling_weights=ling_weights, precision=precision,
         zero_transient=zero_transient, timer=timer)
     with _span(timer, "rescore", targets.device):
-        cand_idx, target_costs, jl, jr = _rescore(db, tw, idx, scores, live, n_cand, ling)
+        cand_idx, target_costs, jl, jr = _rescore(db, tw, idx, scores, live, n_cand, ling,
+                                                  timer, counts)
     return live, cand_idx, target_costs, jl, jr
 
 
@@ -164,7 +182,8 @@ def preselect(db: DeviceDB, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, *,
     operand derived from it for this step (stage "derive" of ``timer``, rows
     at or past ``db.n_real`` pinned), with the margin of that form (none at
     "highest").  Stage "preselect" holds the targets' normalisation, the
-    fused masks and the kernel.  Returns (weighted targets (B*T, kd), live
+    fused masks (in halfphone mode the target labels' packing, stage "ling"
+    inside it) and the kernel.  Returns (weighted targets (B*T, kd), live
     (B, T), ids (B*T, k) int64, kernel scores (B*T, k), ``ling`` = (codes,
     contexts, weights) in halfphone mode or None)."""
     B, T, kd = targets.shape
@@ -187,7 +206,7 @@ def preselect(db: DeviceDB, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, *,
         live = torch.arange(T, device=dev)[None, :] < lengths.reshape(B, 1)
         tw = torch.where(live[:, :, None], tw, zero).reshape(B * T, kd)
         masks = fused_masks(db, tgt_codes, tgt_ctx, tgt_vids, halfphone=halfphone,
-                            multivoice=multivoice, ling_weights=ling_weights)
+                            multivoice=multivoice, ling_weights=ling_weights, timer=timer)
         ling = ((tgt_codes.reshape(B * T), tgt_ctx.reshape(B * T, 5), ling_weights)
                 if halfphone else None)
         if zt:
@@ -238,7 +257,8 @@ def synth_pipeline_step(db: DeviceDB, targets: torch.Tensor,
                         ling_weights: tuple | None = None,
                         precision: str = "highest", zero_transient: int = -1,
                         do_ola: bool = True,
-                        timer: utils.StageTimer | None = None):
+                        timer: utils.StageTimer | None = None,
+                        counts: dict | None = None):
     """Select, decode and concatenate B utterances in one step.
 
     ``targets`` (B, T, kd) raw unit-rate target features, ``lengths`` (B,)
@@ -260,14 +280,20 @@ def synth_pipeline_step(db: DeviceDB, targets: torch.Tensor,
 
     ``timer`` (the ``Synthesiser``'s): each stage is a span of it (derive,
     with ``zero_transient: 0``; preselect, rescore, decode, ola), which
-    together hold every device operation of the step; see
-    :class:`~snickery_tpu_torch.utils.StageTimer` for what a span records.
+    together hold every device operation of the step; in halfphone mode
+    span "ling" lies inside preselect and rescore around the labels' work
+    (the target labels' packing, the penalised ranking key, the identity
+    fallback mask); see :class:`~snickery_tpu_torch.utils.StageTimer` for
+    what a span records.  ``counts``: a dict that halfphone mode fills with
+    the step's device counters (0-dim int64 tensors, read by the caller
+    with its results): ``identity_fallbacks``, the live targets with no
+    live candidate of their own name.
     """
     _, cand_idx, target_costs, jl, jr = _candidates(
         db, targets, lengths, tgt_codes, tgt_ctx, tgt_vids, n_cand=n_cand,
         margin=margin, halfphone=halfphone, multivoice=multivoice,
         ling_weights=ling_weights, precision=precision,
-        zero_transient=zero_transient, timer=timer)
+        zero_transient=zero_transient, timer=timer, counts=counts)
     return decode_and_concatenate(db, cand_idx, target_costs, jl, jr, lengths, jcw=jcw,
                                   eps=eps, greedy=greedy, squared_joins=squared_joins,
                                   do_ola=do_ola, max_frag=max_frag, out_len=out_len,
@@ -368,29 +394,33 @@ def streaming_step(db: DeviceDB, targets: torch.Tensor, n_live: int,
 
 
 def fused_masks(db: DeviceDB, tgt_codes, tgt_ctx, tgt_vids, *, halfphone: bool,
-                multivoice: bool, ling_weights: tuple | None) -> dict:
+                multivoice: bool, ling_weights: tuple | None,
+                timer: utils.StageTimer | None = None) -> dict:
     """The fused-mask keyword arguments of :func:`cuda_topk_preselect` for a
     step's (B, T) target codes, (B, T, 5) contexts and (B, T) voice ids:
     the voice partition for a merged DB, the quinphone penalties of
-    ``ling_weights`` in halfphone mode; empty for neither."""
+    ``ling_weights`` in halfphone mode; empty for neither.  In halfphone
+    mode the targets' packing is stage "ling" of ``timer``."""
     if not (halfphone or multivoice):
         return {}
     n = tgt_codes.numel()
-    return dict(tgt_meta=pack_meta(tgt_codes.reshape(n), tgt_ctx.reshape(n, 5),
-                                   tgt_vids.reshape(n)),
-                db_meta=db.meta, partition=multivoice,
+    with _span(timer if halfphone else None, "ling", tgt_codes.device):
+        tgt_meta = pack_meta(tgt_codes.reshape(n), tgt_ctx.reshape(n, 5), tgt_vids.reshape(n))
+    return dict(tgt_meta=tgt_meta, db_meta=db.meta, partition=multivoice,
                 ling_weights=ling_weights if halfphone else None,
                 voice_spans=db.spans if multivoice else None)
 
 
-def exact_scores(db: DeviceDB, tw, idx, scores, ling=None):
+def exact_scores(db: DeviceDB, tw, idx, scores, ling=None,
+                 timer: utils.StageTimer | None = None):
     """Exact f32 rescoring of preselected candidates from ``db``'s own rows
     (``idx`` (B*T, k) row ids of ``db``; rows at or past ``db.n_real`` are
     padding and cost the 1e6 sentinel): returns (their raw rows (B*T, k, W),
     target costs, ranking keys, identity mismatch flags or None).  A dead
     kernel slot (+inf score) costs +inf.  ``ling`` = (target codes, target
     contexts, weights) in halfphone mode ranks by
-    :func:`halfphone_exact_rank`; otherwise the key is the cost."""
+    :func:`halfphone_exact_rank` (stage "ling" of ``timer``); otherwise the
+    key is the cost."""
     kd = tw.shape[1]
     rows_c = db.raw[idx]                                         # (BT, k, W)
     cand = affine_rows(rows_c[..., :kd], db.mean_t, db.std_t, db.sqrt_wt,
@@ -401,25 +431,34 @@ def exact_scores(db: DeviceDB, tw, idx, scores, ling=None):
     if ling is None:
         return rows_c, ac, ac, None
     codes, ctx, weights = ling
-    mism = db.codes[idx] != codes[:, None]
-    return rows_c, ac, halfphone_exact_rank(sq, scores, mism, db.ctx[idx], ctx,
-                                            weights), mism
+    with _span(timer, "ling", tw.device):
+        mism = db.codes[idx] != codes[:, None]
+        rank = halfphone_exact_rank(sq, scores, mism, db.ctx[idx], ctx, weights)
+    return rows_c, ac, rank, mism
 
 
-def _rescore(db: DeviceDB, tw, idx, scores, live, n_cand, ling=None):
+def _rescore(db: DeviceDB, tw, idx, scores, live, n_cand, ling=None,
+             timer: utils.StageTimer | None = None, counts: dict | None = None):
     """Exact f32 rescoring of the preselected candidates
     (:func:`exact_scores`), then the canonical (score, unit id) order the
     float64 oracle uses; keeps ``n_cand``.  In halfphone mode (``ling``) the
     kept lattice costs go through :func:`halfphone_lattice_mask` (the JAX
-    batched step's form).  Returns (candidate ids, target costs, join-left,
-    join-right contexts)."""
+    batched step's form; stage "ling" of ``timer``) and ``counts`` (where
+    given) gets ``identity_fallbacks``, the live targets without a live
+    candidate of their own name.  Returns (candidate ids, target costs,
+    join-left, join-right contexts)."""
     zero = torch.zeros((), dtype=torch.float32, device=tw.device)
-    rows_c, ac, rank, mism = exact_scores(db, tw, idx, scores, ling)
+    rows_c, ac, rank, mism = exact_scores(db, tw, idx, scores, ling, timer)
     order = order_topk_positions(rank, idx, n_cand)
     cand_idx = torch.gather(idx, 1, order)
     target_costs = torch.gather(ac, 1, order)
     if ling is not None:
-        target_costs = halfphone_lattice_mask(target_costs, torch.gather(mism, 1, order))
+        with _span(timer, "ling", tw.device):
+            mism = torch.gather(mism, 1, order)
+            has_match = halfphone_has_match(target_costs, mism)
+            target_costs = halfphone_lattice_mask(target_costs, mism, has_match)
+            if counts is not None:
+                counts["identity_fallbacks"] = (live.reshape(-1) & ~has_match).sum()
     target_costs = torch.where(live.reshape(-1, 1), target_costs, zero)
     rows_sel = torch.gather(rows_c, 1, order[:, :, None].expand(-1, -1, rows_c.shape[2]))
     jl, jr = gather_join_contexts(rows_sel, db.raw, cand_idx, db.sqrt_wj.shape[0],
@@ -440,7 +479,12 @@ class Synthesiser:
     for "cuda" (it raises where there are fewer), the CPU repeated for
     "cpu", or the devices of a list given as ``device`` (repeats allowed:
     ``["cuda:0"] * 4`` runs a 2 x 2 mesh on one card); the single-device
-    paths run on its first."""
+    paths run on its first.
+
+    ``counters`` sums the program's counters over the single-device
+    ``synth_batch`` and ``synth_from_features`` calls: ``identity_fallbacks``
+    (halfphone voices), the live targets that kept no live candidate of
+    their own halfphone name."""
 
     def __init__(self, cfg: SnickeryConfig, db: VoiceDB | None = None,
                  device="cuda"):
@@ -466,6 +510,7 @@ class Synthesiser:
         self.cfg = cfg
         self._mesh = self._sharded_voice = None
         self.timer = utils.StageTimer()
+        self.counters: collections.Counter = collections.Counter()
         with self.timer.stage("load_db"):
             self.db = db if db is not None else VoiceDB.load(cfg.db_path)
         self.halfphone = self.db.target_representation == "halfphone"
@@ -712,27 +757,30 @@ class Synthesiser:
         t_bucket = utils.bucket_length(max(n for _, n in prepped),
                                        tuple(cfg.length_buckets))
         with self.timer.stage("pad"):
-            tgts = np.zeros((B, t_bucket, self.db.target_dim), np.float32)
+            # on a card, page-locked memory from the host allocator's cache:
+            # no fresh pages a call, and one transfer to the card
+            tgts_t = torch.empty((B, t_bucket, self.db.target_dim), dtype=torch.float32,
+                                 pin_memory=self.device.type == "cuda")
+            tgts = tgts_t.numpy()
             lengths = np.zeros(B, np.int64)
             codes = np.full((B, t_bucket), -1, np.int32)
             ctx = np.full((B, t_bucket, 5), -1, np.int32)
             vids = np.full((B, t_bucket), -1, np.int32)
             for b, (tu, n) in enumerate(prepped):
                 tgts[b, :n] = tu
+                tgts[b, n:] = 0
                 lengths[b] = n
-                if self.halfphone:
-                    segs = segments_list[b]
-                    codes[b, :n] = [self._unit_vocab.get(s.name, -1) for s in segs]
-                    ctx[b, :n] = [[self._phone_vocab.get(p, 0) for p in s.quinphone]
-                                  for s in segs]
-                else:
+                if not self.halfphone:
                     codes[b, :n] = 0
                     ctx[b, :n] = 0
                 vids[b, :n] = 0 if voice_ids is None else voice_ids[b]
+            if self.halfphone:
+                self._label_codes(segments_list, lengths, codes, ctx)
         dev = self.device
         with self.timer.stage("copy_in", dev):
-            tgts, lengths, codes, ctx, vids = (torch.from_numpy(a).to(dev) for a in
-                                               (tgts, lengths, codes, ctx, vids))
+            tgts = tgts_t.to(dev, non_blocking=True)
+            lengths, codes, ctx, vids = (torch.from_numpy(a).to(dev) for a in
+                                         (lengths, codes, ctx, vids))
         kwargs = dict(
             tgt_codes=codes, tgt_ctx=ctx, tgt_vids=vids,
             n_cand=min(cfg.n_candidates, self.n_units_padded),
@@ -749,16 +797,48 @@ class Synthesiser:
             do_ola=cfg.preload_all_waves)
         return tgts, lengths, kwargs
 
+    def _label_codes(self, segments_list: list, lengths: np.ndarray, codes: np.ndarray,
+                     ctx: np.ndarray) -> None:
+        """Fill the live steps of ``codes`` (B, T) and ``ctx`` (B, T, 5) with
+        each segment's halfphone code (-1 for a name the voice lacks) and
+        quinphone codes (a phone it lacks reads as "xx", code 0), in one
+        pass over the batch's segments."""
+        if [len(segs) for segs in segments_list] != lengths.tolist():
+            raise ValueError("each utterance needs one segment a halfphone target")
+        live = np.arange(codes.shape[1])[None, :] < lengths[:, None]
+        segs = [seg for segs in segments_list for seg in segs]
+        codes[live] = np.fromiter(map(self._unit_vocab.get, [seg.name for seg in segs],
+                                      itertools.repeat(-1)), np.int32, len(segs))
+        phones = itertools.chain.from_iterable(seg.quinphone for seg in segs)
+        ctx[live] = np.fromiter(map(self._phone_vocab.get, phones, itertools.repeat(0)),
+                                np.int32, 5 * len(segs)).reshape(-1, 5)
+
     def _run(self, prepped: list[tuple[np.ndarray, int]], greedy: bool,
              segments_list: list | None, voice_ids: list[int]) -> list[dict]:
         tgts, lengths, kwargs = self.batch_inputs(prepped, segments_list, voice_ids)
+        counts = {}
         with self.timer.stage("synth_step"):
-            out = synth_pipeline_step(self.device_db, tgts, lengths, greedy=greedy,
-                                      timer=self.timer, **kwargs)
+            unit_ids, costs, audio, totals = synth_pipeline_step(
+                self.device_db, tgts, lengths, greedy=greedy, timer=self.timer,
+                counts=counts, **kwargs)
             with self.timer.stage("copy_out", self.device):
-                unit_ids, costs, audio, totals = (t.cpu().numpy() for t in out)
+                if self.cfg.preload_all_waves:
+                    # each utterance's samples alone, end to end: the rows'
+                    # padding is neither copied nor kept alive by the waves
+                    audio = audio[torch.arange(audio.shape[1], device=audio.device)
+                                  < totals[:, None]]
+                if counts:
+                    # the step's counters come back in the totals' copy
+                    totals = torch.cat([totals, torch.stack(list(counts.values()))])
+                unit_ids, costs, totals = (t.cpu().numpy() for t in (unit_ids, costs, totals))
+                audio = _host_copy(audio)
+        B = len(prepped)
+        self.counters.update(dict(zip(counts, totals[B:].tolist())))
+        totals = totals[:B]
         self.timer.resolve()
-        return self._results(prepped, unit_ids, costs, audio, totals)
+        waves = (np.split(audio, np.cumsum(totals)[:-1]) if self.cfg.preload_all_waves
+                 else None)
+        return self._results(prepped, unit_ids, costs, waves)
 
     def _run_sharded(self, prepped: list[tuple[np.ndarray, int]], greedy: bool,
                      segments_list: list | None, voice_ids: list[int]) -> list[dict]:
@@ -782,15 +862,18 @@ class Synthesiser:
                 step_vids, kw.pop("tgt_codes"), kw.pop("tgt_ctx"), mesh=self._mesh,
                 greedy=greedy, **kw)
             unit_ids, costs, audio, totals = (t.cpu().numpy() for t in out)
-        return self._results(prepped, unit_ids, costs, audio, totals)
+        waves = ([audio[b, : int(totals[b])].copy() for b in range(len(prepped))]
+                 if self.cfg.preload_all_waves else None)
+        return self._results(prepped, unit_ids, costs, waves)
 
-    def _results(self, prepped, unit_ids, costs, audio, totals) -> list[dict]:
+    def _results(self, prepped, unit_ids, costs, waves) -> list[dict]:
+        """One result dict an utterance; ``waves`` its audio, or None where
+        the audio stays on the host (:meth:`_host_ola`)."""
         results = []
         with self.timer.stage("results"):
             for b, (_, n) in enumerate(prepped):
                 ids = unit_ids[b, :n].astype(np.int32)
-                wave = (audio[b, : int(totals[b])] if self.cfg.preload_all_waves
-                        else self._host_ola(ids))
+                wave = waves[b] if waves is not None else self._host_ola(ids)
                 results.append({"wave": wave, "unit_ids": ids,
                                 "total_cost": float(costs[b]), "n_units": int(n)})
         return results
@@ -832,9 +915,10 @@ class Synthesiser:
 
         The call is the host span "synth_batch" of ``timer``; on one device
         its stages follow in order: "prepare", "pad", "copy_in", then inside
-        "synth_step" the step's (:func:`synth_pipeline_step`) and
-        "copy_out", then "results".  Each device operation of the call lies
-        in one of "copy_in" .. "copy_out"."""
+        "synth_step" the step's (:func:`synth_pipeline_step`; "ling" inside
+        "preselect" and "rescore" for halfphone voices) and "copy_out", then
+        "results".  Each device operation of the call lies in one of
+        "copy_in" .. "copy_out"."""
         with self.timer.stage("synth_batch"):
             prepped, vids = self._prepare(feature_list, segments_list, voices)
             run = self._run if self.mesh_size == 1 else self._run_sharded
