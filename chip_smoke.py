@@ -318,11 +318,23 @@ DECODE_REPLACES = {
     "greedy_decode_stream": "snickery_tpu/synth.py:337 (lax.scan of _streaming_step)",
 }
 
+# the overlap-add kernel (ola_phase): the JAX package's scatter-add it replaces,
+# and each row of the kernels line: the kernel_ab case it is timed on, and the
+# prefixes of the main paths whose launches it counts ("overlap_add": all)
+OLA_REPLACES = {
+    "overlap_add": "snickery_tpu/ops/ola.py:108 (the scatter-add .at[...].add, :183)",
+}
+OLA_ROWS = {"overlap_add": ("ola_halfphone", ()),
+            "overlap_add@epoch": ("ola_epoch", ("config 3", "config-3")),
+            "overlap_add@stream": ("ola_epoch", ("config 4", "config-4"))}
+
 
 def kernel_source(name: str) -> str:
     """The .cu file that exports entry point ``name``."""
     if name in DECODE_REPLACES:
         return "snickery_tpu_torch/csrc/viterbi.cu"
+    if name in OLA_REPLACES:
+        return "snickery_tpu_torch/csrc/ola.cu"
     stem = "topk_preselect" if "_zt" in name else "topk_derived"
     sel = next((x for x in SELECT_LINES if name.endswith("_" + x)), None)
     return f"snickery_tpu_torch/csrc/{stem}{'_' + sel if sel else ''}.cu"
@@ -855,23 +867,29 @@ class Run:
         self.shapes: dict[str, str] = {}
         self.meshes: list[dict] = []        # phase 28's figures, one a mesh
 
-    def main_path(self, label: str, kernel: str, fn, decode=("viterbi_decode",)):
+    def main_path(self, label: str, kernel: str, fn, decode=("viterbi_decode",), ola=True):
         """Drive one main path with every count set to 0 just before and
-        read just after; its preselect kernel and each of its ``decode``
-        kernels (the decode launches count in the same counter) must have
-        launched.  The Viterbi launches of a path in :data:`SINGLE_PATHS`
-        (one utterance a launch) count for the ``@single`` row too."""
+        read just after; its preselect kernel, each of its ``decode``
+        kernels (the decode launches count in the same counter) and, with
+        ``ola`` (the audio made on the card), the overlap-add kernel must
+        have launched.  The Viterbi launches of a path in
+        :data:`SINGLE_PATHS` (one utterance a launch) count for the
+        ``@single`` row too, the overlap-add launches for each row of
+        :data:`OLA_ROWS` whose prefixes the label has."""
         counts = self.cuda_topk.LAUNCH_COUNTS
         counts.clear()
         out = fn()
         got = dict(counts)
         log(f"{label}: kernel launches {got}")
-        for name in (kernel, *decode):
+        for name in (kernel, *decode, *(("overlap_add",) if ola else ())):
             check(got.get(name, 0) > 0, f"{label} never launched {name}")
             self.launches[name] = self.launches.get(name, 0) + got[name]
         if label in SINGLE_PATHS:
             self.launches[SINGLE_ROW] = (self.launches.get(SINGLE_ROW, 0)
                                          + got["viterbi_decode"])
+        for row, (_, prefixes) in OLA_ROWS.items():
+            if ola and prefixes and label.startswith(prefixes):
+                self.launches[row] = self.launches.get(row, 0) + got["overlap_add"]
         return out
 
     def kernel_at(self, kernel, synth, tgts, kwargs, T_list, report=True, matmul=None):
@@ -1196,7 +1214,7 @@ def batch_lattice(synth, tgts, lengths, kwargs) -> dict:
         synth.device_db, tgts, lengths, kw["tgt_codes"], kw["tgt_ctx"], kw["tgt_vids"],
         n_cand=kw["n_cand"], margin=kw["margin"], halfphone=kw["halfphone"],
         multivoice=kw["multivoice"], ling_weights=kw["ling_weights"],
-        precision=kw["precision"], zero_transient=kw["zero_transient"], stage=None)
+        precision=kw["precision"], zero_transient=kw["zero_transient"])
     B, T = tgts.shape[:2]
     n, dj = cand.shape[1], jl.shape[-1]
     return dict(kind="viterbi", tc=tc.reshape(B, T, n).contiguous(),
@@ -1528,6 +1546,77 @@ def decode_phase(run: Run, lat: dict, smi: str) -> None:
                   64 * 8 + 4 * chunk["jl"].shape[-1], smi, reps=20, sync_free=True)
 
 
+# ------------------------------------------------------------- overlap-add
+def ola_inputs(torch, row: str):
+    """The wrapper's arguments of one :data:`OLA_ROWS` row on the card
+    (``kernel_ab.ola_case``; the stream row the epoch case's first
+    utterance cut to a chunk: T = 64, STREAM_CHUNK live, ``out_len`` as
+    ``synth_streaming`` sets it), with its fragment and output samples."""
+    from snickery_tpu_torch import kernel_ab
+    c = kernel_ab.ola_case(OLA_ROWS[row][0], torch.device("cuda"))
+    starts, ends, n_units, out_len = c["starts"], c["ends"], c["n_units"], c["out_len"]
+    if row.endswith("@stream"):
+        starts, ends = starts[:1, :64].contiguous(), ends[:1, :64].contiguous()
+        n_units = torch.full((1,), STREAM_CHUNK, dtype=torch.int64, device=starts.device)
+        out_len = -(-(64 * int((c["ends"] - c["starts"]).max()) + 2 * kernel_ab.OLA_TAPER)
+                    // 128) * 128
+    live = torch.arange(starts.shape[1], device=starts.device)[None, :] < n_units[:, None]
+    spans = int(torch.where(live, ends - starts, 0).sum())
+    t2 = 2 * kernel_ab.OLA_TAPER
+    args = (c["waves"], starts, ends, n_units, c["max_frag"], out_len, kernel_ab.OLA_TAPER,
+            c["scale"])
+    return args, spans + t2 * int(n_units.sum()), spans + t2 * starts.shape[0]
+
+
+def ola_phase(run: Run, smi: str) -> None:
+    """The overlap-add kernel against ``overlap_add_units_plain`` at each
+    :data:`OLA_ROWS` shape (the halfphone and epoch cells' steps and a
+    config-4 chunk): bit for bit with the plain version on a CPU copy of the
+    same inputs (both sum a sample's fragments in unit order from 0.0), to
+    1e-6 of the peak with it on the card (its ``index_add_`` adds in any
+    order), one launch a call and no host synchronisation; both timed with
+    CUDA events, the bound from ``benchmark/roofline.py``'s
+    ``ola_bound_ms``."""
+    from benchmark.roofline import ola_bound_ms
+    from snickery_tpu_torch.ops import ola
+    torch, counts = run.torch, run.cuda_topk.LAUNCH_COUNTS
+    with Phase("overlap-add kernel vs plain at the steps' and a chunk's shapes"):
+        for row in OLA_ROWS:
+            args, frag_samples, out_samples = ola_inputs(torch, row)
+            waves, starts = args[0], args[1]
+            ola.overlap_add_units(*args)
+            before = counts["overlap_add"]
+            audio, totals = no_sync(torch, lambda: ola.overlap_add_units(*args))
+            check(counts["overlap_add"] == before + 1, f"{row}: not one launch a call")
+            cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+            want, want_totals = ola.overlap_add_units_plain(*cpu)
+            got = audio.cpu()
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32))
+                  and torch.equal(totals.cpu(), want_totals),
+                  f"{row}: the kernel differs from the plain version on the CPU")
+            card, _ = ola.overlap_add_units_plain(*args)
+            peak = float(waves.abs().max() * args[7])
+            card_err = float((card - audio).abs().max())
+            check(card_err <= 1e-6 * peak, f"{row}: {card_err} from the plain version on the "
+                  f"card (peak {peak})")
+            del card
+            ms = time_ms(lambda: ola.overlap_add_units(*args), 20)
+            plain_ms = time_ms(lambda: ola.overlap_add_units_plain(*args), 3)
+            b_ms, b_by = ola_bound_ms(frag_samples, out_samples)
+            B, U = starts.shape
+            shape = (f"{B} x {U} units ({float(args[3].float().mean()):.1f} live on average), "
+                     f"max_frag {args[4]}, out_len {args[5]}, {waves.dtype}".replace("torch.", ""))
+            run.errs[row] = float((got - want).abs().max())
+            run.times[row], run.bounds[row] = (ms, plain_ms), (b_ms, b_by)
+            run.matmul[row], run.shapes[row] = None, shape
+            run.launches.setdefault(row, 0)
+            log(f"{row} at {shape}: kernel {ms:.4f} ms, plain on the card {plain_ms:.2f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by}), bit-equal to the plain version on the CPU, "
+                f"{card_err:.3e} from it on the card [{smi}]")
+            del args, audio, totals, want, got
+            torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ meshes
 def mesh_devices(torch, n: int):
     """(members, how): cards 0..n-1 where the machine has n, else card 0
@@ -1591,6 +1680,8 @@ def mesh_batch(run: Run, label, kernel, synth, db, feats, ref, voices=None, step
             log(f"{label}: ms/step {[round(w, 1) for w in walls]} (the first a warm-up), "
                 f"{audio_s:.1f} s audio/step, RTF {walls[-1] / 1e3 / audio_s:.6f}")
             want = {kernel: steps * n_mem, "viterbi_decode": steps * n_mem}
+            if cfg.preload_all_waves:
+                want["overlap_add"] = steps * n_mem
             check(got == want, f"{label}: launches {got}, want {want}")
             for r in out:
                 check_result(db, r)
@@ -1803,7 +1894,7 @@ def capacity(run: Run, db, held):
                 f"(torch.cuda.max_memory_allocated)")
         return out
 
-    out = run.main_path("capacity", "topk_preselect_zt_split3", drive)
+    out = run.main_path("capacity", "topk_preselect_zt_split3", drive, ola=False)
     tgts, lengths, kwargs = synth.batch_inputs([synth.targets_from_features(f) for f in feats])
     stage_split("capacity B=8", synth, tgts, lengths, kwargs)
     t0 = time.perf_counter()
@@ -3144,6 +3235,7 @@ def main() -> int:
         sweep_path(run)
     with Phase("selection variants vs plain at the sweep's small shape"):
         selects_at_sweep_shape(run)
+    ola_phase(run, smi)
     db, held, short, out32, lattice = config3(run)
     decode_phase(run, lattice, smi)
     del lattice
@@ -3195,7 +3287,7 @@ def main() -> int:
 
     log(f"chip_smoke.py: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"meshes": run.meshes}))
-    replaces = {**REPLACES, **DECODE_REPLACES}
+    replaces = {**REPLACES, **DECODE_REPLACES, **OLA_REPLACES}
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": kernel_source(name.split("@")[0]),
         "replaces": replaces[name.split("@")[0]], "launches": run.launches[name],
@@ -3203,7 +3295,8 @@ def main() -> int:
         "plain_ms": run.times[name][1], "bound_ms": run.bounds[name][0],
         "bound_by": run.bounds[name][1], "library_ms": None,
         "matmul_ms": run.matmul[name], "shape": run.shapes[name]}
-        for name in (*REPLACES, ME2_ROW, *REAL_ROWS, *DECODE_REPLACES, SINGLE_ROW)]}))
+        for name in (*REPLACES, ME2_ROW, *REAL_ROWS, *DECODE_REPLACES, SINGLE_ROW,
+                     *OLA_ROWS)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,6 +58,19 @@ H100 80GB HBM3; the Viterbi kept their summation order, so
 ``chip_smoke.py`` holds its cases to them (greedy now sums a distance in
 one thread, where they summed it over a warp).
 
+The overlap-add cases (:data:`OLA_AB_CASES`, numpy-seeded cut points
+anywhere in a seeded f32 corpus, taper 50, through the public wrapper
+``overlap_add_units`` only, so that the file runs in an older tree): the
+halfphone cell's step (512 utterances of 20-64 halfphones, log-normal about
+44, spans of 1,000-1,400 samples) and the epoch cell's (32 utterances of
+2,048 live epochs of 80-400 samples), at the synthesiser's ``max_frag`` and
+``out_len``.  Each prints the median time of ``--reps`` calls, the time of
+``overlap_add_units_plain`` on the card where the tree has it, the largest
+difference between the two, the launches of ``overlap_add`` a call, the
+device memory each call takes above what it returns, the SHA-256 of the
+audio and of the totals, and the samples the bound counts (the live
+fragments' and the live output's).
+
 :data:`FIRST_DESIGN_DIGESTS` records what the first design of the kernels
 (64 x 64 tiles, a dense selection after every tile) printed for the two
 "highest" cases, and :data:`PR9_DIGESTS` what the kernels of PR 9 (PR 7's
@@ -146,6 +159,13 @@ DECODE_AB_CASES = {
     "decode_viterbi_single": ("viterbi", 1, 650, 30, KD, "full", 0.0),
 }
 DECODE_JCW = 0.7
+# overlap-add cases: name: (B, U, spans [lo, hi), live units (median, sigma, min, max) or
+# None for all, corpus seconds at 16 kHz)
+OLA_AB_CASES = {
+    "ola_halfphone": (512, 64, (1000, 1400), (44, 0.25, 20, 64), 3735.6),
+    "ola_epoch": (32, 2048, (80, 400), None, 1590 * 6.0),
+}
+OLA_TAPER = 50
 # case: (paths_sha256, totals_sha256) of the first decode kernels
 PR13_DECODE_DIGESTS = {
     "decode_viterbi_config3": ("8189674c28a28a20", "25f986cfd474445d"),
@@ -383,6 +403,79 @@ def run_decode_cases(label: str = "change", reps: int = 10, only=()) -> list[dic
     return lines
 
 
+def ola_case(name: str, dev) -> dict:
+    """One of :data:`OLA_AB_CASES` on ``dev``, made with numpy from a seed of
+    its name: the wrapper's arguments, ``max_frag`` and ``out_len`` as the
+    synthesiser sets them (``utils.next_multiple`` of the longest span plus
+    2 taper, and of U spans plus 2 taper, to 128)."""
+    B, U, (lo, hi), live, seconds = OLA_AB_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    S = int(seconds * 16000)
+    spans = rng.integers(lo, hi, size=(B, U))
+    starts = rng.integers(0, S - hi, size=(B, U))
+    if live is None:
+        n_units = np.full(B, U)
+    else:
+        med, sigma, n_lo, n_hi = live
+        n_units = np.clip(np.round(med * np.exp(sigma * rng.standard_normal(B))), n_lo, n_hi)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    max_span, t2 = int(spans.max()), 2 * OLA_TAPER
+    n_units = n_units.astype(np.int64)
+    live_spans = np.where(np.arange(U)[None, :] < n_units[:, None], spans, 0)
+    return dict(waves=to(rng.standard_normal(S, dtype=np.float32)), starts=to(starts),
+                ends=to(starts + spans), n_units=to(n_units),
+                scale=torch.ones((), dtype=torch.float32, device=dev),
+                max_frag=-(-(max_span + t2) // 128) * 128,
+                out_len=-(-(U * max_span + t2) // 128) * 128,
+                fragment_samples=int(live_spans.sum() + t2 * n_units.sum()),
+                out_samples=int(live_spans.sum() + t2 * B))
+
+
+def run_ola_cases(label: str = "change", reps: int = 10, only=()) -> list[dict]:
+    """Time and digest the overlap-add cases named in ``only`` (all if
+    empty) on the current CUDA device, one dict a case."""
+    from snickery_tpu_torch.ops import ola
+    dev = torch.device("cuda")
+    card = card_line()
+    lines = []
+    for name in OLA_AB_CASES:
+        if only and name not in only:
+            continue
+        c = ola_case(name, dev)
+        args = (c["waves"], c["starts"], c["ends"], c["n_units"], c["max_frag"], c["out_len"],
+                OLA_TAPER, c["scale"])
+
+        def extra_mib(fn):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            held = sum(x.numel() * x.element_size() for x in out)
+            return (torch.cuda.max_memory_allocated() - base - held) / 2**20
+
+        before = cuda_topk.LAUNCH_COUNTS["overlap_add"]
+        ms, (audio, totals) = sweep_topk.time_call(lambda: ola.overlap_add_units(*args), reps,
+                                                   dev)
+        line = {"label": label, "case": name, "B": c["n_units"].numel(),
+                "U": c["starts"].shape[1], "max_frag": c["max_frag"], "out_len": c["out_len"],
+                "ms": ms, "launches_per_call": (cuda_topk.LAUNCH_COUNTS["overlap_add"] - before)
+                / (reps + 1), "extra_mib": extra_mib(ola.overlap_add_units),
+                "audio_sha256": digest(audio), "totals_sha256": digest(totals),
+                "fragment_samples": c["fragment_samples"], "out_samples": c["out_samples"],
+                "card": card}
+        plain = getattr(ola, "overlap_add_units_plain", None)
+        if plain is not None:
+            line["plain_ms"], (p_audio, _) = sweep_topk.time_call(lambda: plain(*args), reps, dev)
+            line["plain_max_abs_diff"] = float((p_audio - audio).abs().max())
+            line["plain_extra_mib"] = extra_mib(plain)
+            del p_audio
+        lines.append(line)
+        del c, audio, totals
+        torch.cuda.empty_cache()
+    return lines
+
+
 def run_cases(label: str = "change", reps: int = 3, only=(), split: bool = False) -> list[dict]:
     """Time and digest the cases named in ``only`` (all if empty) on the
     current CUDA device; one dict a case (the JSON lines of the module),
@@ -411,7 +504,8 @@ def main(argv=None) -> int:
     ap.add_argument("--label", default="change")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--only", default="",
-                    help="comma list of case names, preselect or decode (default: all)")
+                    help="comma list of case names, preselect, decode or overlap-add "
+                         "(default: all)")
     ap.add_argument("--split", action="store_true",
                     help="also time pass 1 and pass 2 apart, over the k-sweep")
     ap.add_argument("--out", default="", help="also append the JSON lines to this file")
@@ -420,11 +514,13 @@ def main(argv=None) -> int:
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     only = set(filter(None, args.only.split(",")))
-    unknown = only - set(ALL_CASES) - set(DECODE_AB_CASES)
+    unknown = only - set(ALL_CASES) - set(DECODE_AB_CASES) - set(OLA_AB_CASES)
     if unknown:
-        ap.error(f"unknown cases {sorted(unknown)}; have {ALL_CASES + tuple(DECODE_AB_CASES)}")
+        ap.error(f"unknown cases {sorted(unknown)}; have "
+                 f"{ALL_CASES + tuple(DECODE_AB_CASES) + tuple(OLA_AB_CASES)}")
     pre = only & set(ALL_CASES) if only else set(ALL_CASES)
     dec = only & set(DECODE_AB_CASES) if only else set(DECODE_AB_CASES)
+    olas = only & set(OLA_AB_CASES) if only else set(OLA_AB_CASES)
     lines = run_cases(args.label, args.reps, pre, args.split) if pre else []
     if pre and hasattr(cuda_topk, "max_active_clusters"):
         lines.append({"label": args.label, "case": "occupancy", "kd": KD, "k": 48,
@@ -433,6 +529,8 @@ def main(argv=None) -> int:
                       "card": card_line()})
     if dec:
         lines += run_decode_cases(args.label, args.reps, dec)
+    if olas:
+        lines += run_ola_cases(args.label, args.reps, olas)
     for line in lines:
         print(json.dumps(line), flush=True)
         if args.out:

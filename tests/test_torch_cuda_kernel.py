@@ -464,7 +464,8 @@ def test_derived_synthesiser_on_card_matches_cpu(cuda_device, precision):
     operand derived on the card, the derived kernel, rescore, Viterbi, OLA)
     gives the CPU path's unit ids and audio (atol 1e-5), and so does a
     stream at split3cat; of the preselect entry points only the derived one
-    launches, once, beside one launch of the Viterbi kernel."""
+    launches, once, beside one launch each of the Viterbi and the
+    overlap-add kernels."""
     cfg = _epoch_config(preselect_precision=precision, zero_transient=0)
     db = build_voicedb(cfg, _utterances(1, 40, 202))
     held = [u.features for u in _utterances(2, 3, 258)]
@@ -473,7 +474,7 @@ def test_derived_synthesiser_on_card_matches_cpu(cuda_device, precision):
     before = dict(cuda_topk.LAUNCH_COUNTS)
     out_g = gpu.synth_batch(held)
     after = dict(cuda_topk.LAUNCH_COUNTS)
-    want = {name: 1, "viterbi_decode": 1}
+    want = {name: 1, "viterbi_decode": 1, "overlap_add": 1}
     if precision == "split3":            # f32 rows, many target tiles: a clustered launch
         want[f"{name}.cluster{cuda_topk.CLUSTER_CTAS}"] = 1
     assert {n: after[n] - before.get(n, 0) for n in after if after[n] != before.get(n, 0)} == want
